@@ -1,0 +1,113 @@
+"""Servable export (counterpart of ``elasticdl_tpu/serving/export.py``).
+
+Export layout (format ``elasticdl_tpu_torch_servable_v1``)::
+
+    export_dir/
+      manifest.json   format tag, model name/version, input signature,
+                      parameter names, and the zoo entry that rebuilds
+                      the module: {"module": ..., "model_params": ...}
+      model.npz       {slash/joined/name: ndarray} in the JAX package's
+                      flat names and layouts (``params_to_jax``)
+
+There is no traced program: the loader rebuilds the module from the
+port's own zoo and loads the weights into it.  Because the weights use
+the JAX package's names and layouts, the same ``model.npz`` loads into
+either package.
+"""
+
+import io
+import json
+import os
+import shutil
+
+import numpy as np
+
+from elasticdl_tpu_torch.models.spec import load_model_spec
+from elasticdl_tpu_torch.utils.logging import get_logger
+
+logger = get_logger(__name__)
+
+FORMAT = "elasticdl_tpu_torch_servable_v1"
+
+
+def _fsync_dir(path):
+    dirfd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(dirfd)
+    finally:
+        os.close(dirfd)
+
+
+def publish_export(export_dir, files):
+    """Atomically materialize ``files`` ({name: bytes}) as ``export_dir``.
+
+    Stage into a ``<dir>.tmp-<pid>`` sibling, fsync every file and the
+    staged dir, ``os.rename`` into place and fsync the parent: a crash at
+    any instant leaves either no version dir or a complete one, never a
+    torn one.  An existing non-empty ``export_dir`` is swapped out whole
+    (old renamed aside to ``<dir>.old-<pid>``, fresh renamed in, old
+    removed); that swap is not single-rename atomic, so versioned
+    publishers never re-publish a complete ``<base>/<N>/``.
+    """
+    export_dir = os.path.normpath(export_dir)
+    parent = os.path.dirname(export_dir) or "."
+    os.makedirs(parent, exist_ok=True)
+    tmp = "%s.tmp-%d" % (export_dir, os.getpid())
+    shutil.rmtree(tmp, ignore_errors=True)
+    os.makedirs(tmp)
+    try:
+        for name, blob in files.items():
+            with open(os.path.join(tmp, name), "wb") as f:
+                f.write(blob)
+                f.flush()
+                os.fsync(f.fileno())
+        _fsync_dir(tmp)
+        try:
+            os.rename(tmp, export_dir)
+        except OSError:
+            # Destination exists and is non-empty: swap it out whole.
+            old = "%s.old-%d" % (export_dir, os.getpid())
+            shutil.rmtree(old, ignore_errors=True)
+            os.rename(export_dir, old)
+            os.rename(tmp, export_dir)
+            shutil.rmtree(old, ignore_errors=True)
+        _fsync_dir(parent)
+    except BaseException:
+        shutil.rmtree(tmp, ignore_errors=True)
+        raise
+
+
+def _npz_bytes(payload):
+    buf = io.BytesIO()
+    np.savez(buf, **payload)
+    return buf.getvalue()
+
+
+def export_servable(export_dir, spec_name, model_params, module,
+                    example_input, model_name="", version=0):
+    """Write a servable export of ``module``.
+
+    ``spec_name`` / ``model_params``: the zoo entry that rebuilds the
+    module (``load_model_spec(spec_name, model_params)``), recorded in
+    the manifest.  ``example_input``: an ndarray fixing the serving
+    signature; its leading (batch) dim is recorded as free.  Returns the
+    manifest."""
+    spec = load_model_spec(spec_name, model_params)
+    flat = spec.params_to_jax(module)
+    example = np.asarray(example_input)
+    manifest = {
+        "format": FORMAT,
+        "model_name": model_name,
+        "version": version,
+        "parameters": sorted(flat),
+        "input_signature": {"shape": [None] + list(example.shape[1:]),
+                            "dtype": str(example.dtype)},
+        "zoo": {"module": spec_name, "model_params": model_params},
+        "loader": "elasticdl_tpu_torch.serving.loader:load_servable",
+    }
+    publish_export(export_dir, {
+        "model.npz": _npz_bytes(flat),
+        "manifest.json": json.dumps(manifest, indent=2).encode(),
+    })
+    logger.info("servable export at %s (%d tensors)", export_dir, len(flat))
+    return manifest

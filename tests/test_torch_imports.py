@@ -1,0 +1,46 @@
+"""The port package imports torch and never JAX, flax, optax or the JAX
+package, and resolves its device without falling back to the CPU."""
+
+import json
+import os
+import subprocess
+import sys
+
+import pytest
+import torch
+
+from elasticdl_tpu_torch.utils import device as device_mod
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+
+_PROBE = r"""
+import json, pkgutil, importlib, sys
+import elasticdl_tpu_torch
+names = [m.name for m in pkgutil.walk_packages(
+    elasticdl_tpu_torch.__path__, "elasticdl_tpu_torch.")]
+for name in names:
+    importlib.import_module(name)
+banned = sorted(m for m in sys.modules
+                if m.split(".")[0] in ("jax", "jaxlib", "flax", "optax",
+                                       "elasticdl_tpu"))
+print(json.dumps({"modules": names, "banned": banned}))
+"""
+
+
+def test_port_imports_no_jax_and_nothing_of_the_jax_package():
+    out = subprocess.run(
+        [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
+        text=True, timeout=120, check=True)
+    result = json.loads(out.stdout.strip().splitlines()[-1])
+    assert "elasticdl_tpu_torch.serving.server" in result["modules"]
+    assert "elasticdl_tpu_torch.ops.group_norm" in result["modules"]
+    assert result["banned"] == []
+
+
+def test_cuda_requested_without_a_card_raises(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        device_mod.resolve_device("cuda")
+    with pytest.raises(RuntimeError):
+        device_mod.resolve_device(None)      # the default is the card
+    assert device_mod.resolve_device("cpu") == torch.device("cpu")
