@@ -7,35 +7,66 @@ and check it end to end.  Run from the root of a checkout:
 Phases, in order; any failure exits non-zero:
 
  1. device: the card's name and power limit (nvidia-smi);
- 2. build: every kernel in elasticdl_tpu_torch/ops/csrc/, with nvcc;
- 3. kernel against plain: the GroupNorm kernel against its plain
-    PyTorch version on the card at every GroupNorm shape of ResNet-50,
-    at the served batch (4) and at batch 32, float32 and bfloat16, ReLU
-    off and on, plus a large-mean case; then, at batch 32 and per shape,
-    the kernel's time, the plain version's, F.group_norm's (a yardstick
-    the port never calls) and the bound;
- 4. end to end: a seeded ResNet-50 (224x224x3 in, 1000 classes) is
-    exported with the port's exporter, served by the port's HTTP server
-    on the card, and answers three :predict requests of four images;
+ 2. build: every kernel in elasticdl_tpu_torch/ops/csrc/, with nvcc, one
+    process per source, all started together;
+ 3. forward kernel against plain: the GroupNorm forward (B1) against its
+    plain PyTorch version at every GroupNorm shape of ResNet-50, at the
+    served batch (4) and at batch 32 in float32 and bfloat16 and at
+    bench.py's batch (128) in bfloat16, ReLU off and on, plus a
+    large-mean case; then, at batch 32 and per shape, the kernel's time,
+    the plain version's, F.group_norm's (a yardstick the port never
+    calls) and the bound;
+ 4. backward kernel against plain: the GroupNorm backward (B2) against
+    its plain version (``_bwd_ref``) at every shape, at batch 32 in
+    float32 and bfloat16 and at batch 128 in bfloat16, ReLU as the model
+    uses it; two runs must be bitwise equal; then per shape at batch 32
+    the kernel's time, the plain version's, the backward alone of
+    F.group_norm + ReLU through autograd, and the bound;
+ 5. serving: a seeded ResNet-50 (224x224x3 in, 1000 classes) is exported
+    with the port's exporter, served by the port's HTTP server on the
+    card, and answers three :predict requests of four images;
     predictions must match the same module run with the plain GroupNorm,
-    and the kernel must have launched 53 times per forward;
- 5. forward: the served module's forward at batch 4 and 32 with the
+    and the forward kernel must have launched 53 times per forward;
+ 6. forward: the served module's forward at batch 4 and 32 with the
     kernel and with the plain GroupNorm, in turns;
- 6. one JSON line of kernels, then the card's name and power limit, then
+ 7. training: ResNet-50 at full size trained through the port's
+    CollectiveTrainer from seeded random weights, batch 32, float32 with
+    TF32 off: 3 steps with the kernels and 3 with the plain GroupNorm
+    (losses and step-1 gradients compared; every parameter must get a
+    gradient; 53 forward + 53 backward launches per step); 10 steps on
+    one batch (the loss must fall); a checkpoint restored into a fresh
+    trainer must hold the same parameters and SGD momentum and give the
+    same next loss; then bench.py's setting, batch 128 with bf16
+    compute: in two warm-up steps every GroupNorm call, forward and
+    backward, is held against its plain version on the activations and
+    gradients the path gives it; then ms per step and images/s;
+ 8. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
- - kernel vs plain, float32: 2e-5 / 2e-5, the JAX package's own forward
-   tolerance (the two reduce in f32 in different orders);
- - kernel vs plain, bfloat16: 3e-2 / 3e-2 (both round the same f32 value
-   to bf16; a value near a rounding boundary may land one bf16 ulp,
-   2^-7 relative at most, apart);
+ - forward kernel vs plain, float32: 2e-5 / 2e-5, the JAX package's own
+   forward tolerance (the two reduce in f32 in different orders);
+ - forward, bfloat16: 3e-2 / 3e-2 (both round the same f32 value to
+   bf16; a value near a rounding boundary may land one bf16 ulp, 2^-7
+   relative at most, apart);
  - mean and rstd, both dtypes: 2e-5 / 2e-5 (f32 statistics);
  - large mean (1e4 + N(0, 1)), float32, against float64: 1e-2 / 1e-2,
    as the JAX package's stability test;
+ - backward dx, float32: 3e-5 / 3e-4, the JAX package's gradient
+   tolerance; bfloat16: 3e-2 / 3e-2 (one bf16 rounding of dx);
+   dscale and dbias (f32 sums over B x HW terms in either dtype):
+   1e-4 x their largest entry, absolute;
  - served logits vs the plain-GroupNorm module: 1e-3 * max|logit|
    absolute.  Convs run in float32 with TF32 off on both sides; the GN
-   outputs differ by f32 rounding, carried through 53 layers.
+   outputs differ by f32 rounding, carried through 53 layers;
+ - training, kernels vs plain GroupNorm: losses at rtol TRAIN_LOSS_RTOL;
+   each step-1 gradient leaf against the plain path and against a
+   float64 reference; see TRAIN_GRAD_RTOL for why;
+ - bench setting, each GroupNorm call against its plain version on the
+   path's own tensors: the tolerances above, with every absolute one
+   scaled by the size of what it bounds (y, dx, dscale and dbias by
+   their largest plain entry, the mean by the largest |x|), since
+   activations and gradients of a real step are not of unit size.
 """
 
 import argparse
@@ -61,6 +92,9 @@ F32_FLOPS_PER_S = 67e12        # H100 SXM, float32 outside tensor cores
 SPIN_CYCLES = 2_000_000        # about 1 ms at the H100's clock
 FLOPS_PER_ELEMENT = 7          # stats: sub, add, fma; normalize: fma, max;
                                # the two converts of bf16
+BWD_FLOPS_PER_ELEMENT = 15     # mask: fma, compare; s1: add; s2: sub, mul,
+                               # fma; dx: sub, mul, mul, sub, mul, sub,
+                               # mul; the three converts of bf16
 # ResNet-50 at 224x224: (HW, C, ReLU as the model uses it, calls per
 # forward).  1 stem + 3 in each of 16 bottlenecks + 4 shortcuts = 53.
 RESNET50_GN = [
@@ -79,6 +113,33 @@ RESNET50_GN = [
 ]
 GN_PER_FORWARD = 53
 TOL = {"float32": (2e-5, 2e-5), "bfloat16": (3e-2, 3e-2)}
+BWD_TOL = {"float32": (3e-5, 3e-4), "bfloat16": (3e-2, 3e-2)}
+TRAIN_LR = 1e-3              # seeded random weights: 1e-2 is chaotic
+TRAIN_STEPS = 3                # kernels vs plain GroupNorm
+FALL_STEPS = 10                # one batch, repeated
+BENCH_BATCH = 128              # bench.py's resnet50_train_throughput
+BENCH_STEPS = 10
+# (batch, dtypes) of the kernel checks against plain: the served batch,
+# bench.py's training batch in bfloat16, and the kernel table's batch
+# (last: its tensors are the ones timed).
+CHECK_BATCHES = ((SERVE_BATCH, ("float32", "bfloat16")),
+                 (BENCH_BATCH, ("bfloat16",)),
+                 (BATCH, ("float32", "bfloat16")))
+# Kernels vs plain GroupNorm in training, float32 with TF32 off on both
+# sides.  The two GroupNorms round differently (sums in other orders),
+# by about 1e-6 relative per call; 53 layers forward and back carry that
+# into the loss and the gradients.  Losses agree to about 1e-6.  The
+# step-1 gradients of seeded random weights are far more sensitive: the
+# phase also computes them in float64 (model, GroupNorm and loss), and
+# the plain float32 path alone lies up to about 8e-3 (norm-relative,
+# ||g - g64|| / ||g64||) from them on the early GroupNorm and conv
+# leaves, the kernel path as far; two float32 paths with independent
+# rounding then differ by up to about 1e-2.  A leaf fails at 2e-2 against
+# the plain path, or at 3x the plain path's own distance from float64
+# (plus 1e-4) against float64: a kernel off by more than rounding (a
+# dropped ReLU mask, a wrong group mean) moves a leaf by O(1).
+TRAIN_LOSS_RTOL = 1e-4
+TRAIN_GRAD_RTOL = 2e-2
 
 
 def fail(msg):
@@ -106,7 +167,7 @@ def nvidia_smi_line():
     return out.stdout.strip().splitlines()[0]
 
 
-def time_ms(torch, fn, flush, reps=30):
+def time_ms(torch, fn, flush, reps=15):
     """Median device time of one call, by CUDA events.  Before each call
     the L2 is flushed (a 256 MB write exceeds the 50 MB L2) and the card
     spins for about a millisecond, so the host has queued the whole call
@@ -128,38 +189,58 @@ def time_ms(torch, fn, flush, reps=30):
     return float(np.median([s.elapsed_time(e) for s, e in events]))
 
 
-def bound(B, HW, C, esize):
-    """The least time for one call: x read once and y written once (in
-    x's dtype), scale and bias read, mean and rstd written (f32), over
-    the memory rate; or the operations over the f32 rate, if larger."""
-    nbytes = 2 * B * HW * C * esize + 2 * C * 4 + 2 * B * C * 4
+def bound(B, HW, C, esize, backward=False):
+    """The least time for one call, over the memory rate or the f32
+    rate, whichever is larger.  Forward: x read, y written (x's dtype),
+    scale and bias read, mean and rstd written (f32).  Backward: x and
+    dy read, dx written, scale, bias, mean and rstd read, dscale and
+    dbias written."""
+    big = (3 if backward else 2) * B * HW * C * esize
+    nbytes = big + 2 * C * 4 + 2 * B * C * 4 + (2 * C * 4 if backward
+                                                   else 0)
+    flops = BWD_FLOPS_PER_ELEMENT if backward else FLOPS_PER_ELEMENT
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
-    ops_ms = FLOPS_PER_ELEMENT * B * HW * C / F32_FLOPS_PER_S * 1e3
+    ops_ms = flops * B * HW * C / F32_FLOPS_PER_S * 1e3
     return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
             "ops_ms": ops_ms,
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
+def add_row(rows, totals, row, count):
+    rows.append(row)
+    for key in totals[row["dtype"]]:
+        totals[row["dtype"]][key] += count * row[key]
+
+
+def new_totals():
+    return {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                   "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+            for name in ("float32", "bfloat16")}
+
+
+def finish_totals(totals):
+    for tot in totals.values():
+        tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
+                           else "operations")
+
+
 def kernel_phase(torch, gn):
     """Kernel against plain at every ResNet-50 GroupNorm shape, at the
-    served batch and at batch 32; times at batch 32 in both dtypes."""
+    batches of CHECK_BATCHES; times at batch 32 in both dtypes."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
-    totals = {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                     "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-              for name in max_err}
+    totals = new_totals()
     for HW, C, model_relu, count in RESNET50_GN:
-        for batch in (SERVE_BATCH, BATCH):
+        for batch, names in CHECK_BATCHES:
             x = torch.randn(batch, HW, C, generator=gen, device=dev)
             scale = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
             bias = 0.1 * torch.randn(C, generator=gen, device=dev)
-            for dtype in (torch.float32, torch.bfloat16):
-                xd = x.to(dtype)
-                name = str(dtype).replace("torch.", "")
+            for name in names:
+                xd = x.to(getattr(torch, name))
                 atol, rtol = TOL[name]
                 for relu in (False, True):
                     got = gn.group_norm_fwd(xd, scale, bias, GROUPS,
@@ -199,17 +280,13 @@ def kernel_phase(torch, gn):
                    "plain_ms": time_ms(torch, plain, flush),
                    "library_ms": time_ms(torch, library, flush)}
             row.update(bound(BATCH, HW, C, xd.element_size()))
-            rows.append(row)
-            for key in totals[name]:
-                totals[name][key] += count * row[key]
+            add_row(rows, totals, row, count)
             print("time B=%d HW=%d C=%d %s relu=%s x%d: kernel %.4f ms, "
                   "plain %.4f ms, F.group_norm %.4f ms, bound %.4f ms (%s)"
                   % (BATCH, HW, C, name, relu, count, row["ms"],
                      row["plain_ms"], row["library_ms"], row["bound_ms"],
                      row["bound_by"]))
-    for tot in totals.values():
-        tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
-                           else "operations")
+    finish_totals(totals)
 
     # Large mean: 1e4 + N(0, 1), against float64.
     x = 1e4 + torch.randn(BATCH, 56 * 56, 256, generator=gen, device=dev)
@@ -223,6 +300,162 @@ def kernel_phase(torch, gn):
     err = check_close("group_norm large mean", y, truth, 1e-2, 1e-2)
     print("check %-48s max_abs_err %.3g" % ("large mean 1e4 std 1", err))
     return rows, max_err, totals
+
+
+def check_bwd(torch, gn, args, name):
+    """The backward kernel against ``_bwd_ref`` on ``args``, and two
+    runs bitwise equal; returns dx's max abs error."""
+    x = args[0]
+    what = "group_norm_bwd B=%d HW=%d C=%d %s relu=%s" % (
+        tuple(x.shape) + (name, args[-1]))
+    got = gn.group_norm_bwd(*args)
+    again = gn.group_norm_bwd(*args)
+    torch.cuda.synchronize()
+    for a, b in zip(got, again):
+        if not torch.equal(a, b):
+            fail("%s: two runs are not bitwise equal" % what)
+    ref = gn._bwd_ref(*args)
+    atol, rtol = BWD_TOL[name]
+    err = check_close(what + " dx", got[0], ref[0], atol, rtol)
+    for part, g, r in (("dscale", got[1], ref[1]),
+                       ("dbias", got[2], ref[2])):
+        check_close("%s %s" % (what, part), g, r,
+                    1e-4 * float(r.abs().max()), 0.0)
+    print("check %-58s max_abs_err %.3g, bitwise-deterministic"
+          % (what, err))
+    return err
+
+
+def backward_phase(torch, gn):
+    """Backward kernel against plain at every ResNet-50 GroupNorm shape,
+    ReLU as the model uses it, at the batches of CHECK_BATCHES but the
+    served one; bitwise equal across two runs; times per shape at batch
+    32."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(1)
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
+    totals = new_totals()
+    for HW, C, relu, count in RESNET50_GN:
+        for batch, names in CHECK_BATCHES[1:]:
+            x = torch.randn(batch, HW, C, generator=gen, device=dev)
+            dy = torch.randn(batch, HW, C, generator=gen, device=dev)
+            scale = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
+            bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+            for name in names:
+                xd, dyd = x.to(getattr(torch, name)), dy.to(
+                    getattr(torch, name))
+                _, mean, rstd = gn.group_norm_fwd(xd, scale, bias, GROUPS,
+                                                  relu=relu)
+                args = (xd, dyd, scale, bias, mean, rstd, GROUPS, 1e-6,
+                        relu)
+                max_err[name] = max(max_err[name],
+                                    check_bwd(torch, gn, args, name))
+        # x, dy, scale and bias are the batch-32 tensors here.
+        for dtype in (torch.float32, torch.bfloat16):
+            xd, dyd = x.to(dtype), dy.to(dtype)
+            name = str(dtype).replace("torch.", "")
+            _, mean, rstd = gn.group_norm_fwd(xd, scale, bias, GROUPS,
+                                              relu=relu)
+            args = (xd, dyd, scale, bias, mean, rstd, GROUPS, 1e-6, relu)
+
+            def kernel():
+                gn.group_norm_bwd(*args)
+
+            def plain():
+                gn._bwd_ref(*args)
+
+            # The backward alone of F.group_norm + ReLU on the permuted
+            # input, through autograd (the graph is built once).
+            xl = xd.permute(0, 2, 1).detach().requires_grad_()
+            w = scale.to(dtype, copy=True).requires_grad_()
+            b = bias.to(dtype, copy=True).requires_grad_()
+            y = F.group_norm(xl, GROUPS, w, b, 1e-6)
+            if relu:
+                y = torch.relu(y)
+            dyl = dyd.permute(0, 2, 1)
+
+            def library():
+                torch.autograd.grad(y, (xl, w, b), dyl, retain_graph=True)
+
+            row = {"HW": HW, "C": C, "dtype": name, "relu": relu,
+                   "per_step": count,
+                   "ms": time_ms(torch, kernel, flush),
+                   "plain_ms": time_ms(torch, plain, flush),
+                   "library_ms": time_ms(torch, library, flush)}
+            row.update(bound(BATCH, HW, C, xd.element_size(),
+                             backward=True))
+            add_row(rows, totals, row, count)
+            print("time bwd B=%d HW=%d C=%d %s relu=%s x%d: kernel %.4f ms, "
+                  "plain %.4f ms, F.group_norm backward %.4f ms, bound "
+                  "%.4f ms (%s)" % (BATCH, HW, C, name, relu, count,
+                                    row["ms"], row["plain_ms"],
+                                    row["library_ms"], row["bound_ms"],
+                                    row["bound_by"]))
+            del y, xl, w, b
+    finish_totals(totals)
+    return rows, max_err, totals
+
+
+@contextlib.contextmanager
+def checked_group_norm(torch, gn, seen):
+    """Hold every GroupNorm kernel call of the path against its plain
+    version on the call's own tensors (the activations and incoming
+    gradients the path hands the kernels, in the path's dtypes and
+    layouts).  The Function looks both wrappers up at call time; the
+    plain versions launch nothing, so the launch counts are untouched.
+    ``seen`` gathers the calls, the worst errors (relative to the
+    largest plain entry) and the smallest max |dy| of a backward call."""
+    fwd, bwd = gn.group_norm_fwd, gn.group_norm_bwd
+
+    def name_of(x3):
+        return str(x3.dtype).replace("torch.", "")
+
+    def amax(t):
+        return float(t.abs().max())
+
+    def checked_fwd(x3, scale, bias, num_groups, eps=1e-6, relu=False):
+        got = fwd(x3, scale, bias, num_groups, eps, relu)
+        ref = gn._fwd_ref(x3, scale, bias, num_groups, eps, relu)
+        name = name_of(x3)
+        what = "bench path group_norm_fwd %s %s relu=%s" % (
+            tuple(x3.shape), name, relu)
+        atol, rtol = TOL[name]
+        scale_y = max(amax(ref[0]), 1e-30)
+        err = check_close(what, got[0], ref[0], atol * scale_y, rtol)
+        check_close(what + " mean", got[1], ref[1], 2e-5 * amax(x3), 2e-5)
+        check_close(what + " rstd", got[2], ref[2], 2e-5, 2e-5)
+        seen["fwd_calls"] += 1
+        seen["fwd_rel_err"] = max(seen["fwd_rel_err"], err / scale_y)
+        return got
+
+    def checked_bwd(x3, dy3, scale, bias, mean, rstd, num_groups,
+                    eps=1e-6, relu=False):
+        args = (x3, dy3, scale, bias, mean, rstd, num_groups, eps, relu)
+        got = bwd(*args)
+        ref = gn._bwd_ref(*args)
+        name = name_of(x3)
+        what = "bench path group_norm_bwd %s %s relu=%s" % (
+            tuple(x3.shape), name, relu)
+        atol, rtol = BWD_TOL[name]
+        scale_dx = max(amax(ref[0]), 1e-30)
+        err = check_close(what + " dx", got[0], ref[0], atol * scale_dx,
+                          rtol)
+        for part, g, r in (("dscale", got[1], ref[1]),
+                           ("dbias", got[2], ref[2])):
+            check_close("%s %s" % (what, part), g, r, 1e-4 * amax(r), 0.0)
+        seen["bwd_calls"] += 1
+        seen["bwd_rel_err"] = max(seen["bwd_rel_err"], err / scale_dx)
+        seen["min_max_dy"] = min(seen["min_max_dy"], amax(dy3))
+        return got
+
+    gn.group_norm_fwd, gn.group_norm_bwd = checked_fwd, checked_bwd
+    try:
+        yield
+    finally:
+        gn.group_norm_fwd, gn.group_norm_bwd = fwd, bwd
 
 
 @contextlib.contextmanager
@@ -349,7 +582,7 @@ def serving_phase(torch, gn):
     return served, launches, latencies, max_err
 
 
-def forward_phase(torch, gn, module, reps=20):
+def forward_phase(torch, gn, module, reps=10):
     """Host-clock time of one forward (input on the card, logits synced),
     kernel GroupNorm against plain, in turns kernel, plain, plain,
     kernel; the median of each."""
@@ -374,6 +607,261 @@ def forward_phase(torch, gn, module, reps=20):
         out[batch] = {k: float(np.median(v)) for k, v in times.items()}
         print("forward B=%d: kernel GN %.3f ms, plain GN %.3f ms" % (
             batch, out[batch]["kernel"], out[batch]["plain"]))
+    return out
+
+
+def float64_step1_grads(torch, spec, named, x, y):
+    """Step-1 gradients of the mean loss with the whole model, its
+    GroupNorm (plain, centered variance) and the loss in float64."""
+    import torch.nn.functional as F
+
+    from elasticdl_tpu_torch.models import resnet
+
+    def group_norm64(x, scale, bias, groups, eps=1e-6, relu=False):
+        B, C = x.shape[0], x.shape[-1]
+        xr = x.reshape(B, -1, groups, C // groups)
+        m = xr.mean(dim=(1, 3), keepdim=True)
+        v = ((xr - m) ** 2).mean(dim=(1, 3), keepdim=True)
+        out = ((xr - m) / torch.sqrt(v + eps)).reshape(x.shape) * scale \
+            + bias
+        return torch.relu(out) if relu else out
+
+    module = resnet.ResNet().to("cuda", torch.float64).to(
+        memory_format=torch.channels_last)
+    module.load_state_dict({k: v.double() for k, v in
+                            spec.params_from_jax(named).items()})
+    kernel_gn = resnet.fused_group_norm
+    resnet.fused_group_norm = group_norm64
+    try:
+        logits = module(torch.from_numpy(x).cuda().double())
+        F.cross_entropy(logits, torch.from_numpy(y).cuda().long()).backward()
+    finally:
+        resnet.fused_group_norm = kernel_gn
+    return {name: p.grad for name, p in module.named_parameters()}
+
+
+def training_phase(torch, gn):
+    """ResNet-50 at full size trained through the port's trainer."""
+    from elasticdl_tpu_torch.models import resnet
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    use_float32_numerics()      # float32 convs in float32: TF32 off
+    params = "variant=resnet50;num_classes=1000;image_size=224"
+    spec = load_model_spec("resnet", params + ";learning_rate=%g" % TRAIN_LR)
+    rng = np.random.RandomState(3)
+    batches = [(rng.rand(BATCH, 224, 224, 3).astype(np.float32),
+                rng.randint(0, 1000, size=BATCH).astype(np.int32))
+               for _ in range(TRAIN_STEPS)]
+    out = {}
+
+    named = None
+
+    def run(plain, saver=None):
+        nonlocal named
+        trainer = CollectiveTrainer(spec, batch_size=BATCH, device="cuda",
+                                    checkpoint_saver=saver)
+        # Random weights, not the zero-head init: under a zero head every
+        # backbone gradient of step 1 is zero and would test nothing.
+        named = seeded_params(spec, trainer.module, seed=0)
+        trainer.set_params(spec.params_from_jax(named))
+        ctx = (plain_group_norm(resnet, gn) if plain
+               else contextlib.nullcontext())
+        losses, grads = [], None
+        with ctx:
+            torch.cuda.synchronize()
+            gn.LAUNCHES = gn.BWD_LAUNCHES = gn.DY_COPIES = 0
+            t0 = time.perf_counter()
+            for step, (x, y) in enumerate(batches):
+                loss, version = trainer.train_minibatch(x, y)
+                losses.append(loss)
+                if step == 0:
+                    grads = {name: None if p.grad is None
+                             else p.grad.detach().clone()
+                             for name, p in trainer.module.named_parameters()}
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            counts = (gn.LAUNCHES, gn.BWD_LAUNCHES, gn.DY_COPIES)
+        if version != TRAIN_STEPS:
+            fail("trainer version %d after %d steps" % (version, TRAIN_STEPS))
+        return trainer, [float(l) for l in losses], grads, counts, wall
+
+    _, plain_losses, plain_grads, plain_counts, _ = run(plain=True)
+    if plain_counts != (0, 0, 0):
+        fail("the plain-GroupNorm trainer launched kernels: %s"
+             % (plain_counts,))
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        trainer, losses, grads, counts, wall = run(
+            plain=False, saver=CheckpointSaver(tmp.name))
+        want = (GN_PER_FORWARD * TRAIN_STEPS, GN_PER_FORWARD * TRAIN_STEPS)
+        if counts[:2] != want:
+            fail("training launched (forward, backward) kernels %s over %d "
+                 "steps, want %s" % (counts[:2], TRAIN_STEPS, want))
+        print("train: %d steps, batch %d, f32: launches forward %d, backward "
+              "%d, dy copies %d; losses %s (plain GroupNorm %s); wall %.1f "
+              "ms incl. set-up" % (TRAIN_STEPS, BATCH, counts[0], counts[1],
+                                   counts[2], losses, plain_losses,
+                                   wall * 1e3))
+        for step, (a, b) in enumerate(zip(losses, plain_losses)):
+            if not (math.isfinite(a)
+                    and abs(a - b) <= TRAIN_LOSS_RTOL * abs(b)):
+                fail("step %d loss %r with kernels vs %r plain" % (
+                    step + 1, a, b))
+        missing = [name for name, g in grads.items()
+                   if g is None or not bool(g.isfinite().all())
+                   or float(g.abs().max()) == 0.0]
+        if missing:
+            fail("%d parameters got no gradient (or a zero or non-finite "
+                 "one) at step 1: %s" % (len(missing), missing[:5]))
+        grads64 = float64_step1_grads(torch, spec, named, *batches[0])
+
+        def rel(a, b):
+            return float((a.double() - b.double()).norm() / b.norm())
+
+        errs = {name: (rel(g, plain_grads[name]), rel(g, grads64[name]),
+                       rel(plain_grads[name], grads64[name]))
+                for name, g in grads.items()}
+        for name, (kp, k64, p64) in errs.items():
+            if kp > TRAIN_GRAD_RTOL or k64 > 3 * p64 + 1e-4:
+                fail("step-1 gradient of %s: norm-relative error %.3g vs "
+                     "the plain GroupNorm (limit %g), %.3g vs float64, "
+                     "where the plain path is %.3g from float64 (limit "
+                     "3x + 1e-4)" % (name, kp, TRAIN_GRAD_RTOL, k64, p64))
+        worst = max(errs, key=lambda n: errs[n][0])
+        grad_err = {key: max(e[i] for e in errs.values())
+                    for i, key in enumerate(("kernel_vs_plain",
+                                             "kernel_vs_f64",
+                                             "plain_vs_f64"))}
+        print("train: every one of %d parameters got a gradient; step-1 "
+              "gradients, max norm-relative error over leaves: kernel vs "
+              "plain %.3g (%s), kernel vs float64 %.3g, plain vs float64 "
+              "%.3g; max loss rel err vs plain %.3g" % (
+                  len(grads), grad_err["kernel_vs_plain"], worst,
+                  grad_err["kernel_vs_f64"], grad_err["plain_vs_f64"],
+                  max(abs(a - b) / abs(b)
+                      for a, b in zip(losses, plain_losses))))
+        del plain_grads, grads, grads64
+
+        # The loss falls on one batch, repeated.
+        x, y = batches[0]
+        xd = torch.from_numpy(x).cuda()
+        yd = torch.from_numpy(y).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fall = [trainer.train_minibatch(xd, yd)[0] for _ in range(FALL_STEPS)]
+        torch.cuda.synchronize()
+        out["f32_b32_ms_per_step"] = (time.perf_counter() - t0) * 1e3 / len(
+            fall)
+        fall = [float(l) for l in fall]
+        if not all(map(math.isfinite, fall)) or not fall[-1] < fall[0]:
+            fail("loss did not fall over %d steps on one batch: %s"
+                 % (FALL_STEPS, fall))
+        print("train: one batch x %d: loss %.4f -> %.4f; %.2f ms per step "
+              "(batch %d, f32, data on the card)" % (
+                  FALL_STEPS, fall[0], fall[-1], out["f32_b32_ms_per_step"],
+                  BATCH))
+
+        # Checkpoint round trip: the restored trainer holds the saved
+        # parameters and SGD momentum bit for bit (it writes back the
+        # same payload), and its next loss is the original's.
+        trainer.save_checkpoint()
+        trainer.flush_checkpoints()
+        saver = CheckpointSaver(tmp.name)
+        saved, saved_version = saver.load()
+        traces = [k for k in saved if k.startswith("opt/0/trace/")]
+        if len(traces) != len(named):
+            fail("checkpoint holds %d momentum buffers for %d parameters"
+                 % (len(traces), len(named)))
+        if not any(np.abs(saved[k]).max() > 0 for k in traces):
+            fail("every saved momentum buffer is zero")
+        restored = CollectiveTrainer(spec, batch_size=BATCH, device="cuda",
+                                     rng_seed=1, checkpoint_saver=saver)
+        if not restored.init_from_checkpoint():
+            fail("no checkpoint to restore")
+        if restored.version != trainer.version:
+            fail("restored version %d, saved %d" % (restored.version,
+                                                    trainer.version))
+        restored.save_checkpoint()      # the same version, rewritten
+        restored.flush_checkpoints()
+        again, _ = saver.load(saved_version)
+        differ = [k for k in saved if k not in again
+                  or saved[k].dtype != again[k].dtype
+                  or not np.array_equal(saved[k], again[k])]
+        if differ or set(again) != set(saved):
+            fail("the restored trainer's state differs from the saved one "
+                 "in %s" % (differ or sorted(set(again) ^ set(saved)))[:5])
+        a = float(trainer.train_minibatch(xd, yd)[0])
+        b = float(restored.train_minibatch(xd, yd)[0])
+        if a != b:
+            fail("restored trainer's next loss %r, the original's %r" % (b, a))
+        print("train: checkpoint at version %d (%d arrays, %d momentum "
+              "buffers) restored into a fresh trainer bit for bit; next "
+              "loss %r on both" % (saved_version, len(saved),
+                                   len(traces), a))
+        del restored, trainer
+    finally:
+        tmp.cleanup()
+    out.update({"losses": losses, "plain_losses": plain_losses,
+                "fall_losses": fall, "launches": counts[:2],
+                "dy_copies": counts[2],
+                "step1_grad_rel_err": grad_err})
+
+    # bench.py's setting: batch 128, bf16 compute, the spec's learning
+    # rate, the zero-head init, data on the card.
+    torch.cuda.empty_cache()
+    bench_spec = load_model_spec("resnet", params + ";learning_rate=0.1")
+    trainer = CollectiveTrainer(bench_spec, batch_size=BENCH_BATCH,
+                                device="cuda", use_bf16_compute=True)
+    x = torch.from_numpy(rng.rand(BENCH_BATCH, 224, 224, 3).astype(
+        np.float32)).cuda()
+    y = torch.from_numpy(rng.randint(0, 1000, size=BENCH_BATCH).astype(
+        np.int32)).cuda()
+    # Two warm-up steps, every GroupNorm call checked.  Under the
+    # zero-head init every backbone gradient of step 1 is zero; step 2's
+    # are not, and its backward calls must see a nonzero dy.
+    for step in range(2):
+        seen = {"fwd_calls": 0, "bwd_calls": 0, "fwd_rel_err": 0.0,
+                "bwd_rel_err": 0.0, "min_max_dy": math.inf}
+        with checked_group_norm(torch, gn, seen):
+            float(trainer.train_minibatch(x, y)[0])
+        if (seen["fwd_calls"], seen["bwd_calls"]) != (GN_PER_FORWARD,) * 2:
+            fail("bench step %d checked %d forward and %d backward "
+                 "GroupNorm calls" % (step + 1, seen["fwd_calls"],
+                                      seen["bwd_calls"]))
+    if not seen["min_max_dy"] > 0:
+        fail("a backward GroupNorm call of bench step 2 got dy = 0")
+    print("train bench: step 2, batch %d, bf16 compute: each of the %d "
+          "forward and %d backward GroupNorm calls equals its plain "
+          "version on the path's tensors (worst error / largest plain "
+          "entry: y %.3g, dx %.3g; smallest max|dy| %.3g)" % (
+              BENCH_BATCH, seen["fwd_calls"], seen["bwd_calls"],
+              seen["fwd_rel_err"], seen["bwd_rel_err"], seen["min_max_dy"]))
+    out["bench_path_check"] = seen
+    torch.cuda.synchronize()
+    gn.LAUNCHES = gn.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    for _ in range(BENCH_STEPS):
+        loss, _ = trainer.train_minibatch(x, y)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / BENCH_STEPS
+    if not math.isfinite(loss):
+        fail("bf16 training loss %r" % loss)
+    if (gn.LAUNCHES, gn.BWD_LAUNCHES) != (GN_PER_FORWARD * BENCH_STEPS,) * 2:
+        fail("bf16 training launched %s kernels" % (
+            (gn.LAUNCHES, gn.BWD_LAUNCHES),))
+    out["bf16_b128_ms_per_step"] = ms
+    out["bf16_b128_images_per_s"] = BENCH_BATCH / ms * 1e3
+    print("train bench: batch %d, bf16 compute: %.2f ms per step, %.1f "
+          "images/s (%d steps, loss %.4f)" % (
+              BENCH_BATCH, ms, out["bf16_b128_images_per_s"], BENCH_STEPS,
+              loss))
+    del trainer
+    torch.cuda.empty_cache()
     return out
 
 
@@ -404,32 +892,68 @@ def main():
                 print("nvcc %s: %s" % (name, line.strip()))
     print("build: %d kernel sources in %.1f s" % (len(outputs), build_s))
 
+    phase_s = {"build": build_s}
+    t0 = time.perf_counter()
     rows, max_err, totals = kernel_phase(torch, gn)
+    phase_s["forward kernel"] = time.perf_counter() - t0
     for name, tot in totals.items():
         print("kernel per ResNet-50 forward at batch %d (53 calls, %s): "
               "kernel %.4f ms, plain %.4f ms, F.group_norm %.4f ms, bound "
               "%.4f ms (%s)" % (BATCH, name, tot["ms"], tot["plain_ms"],
                                 tot["library_ms"], tot["bound_ms"],
                                 tot["bound_by"]))
+    t0 = time.perf_counter()
+    bwd_rows, bwd_err, bwd_totals = backward_phase(torch, gn)
+    phase_s["backward kernel"] = time.perf_counter() - t0
+    for name, tot in bwd_totals.items():
+        print("backward kernel per ResNet-50 step at batch %d (53 calls, "
+              "%s): kernel %.4f ms, plain %.4f ms, F.group_norm backward "
+              "%.4f ms, bound %.4f ms (%s)" % (
+                  BATCH, name, tot["ms"], tot["plain_ms"],
+                  tot["library_ms"], tot["bound_ms"], tot["bound_by"]))
 
-    module, launches, latencies, serve_err = serving_phase(torch, gn)
+    t0 = time.perf_counter()
+    module, serve_launches, latencies, serve_err = serving_phase(torch, gn)
+    phase_s["serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
     forward = forward_phase(torch, gn, module)
+    del module
+    phase_s["forward"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    train = training_phase(torch, gn)
+    phase_s["training"] = time.perf_counter() - t0
+    print("phase seconds: %s" % ", ".join(
+        "%s %.1f" % kv for kv in phase_s.items()))
 
-    f32 = totals["float32"]
+    f32, bf32 = totals["float32"], bwd_totals["float32"]
+    per = "sum of the 53 calls of one ResNet-50 %s, batch %d, float32"
     kernels = [{
         "name": "group_norm_fwd",
         "route": "cuda",
         "source": "elasticdl_tpu_torch/ops/csrc/group_norm.cu",
         "replaces": "elasticdl_tpu/ops/group_norm.py:98",
-        "launches": launches,
+        "launches": train["launches"][0],
+        "launches_serving": serve_launches,
         "max_abs_err": max_err["float32"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
         "bound_ms": f32["bound_ms"],
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
-        "times_are": "sum of the 53 calls of one ResNet-50 forward, "
-                     "batch %d, float32" % BATCH,
+        "times_are": per % ("forward", BATCH),
+    }, {
+        "name": "group_norm_bwd",
+        "route": "cuda",
+        "source": "elasticdl_tpu_torch/ops/csrc/group_norm_bwd.cu",
+        "replaces": "elasticdl_tpu/ops/group_norm.py:199",
+        "launches": train["launches"][1],
+        "max_abs_err": bwd_err["float32"],
+        "ms": bf32["ms"],
+        "plain_ms": bf32["plain_ms"],
+        "bound_ms": bf32["bound_ms"],
+        "bound_by": bf32["bound_by"],
+        "library_ms": bf32["library_ms"],
+        "times_are": per % ("training step's backward", BATCH),
     }]
     if args.out:
         with open(args.out, "w") as f:
@@ -437,9 +961,13 @@ def main():
                        "torch": torch.__version__,
                        "build_s": build_s, "shapes": rows,
                        "per_forward": totals, "max_abs_err": max_err,
+                       "bwd_shapes": bwd_rows, "bwd_per_step": bwd_totals,
+                       "bwd_max_abs_err": bwd_err,
                        "serve_latency_ms": latencies,
                        "serve_max_abs_err": serve_err,
-                       "forward_ms": forward, "kernels": kernels},
+                       "forward_ms": forward, "train": train,
+                       "phase_s": phase_s,
+                       "kernels": kernels},
                       f, indent=1)
     print(json.dumps({"kernels": kernels}))
     print(smi)

@@ -9,12 +9,19 @@ keep that layout.
 
 Submodules carry flax's call-order names (``Conv_0``, ``GroupNorm_0``,
 ``Bottleneck_0`` ... ``Bottleneck_15``, ``Dense_0``), so
-``params_from_jax`` / ``params_to_jax`` map the JAX package's
-``flatten_with_names`` names mechanically:
+``spec.params_from_jax`` / ``spec.params_to_jax`` map the JAX package's
+``flatten_with_names`` names mechanically.
 
- - conv kernels HWIO <-> OIHW;
- - dense kernels ``[in, out]`` <-> ``[out, in]``;
- - GroupNorm scale and bias unchanged.
+``init_fn(device, seed)`` draws the weights from the JAX model's
+initializer families (conv kernels ``lecun_normal``, the Dense head
+zero, GroupNorm scale 1 and bias 0), so a fresh model's first loss is
+ln(num_classes) as in the JAX trainer.  The numbers themselves differ
+from ``jax.random``'s.
+
+Training (``loss_fn``, ``optimizer``) follows the JAX spec: softmax
+cross-entropy on integer labels over float32 logits, and
+``torch.optim.SGD(lr, momentum=0.9)``, which is ``optax.sgd(lr,
+momentum=0.9)``: trace = g + 0.9 * trace, then p -= lr * trace.
 
 Flax's ``padding="SAME"`` is TensorFlow's rule, which pads the extra
 row and column at the END when the total is odd: the 3x3/2 conv of
@@ -31,8 +38,10 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from elasticdl_tpu_torch.models.spec import ModelSpec
+from elasticdl_tpu_torch.models.spec import (ModelSpec, lecun_normal_,
+                                             params_from_jax, params_to_jax)
 from elasticdl_tpu_torch.ops.group_norm import fused_group_norm
+from elasticdl_tpu_torch.utils import metrics
 from elasticdl_tpu_torch.utils.device import resolve_device
 
 
@@ -172,41 +181,31 @@ class ResNet(nn.Module):
         return self.Dense_0(x.mean(dim=(2, 3)))
 
 
-def params_from_jax(named):
-    """``{flax name: ndarray}`` -> ``state_dict`` of the matching
-    ResNet (``Conv_0/kernel`` -> ``Conv_0.weight`` in OIHW, ...)."""
-    state = {}
-    for name, value in named.items():
-        *path, leaf = name.split("/")
-        value = np.asarray(value)
-        if leaf == "kernel":
-            value = (value.transpose(3, 2, 0, 1) if value.ndim == 4
-                     else value.T)
-            leaf = "weight"
-        state[".".join(path + [leaf])] = torch.from_numpy(
-            np.ascontiguousarray(value))
-    return state
+def init_jax_family_(module, seed):
+    """Draw a fresh ResNet's weights in place, from ``seed``."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for name, p in module.named_parameters():
+        if name.endswith("Dense_0.weight") or name.endswith(".bias"):
+            nn.init.zeros_(p)
+        elif name.endswith(".scale"):
+            nn.init.ones_(p)
+        else:
+            lecun_normal_(p, gen)
+    return module
 
 
-def params_to_jax(module):
-    """ResNet -> ``{flax name: ndarray}`` in the JAX layouts."""
-    named = {}
-    for name, value in module.state_dict().items():
-        *path, leaf = name.split(".")
-        value = value.detach().cpu().numpy()
-        if leaf == "weight":
-            value = (value.transpose(2, 3, 1, 0) if value.ndim == 4
-                     else value.T)
-            leaf = "kernel"
-        named["/".join(path + [leaf])] = np.ascontiguousarray(value)
-    return named
+def loss_fn(logits, labels):
+    """Per-example softmax cross-entropy, float32 (the JAX spec's
+    ``optax.softmax_cross_entropy_with_integer_labels``)."""
+    return F.cross_entropy(logits.float(), labels.long(), reduction="none")
 
 
-def _make_spec(name, input_shape, **model_kwargs):
-    def init_fn(device=None):
-        return ResNet(**model_kwargs).to(
-            device=resolve_device(device),
-            memory_format=torch.channels_last).eval()
+def _make_spec(name, input_shape, learning_rate, momentum=0.9,
+               **model_kwargs):
+    def init_fn(device=None, seed=0):
+        device = resolve_device(device)
+        module = init_jax_family_(ResNet(**model_kwargs), seed)
+        return module.to(device=device, memory_format=torch.channels_last)
 
     def apply_fn(module, x, train):
         # GroupNorm has no train/eval difference; train is accepted for
@@ -220,31 +219,33 @@ def _make_spec(name, input_shape, **model_kwargs):
         ys = np.asarray([int(r[1]) for r in records], dtype=np.int32)
         return xs, ys
 
-    return ModelSpec(name=name, init_fn=init_fn, apply_fn=apply_fn,
-                     feed=feed, params_from_jax=params_from_jax,
-                     params_to_jax=params_to_jax, input_shape=input_shape)
+    return ModelSpec(
+        name=name, init_fn=init_fn, apply_fn=apply_fn, feed=feed,
+        params_from_jax=params_from_jax, params_to_jax=params_to_jax,
+        input_shape=input_shape, loss_fn=loss_fn,
+        optimizer=lambda params: torch.optim.SGD(
+            params, lr=learning_rate, momentum=momentum),
+        eval_metrics_fn=lambda: {"accuracy": metrics.Accuracy()})
 
 
 def model_spec(variant="resnet50", num_classes=1000, image_size=224,
                learning_rate=0.1):
     """Zoo entry.  variant: resnet50 | resnet50_s2d | resnet50_cifar10 |
-    resnet_small_cifar10.  ``learning_rate`` is read by the training
-    slice."""
-    del learning_rate
+    resnet_small_cifar10."""
     if variant == "resnet50":
         return _make_spec("resnet50", (image_size, image_size, 3),
-                          stage_sizes=(3, 4, 6, 3),
+                          learning_rate, stage_sizes=(3, 4, 6, 3),
                           num_classes=num_classes)
     if variant == "resnet50_s2d":
         return _make_spec("resnet50_s2d", (image_size, image_size, 3),
-                          stage_sizes=(3, 4, 6, 3),
+                          learning_rate, stage_sizes=(3, 4, 6, 3),
                           num_classes=num_classes, s2d_stem=True)
     if variant == "resnet50_cifar10":
-        return _make_spec("resnet50_cifar10", (32, 32, 3),
+        return _make_spec("resnet50_cifar10", (32, 32, 3), learning_rate,
                           stage_sizes=(3, 4, 6, 3), num_classes=10,
                           cifar_stem=True)
     if variant == "resnet_small_cifar10":
         return _make_spec("resnet_small_cifar10", (32, 32, 3),
-                          stage_sizes=(2, 2, 2, 2), num_classes=10,
-                          cifar_stem=True)
+                          learning_rate, stage_sizes=(2, 2, 2, 2),
+                          num_classes=10, cifar_stem=True)
     raise ValueError("unknown resnet variant %r" % variant)

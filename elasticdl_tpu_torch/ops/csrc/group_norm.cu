@@ -34,38 +34,15 @@
 // cudaError_t code of a refused launch.  It allocates nothing: the caller
 // passes a float32 workspace of edl_group_norm_fwd_workspace(...) floats.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
-
 #include <algorithm>
+
+#include "gn_common.cuh"
 
 namespace {
 
-constexpr int kThreads = 256;
-
-template <typename T>
-__device__ __forceinline__ float load_f(const T* p);
-template <>
-__device__ __forceinline__ float load_f<float>(const float* p) {
-  return __ldg(p);
-}
-template <>
-__device__ __forceinline__ float load_f<__nv_bfloat16>(
-    const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-template <typename T>
-__device__ __forceinline__ T from_f(float v);
-template <>
-__device__ __forceinline__ float from_f<float>(float v) {
-  return v;
-}
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
-}
+using gn::from_f;
+using gn::kThreads;
+using gn::load_f;
 
 // Partial (mean, M2) per (batch, chunk, channel) over `rows` rows.
 // Thread t serves channel (t % tc) on row lane (t / tc): tc = min(C, 256)
@@ -169,13 +146,12 @@ gn_merge(const float* __restrict__ pmean, const float* __restrict__ pm2,
   for (int j = threadIdx.x; j < cpg; j += kThreads) {
     const int c = g * cpg + j;
     const int64_t o = (int64_t)b * C + c;
-    // a = rstd * scale; b = bias - mean * a, in that association order
-    // (the backward re-derives the ReLU mask from the same expression).
-    const float a = __fmul_rn(rstd, scale[c]);
+    // The backward re-derives the ReLU mask from the same a and b.
+    const float a = gn::affine_a(rstd, scale[c]);
     mean_out[o] = mean;
     rstd_out[o] = rstd;
     coef_a[o] = a;
-    coef_b[o] = __fsub_rn(bias[c], __fmul_rn(mean, a));
+    coef_b[o] = gn::affine_b(bias[c], mean, a);
   }
 }
 

@@ -1,18 +1,31 @@
-"""GroupNorm + affine (+ ReLU) forward: the CUDA kernel and its wrapper.
+"""GroupNorm + affine (+ ReLU): the CUDA kernels, their wrappers and the
+autograd Function that joins them.
 
-Counterpart of ``elasticdl_tpu/ops/group_norm.py``.  The kernel
-(``csrc/group_norm.cu``) replaces the TPU kernel ``_fwd_kernel``
-(launched by ``_fwd_pallas``) and is bound by device-memory bytes: its
-header says how the design splits the work across the card.
+Counterpart of ``elasticdl_tpu/ops/group_norm.py``.  Two kernels, both
+bound by device-memory bytes (each source's header says how its design
+splits the work across the card):
+
+ - forward, ``csrc/group_norm.cu``, replaces the TPU kernel
+   ``_fwd_kernel`` (launched by ``_fwd_pallas``);
+ - backward, ``csrc/group_norm_bwd.cu``, replaces ``_bwd_kernel``
+   (launched by ``_bwd_pallas``).
+
+``_FusedGroupNorm`` is the counterpart of the ``custom_vjp`` ``_fused``:
+its forward saves x, scale, bias and the f32 mean and rstd (never y) and
+its backward is the backward kernel.  ``fused_group_norm`` goes through
+it whenever grad is enabled; under ``no_grad``/``inference_mode`` it
+calls the forward alone and saves nothing.
 
 Layout: channels-last ``[..., C]``; statistics per group over
 (spatial..., C/G), as flax.linen.GroupNorm computes them, with the
 variance centered.  ``eps`` defaults to flax's 1e-6, not torch's 1e-5.
 
 Dispatch is by the tensor's device alone: a CPU tensor goes through the
-plain PyTorch version (``_group_norm_ref``); a CUDA tensor launches the
-kernel or raises.  There is no switch to the plain version on the card.
-``LAUNCHES`` counts kernel launches.
+plain PyTorch versions (``_fwd_ref``, ``_bwd_ref``); a CUDA tensor
+launches the kernel or raises.  There is no switch to the plain version
+on the card.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches;
+``DY_COPIES`` counts backward calls whose incoming gradient was not
+contiguous channels-last and had to be copied.
 """
 
 import ctypes
@@ -23,6 +36,8 @@ import torch
 from elasticdl_tpu_torch.ops import build
 
 LAUNCHES = 0
+BWD_LAUNCHES = 0
+DY_COPIES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 # Elements of x per statistics block: enough blocks to fill the card at
@@ -59,6 +74,40 @@ def _group_norm_ref(x, scale, bias, num_groups, eps, relu):
     return y3.reshape(x.shape)
 
 
+def _bwd_ref(x3, dy3, scale, bias, mean, rstd, num_groups, eps, relu):
+    """Plain PyTorch version of the backward kernel: the closed form of
+    the JAX ``_bwd_kernel``, written out (not autograd of ``_fwd_ref``).
+    -> (dx in x's dtype, dscale [C] f32, dbias [C] f32).
+
+    The ReLU mask is the forward kernel's decision: a and b are formed
+    as the kernel forms them, and the sign of x * a + b is taken in
+    float64, where the product of two float32 values is exact, so it is
+    the sign of the kernel's fma.  ``eps`` is unused (rstd carries it);
+    it is kept so both directions take the same arguments."""
+    del eps
+    B, HW, C = x3.shape
+    cpg = C // num_groups
+    xf, dy = x3.float(), dy3.float()
+    scale = scale.float()
+    if relu:
+        a = rstd * scale
+        b = bias.float() - mean * a
+        dy = torch.where(xf.double() * a.double() + b.double() > 0, dy,
+                         torch.zeros_like(dy))
+    xhat = (xf - mean) * rstd
+    s1 = dy.sum(dim=1, keepdim=True)                      # [B, 1, C]
+    s2 = (dy * xhat).sum(dim=1, keepdim=True)
+
+    def group_mean(v):
+        g = v.reshape(B, 1, num_groups, cpg).sum(dim=3, keepdim=True)
+        return (g / (HW * cpg)).expand(B, 1, num_groups, cpg).reshape(
+            B, 1, C)
+
+    dx = rstd * (dy * scale - group_mean(s1 * scale)
+                 - xhat * group_mean(s2 * scale))
+    return dx.to(x3.dtype), s2.sum(dim=(0, 1)), s1.sum(dim=(0, 1))
+
+
 def _chunk_rows(HW, C):
     return max(1, min(HW, _ELEMS_PER_CHUNK // C))
 
@@ -76,23 +125,50 @@ def _library():
     return lib
 
 
-def _fwd_cuda(x3, scale, bias, num_groups, eps, relu):
-    global LAUNCHES
+@functools.cache
+def _bwd_library():
+    lib = build.library("group_norm_bwd")
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.edl_group_norm_bwd.argtypes = [ptr] * 10 + [cint] * 7 + [ptr]
+    lib.edl_group_norm_bwd.restype = cint
+    lib.edl_group_norm_bwd_workspace.argtypes = [cint] * 5
+    lib.edl_group_norm_bwd_workspace.restype = ctypes.c_int64
+    return lib
+
+
+def _check_affine(x3, scale, bias):
+    C = x3.shape[-1]
+    for name, t in (("scale", scale), ("bias", bias)):
+        if t.shape != (C,) or t.device != x3.device:
+            raise ValueError("%s must be [%d] on %s, got %s on %s" % (
+                name, C, x3.device, tuple(t.shape), t.device))
+    return (scale.to(torch.float32).contiguous(),
+            bias.to(torch.float32).contiguous())
+
+
+def _check_x3(x3, what="x"):
     if x3.dtype not in _DTYPES:
         raise TypeError("group_norm kernel takes float32 or bfloat16, "
                         "got %s" % x3.dtype)
     if x3.dim() != 3 or not x3.is_contiguous():
         raise ValueError(
             "group_norm kernel takes a contiguous channels-last "
-            "[B, HW, C] tensor (keep activations in torch.channels_last); "
-            "got shape %s strides %s" % (tuple(x3.shape), x3.stride()))
+            "[B, HW, C] %s (keep activations in torch.channels_last); "
+            "got shape %s strides %s" % (what, tuple(x3.shape),
+                                         x3.stride()))
+
+
+def _fwd_cuda(x3, scale, bias, num_groups, eps, relu):
+    global LAUNCHES
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x3, scale, bias)):
+        raise RuntimeError(
+            "group_norm_fwd's output carries no gradient; with grad "
+            "enabled, call fused_group_norm (its autograd Function "
+            "pairs this kernel with the backward kernel)")
+    _check_x3(x3)
     B, HW, C = x3.shape
-    for name, t in (("scale", scale), ("bias", bias)):
-        if t.shape != (C,) or t.device != x3.device:
-            raise ValueError("%s must be [%d] on %s, got %s on %s" % (
-                name, C, x3.device, tuple(t.shape), t.device))
-    scale = scale.to(torch.float32).contiguous()
-    bias = bias.to(torch.float32).contiguous()
+    scale, bias = _check_affine(x3, scale, bias)
     rows = _chunk_rows(HW, C)
     lib = _library()
     y = torch.empty_like(x3)
@@ -116,6 +192,46 @@ def _fwd_cuda(x3, scale, bias, num_groups, eps, relu):
     return y, mean, rstd
 
 
+def _bwd_cuda(x3, dy3, scale, bias, mean, rstd, num_groups, relu):
+    global BWD_LAUNCHES
+    _check_x3(x3)
+    _check_x3(dy3, "dy")
+    if dy3.shape != x3.shape or dy3.dtype != x3.dtype:
+        raise ValueError("dy must match x: got %s %s for %s %s" % (
+            tuple(dy3.shape), dy3.dtype, tuple(x3.shape), x3.dtype))
+    B, HW, C = x3.shape
+    scale, bias = _check_affine(x3, scale, bias)
+    for name, t in (("mean", mean), ("rstd", rstd)):
+        if (t.shape != (B, 1, C) or t.dtype != torch.float32
+                or t.device != x3.device or not t.is_contiguous()):
+            raise ValueError(
+                "%s must be contiguous float32 [%d, 1, %d] on %s, got %s "
+                "%s on %s" % (name, B, C, x3.device, tuple(t.shape),
+                              t.dtype, t.device))
+    rows = _chunk_rows(HW, C)
+    lib = _bwd_library()
+    dx = torch.empty_like(x3)
+    dscale = torch.empty(C, dtype=torch.float32, device=x3.device)
+    dbias = torch.empty_like(dscale)
+    work = torch.empty(
+        lib.edl_group_norm_bwd_workspace(B, HW, C, num_groups, rows),
+        dtype=torch.float32, device=x3.device)
+    with torch.cuda.device(x3.device):
+        err = lib.edl_group_norm_bwd(
+            x3.data_ptr(), dy3.data_ptr(), scale.data_ptr(),
+            bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
+            dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
+            work.data_ptr(), B, HW, C, num_groups, rows, int(bool(relu)),
+            _DTYPES[x3.dtype],
+            torch.cuda.current_stream(x3.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            "group_norm backward kernel launch failed (cudaError_t %d) "
+            "for B=%d HW=%d C=%d G=%d" % (err, B, HW, C, num_groups))
+    BWD_LAUNCHES += 1
+    return dx, dscale, dbias
+
+
 def group_norm_fwd(x3, scale, bias, num_groups, eps=1e-6, relu=False):
     """The kernel's contract (counterpart of ``_fwd_pallas``): x3
     [B, HW, C] -> (y, mean [B, 1, C] f32, rstd [B, 1, C] f32)."""
@@ -127,24 +243,68 @@ def group_norm_fwd(x3, scale, bias, num_groups, eps=1e-6, relu=False):
     return _fwd_cuda(x3, scale, bias, num_groups, eps, relu)
 
 
+def group_norm_bwd(x3, dy3, scale, bias, mean, rstd, num_groups, eps=1e-6,
+                   relu=False):
+    """The backward kernel's contract (counterpart of ``_bwd_pallas``):
+    x3, dy3 [B, HW, C], mean and rstd [B, 1, C] f32 from the forward
+    -> (dx in x's dtype, dscale [C] f32, dbias [C] f32)."""
+    if x3.device.type == "cpu":
+        return _bwd_ref(x3, dy3, scale, bias, mean, rstd, num_groups, eps,
+                        relu)
+    if x3.device.type != "cuda":
+        raise ValueError("group_norm runs on cuda or cpu, not %s"
+                         % x3.device)
+    return _bwd_cuda(x3, dy3, scale, bias, mean, rstd, num_groups, relu)
+
+
+class _FusedGroupNorm(torch.autograd.Function):
+    """GroupNorm + affine (+ ReLU) with the backward kernel as its
+    pullback (counterpart of the JAX ``_fused`` custom VJP)."""
+
+    @staticmethod
+    def forward(ctx, x, scale, bias, num_groups, eps, relu):
+        B, C = x.shape[0], x.shape[-1]
+        y3, mean, rstd = group_norm_fwd(x.reshape(B, -1, C), scale, bias,
+                                        num_groups, eps, relu)
+        ctx.save_for_backward(x, scale, bias, mean, rstd)
+        ctx.config = (num_groups, eps, relu)
+        return y3.view(x.shape)
+
+    @staticmethod
+    def backward(ctx, dy):
+        global DY_COPIES
+        x, scale, bias, mean, rstd = ctx.saved_tensors
+        num_groups, eps, relu = ctx.config
+        if not dy.is_contiguous():
+            DY_COPIES += 1
+            dy = dy.contiguous()
+        B, C = x.shape[0], x.shape[-1]
+        dx3, dscale, dbias = group_norm_bwd(
+            x.reshape(B, -1, C), dy.view(B, -1, C), scale, bias, mean,
+            rstd, num_groups, eps, relu)
+        return (dx3.view(x.shape), dscale.to(scale.dtype),
+                dbias.to(bias.dtype), None, None, None)
+
+
 def fused_group_norm(x, scale, bias, num_groups, eps=1e-6, relu=False):
     """GroupNorm + affine (+ ReLU) over the trailing channel axis.
 
     x: [B, spatial..., C], channels-last in memory (contiguous); scale
     and bias: [C].  On the card a non-contiguous x raises instead of
-    being copied."""
+    being copied.  With grad enabled the result is differentiable
+    through the backward kernel."""
     C = x.shape[-1]
     if C % num_groups:
         raise ValueError(
             "channels %d not divisible by %d groups" % (C, num_groups)
         )
-    if x.device.type == "cpu":
-        return _group_norm_ref(x, scale, bias, num_groups, eps, relu)
-    if not x.is_contiguous():
+    if x.device.type != "cpu" and not x.is_contiguous():
         raise ValueError(
             "group_norm kernel takes channels-last memory; got shape %s "
             "strides %s (keep activations in torch.channels_last)"
             % (tuple(x.shape), x.stride()))
-    y3 = group_norm_fwd(x.view(x.shape[0], -1, C), scale, bias,
+    if torch.is_grad_enabled():
+        return _FusedGroupNorm.apply(x, scale, bias, num_groups, eps, relu)
+    y3 = group_norm_fwd(x.reshape(x.shape[0], -1, C), scale, bias,
                         num_groups, eps, relu)[0]
     return y3.view(x.shape)

@@ -22,7 +22,8 @@ import torch
 
 from elasticdl_tpu_torch.models.spec import load_model_spec
 from elasticdl_tpu_torch.serving.export import FORMAT
-from elasticdl_tpu_torch.utils.device import resolve_device
+from elasticdl_tpu_torch.utils.device import (resolve_device,
+                                              use_float32_numerics)
 
 JAX_FORMAT = "elasticdl_tpu_servable_v2"
 
@@ -65,11 +66,6 @@ def resolve_export_dir(path, version=None):
     return os.path.join(path, str(versions[-1]))
 
 
-def _f32_numerics():
-    torch.backends.cudnn.allow_tf32 = False
-    torch.backends.cuda.matmul.allow_tf32 = False
-
-
 class ServableModel:
     """One loaded export on one device.  ``zoo``: ``(module,
     model_params)`` naming the zoo entry; required for a JAX-written
@@ -100,7 +96,7 @@ class ServableModel:
         with np.load(os.path.join(export_dir, "model.npz")) as z:
             named = {key: z[key] for key in z.files}
         if self.device.type == "cuda":
-            _f32_numerics()
+            use_float32_numerics()
         self.module = spec.init_fn(self.device)
         self.module.load_state_dict(spec.params_from_jax(named))
         self._apply = spec.apply_fn

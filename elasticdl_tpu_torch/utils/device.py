@@ -16,3 +16,11 @@ def resolve_device(device=None):
             "device %r requested but CUDA is not available (pass "
             "device='cpu' to run on the CPU)" % str(device))
     return device
+
+
+def use_float32_numerics():
+    """Turn TF32 off for cuDNN convs and CUDA matmuls (process-wide), so
+    float32 work on the card computes in float32.  PyTorch leaves TF32
+    on for float32 convs by default, which keeps about three digits."""
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False

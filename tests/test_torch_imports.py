@@ -32,8 +32,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         [sys.executable, "-c", _PROBE], cwd=REPO, capture_output=True,
         text=True, timeout=120, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
-    assert "elasticdl_tpu_torch.serving.server" in result["modules"]
-    assert "elasticdl_tpu_torch.ops.group_norm" in result["modules"]
+    for name in ("serving.server", "ops.group_norm", "ops.build",
+                 "models.mnist", "models.resnet", "models.spec",
+                 "utils.checkpoint", "utils.metrics",
+                 "utils.timing", "worker.trainer",
+                 "worker.collective_trainer"):
+        assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
 
