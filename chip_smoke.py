@@ -40,7 +40,26 @@ Phases, in order; any failure exits non-zero:
     compute: in two warm-up steps every GroupNorm call, forward and
     backward, is held against its plain version on the activations and
     gradients the path gives it; then ms per step and images/s;
- 8. one JSON line of kernels, then the card's name and power limit, then
+ 8. flash attention kernel against plain: the flash attention forward
+    (B3) against its plain version (``_flash_ref``: out, l and m) at the
+    served transformer's prefill shapes (q, k, v [8, 16, 128, 64] and
+    [8, 16, 2048, 64]), non-causal, a sliding window, head_dim 128 and a
+    ragged T, in float32 and bfloat16 (FLASH_CHECKS); then, at [8, 16,
+    2048, 64] causal in both dtypes, the kernel's time, the plain
+    version's, F.scaled_dot_product_attention's (a yardstick the port
+    never calls) and the bound;
+ 9. transformer serving: the flagship LM (vocab 32768, dim 1024, 24
+    layers, 16 heads, 436 M parameters, seeded random weights, bf16
+    compute) exported with the port's ``export_generate`` (greedy,
+    prompt 128, 128 new tokens), served by the port's HTTP server on the
+    card and queried with three :predict requests of 8 prompts; the
+    kernel must launch 24 times per request (once per layer of prefill)
+    and each prompt must come back unchanged; then, on the same module
+    with plain attention: teacher forcing over the generated sequences,
+    prefill logits in bf16, and in float32 with TF32 off at T=2048,
+    batch 2; then prefill time at batch 8, T=128 and T=2048, with the
+    kernel and with plain attention;
+10. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
@@ -66,7 +85,9 @@ Tolerances (|got - ref| <= atol + rtol * |ref|):
    path's own tensors: the tolerances above, with every absolute one
    scaled by the size of what it bounds (y, dx, dscale and dbias by
    their largest plain entry, the mean by the largest |x|), since
-   activations and gradients of a real step are not of unit size.
+   activations and gradients of a real step are not of unit size;
+ - flash attention and the served transformer: FLASH_TOL, LM_TOL and
+   LM_TF_TOL below, each with its reason.
 """
 
 import argparse
@@ -140,6 +161,51 @@ CHECK_BATCHES = ((SERVE_BATCH, ("float32", "bfloat16")),
 # dropped ReLU mask, a wrong group mean) moves a leaf by O(1).
 TRAIN_LOSS_RTOL = 1e-4
 TRAIN_GRAD_RTOL = 2e-2
+# Flash attention forward (B3) against its plain version ``_flash_ref``:
+# (B, H, T, D, dtype, causal, window).  The served model's prefill at the
+# decode bench's prompt (T=128) and at its longest (T=2048, both
+# dtypes), non-causal, a sliding window, head_dim 128 and a ragged T.
+FLASH_CHECKS = [
+    (8, 16, 128, 64, "bfloat16", True, 0),
+    (8, 16, 2048, 64, "bfloat16", True, 0),
+    (8, 16, 2048, 64, "float32", True, 0),
+    (2, 16, 2048, 64, "bfloat16", False, 0),
+    (2, 16, 2048, 64, "float32", False, 0),
+    (2, 16, 2048, 64, "bfloat16", True, 256),
+    (4, 8, 2048, 128, "bfloat16", True, 0),
+    (2, 16, 1000, 64, "bfloat16", True, 0),
+    (2, 16, 1000, 64, "float32", False, 0),
+]
+FLASH_TIMED = (8, 16, 2048, 64)  # the flagship long prefill, causal
+# out: float32 2e-5 / 2e-5, the JAX oracle's tolerance (sums in other
+# orders); bfloat16 2e-2 / 2e-2: the kernel rounds p = exp(s - m) to bf16
+# against its running row max, the plain version against the final one,
+# so the two sit up to one bf16 rounding of p and one of out apart.  m
+# within 1e-5 x max|s|; l within 2e-5 relative.
+FLASH_TOL = {"float32": (2e-5, 2e-5), "bfloat16": (2e-2, 2e-2)}
+BF16_FLOPS_PER_S = 989e12      # H100 SXM tensor cores, dense bf16
+# The flagship transformer LM (bench_transformer.py's ~400M config),
+# served greedy at the decode bench's shape: 8 prompts of 128 tokens per
+# :predict, 128 new tokens each.
+LM_PARAMS = ("vocab_size=32768;dim=1024;num_heads=16;num_layers=24;"
+             "seq_len=2048;dtype=bfloat16")
+LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 128
+# Prefill logits, kernel path vs plain attention, as a share of the
+# largest |logit|: bf16 compute 2e-2 (every layer's activations round to
+# bf16; the two attention outputs sit a bf16 rounding of p apart and 24
+# layers of seeded random weights amplify it); float32 with TF32 off
+# 1e-3 (sums in other orders through 24 layers).  The bf16 limit is
+# raised to LM_FLOOR_X times the run's own noise floor where that is
+# larger: the distance between two equally valid plain paths, p rounded
+# to bf16 and p kept in f32, on the same prompts (measured 0.0191 of
+# max|logit| on the H100, against 0.0197 for the kernel).  A kernel that
+# is wrong (a mask, a scale, a lost tile) moves logits by O(1).
+# Teacher forcing: the plain path's logit of each token the kernel path
+# chose lies within 2 x 2e-2 of the plain row max (each of the two
+# logits may be off by the prefill tolerance).
+LM_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
+LM_FLOOR_X = 1.5
+LM_TF_TOL = 4e-2
 
 
 def fail(msg):
@@ -865,6 +931,297 @@ def training_phase(torch, gn):
     return out
 
 
+def flash_bound(B, H, T, D, esize, causal, window):
+    """Least time of one flash forward: the larger of q, k, v read, out
+    written (their dtype) and l, m written (f32) over the memory rate,
+    and 4 D operations per live (query, key) pair (q k^T and p v) over
+    the tensor-core bf16 rate or the f32 rate outside them."""
+    if not causal:
+        pairs = T * T
+    elif window:
+        w = min(window, T)
+        pairs = w * (w + 1) // 2 + (T - w) * w
+    else:
+        pairs = T * (T + 1) // 2
+    nbytes = 4 * B * H * T * D * esize + 2 * B * H * T * 4
+    flops = 4 * D * pairs * B * H
+    bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
+    ops_ms = flops / (BF16_FLOPS_PER_S if esize == 2
+                      else F32_FLOPS_PER_S) * 1e3
+    return {"bound_ms": max(bytes_ms, ops_ms), "bytes_ms": bytes_ms,
+            "ops_ms": ops_ms, "gflop": flops / 1e9,
+            "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
+
+
+def flash_phase(torch, fa):
+    """B3 against ``_flash_ref`` at every FLASH_CHECKS shape (out, l and
+    m); then, at the flagship long prefill in both dtypes, the kernel's
+    time, the plain version's, F.scaled_dot_product_attention's (a
+    yardstick the port never calls) and the bound."""
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for B, H, T, D, name, causal, window in FLASH_CHECKS:
+        q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
+            getattr(torch, name)) for _ in range(3))
+        scale = D ** -0.5
+        got = fa.flash_forward(q, k, v, causal=causal, window=window)
+        torch.cuda.synchronize()
+        ref = fa._flash_ref(q, k, v, causal, scale, window)
+        what = "flash_fwd B=%d H=%d T=%d D=%d %s causal=%s window=%d" % (
+            B, H, T, D, name, causal, window)
+        atol, rtol = FLASH_TOL[name]
+        if got[0].dtype != q.dtype or got[0].shape != q.shape:
+            fail("%s: out %s %s" % (what, got[0].dtype, tuple(got[0].shape)))
+        err = check_close(what, got[0], ref[0], atol, rtol)
+        s_max = float((torch.matmul(q.float(), k.float().transpose(-1, -2))
+                       * scale).abs().max())
+        check_close(what + " m", got[2], ref[2], 1e-5 * s_max, 0.0)
+        check_close(what + " l", got[1], ref[1], 0.0, 2e-5)
+        max_err[name] = max(max_err[name], err)
+        print("check %-62s max_abs_err %.3g" % (what, err))
+        del q, k, v, got, ref
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    B, H, T, D = FLASH_TIMED
+    timed = {}
+    for name in ("bfloat16", "float32"):
+        q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
+            getattr(torch, name)) for _ in range(3))
+        row = {"shape": [B, H, T, D], "dtype": name, "causal": True,
+               "ms": time_ms(torch, lambda: fa.flash_forward(q, k, v),
+                             flush),
+               "plain_ms": time_ms(torch, lambda: fa._flash_ref(
+                   q, k, v, True, D ** -0.5), flush, reps=5),
+               "library_ms": time_ms(torch, lambda: (
+                   F.scaled_dot_product_attention(q, k, v, is_causal=True)),
+                   flush)}
+        row.update(flash_bound(B, H, T, D, q.element_size(), True, 0))
+        timed[name] = row
+        print("time flash_fwd B=%d H=%d T=%d D=%d %s causal: kernel %.4f "
+              "ms, plain %.4f ms, scaled_dot_product_attention %.4f ms, "
+              "bound %.4f ms (%s; %.2f GFLOP)" % (
+                  B, H, T, D, name, row["ms"], row["plain_ms"],
+                  row["library_ms"], row["bound_ms"], row["bound_by"],
+                  row["gflop"]))
+        del q, k, v
+    del flush
+    torch.cuda.empty_cache()
+    return max_err, timed
+
+
+@contextlib.contextmanager
+def plain_attention(fa, unrounded=False):
+    """Route the transformer's attention to the plain version of the
+    kernel (``_flash_ref``), on the same tensors; ``unrounded``: to the
+    dense f32 softmax ``_attention_ref`` instead, which keeps p in f32:
+    the noise floor that the bf16 prefill check reads."""
+    from elasticdl_tpu_torch.parallel import ring_attention as ra
+
+    kernel = ra.flash_attention
+
+    def plain(q, k, v, causal=True, scale=None, window=0):
+        scale = scale if scale is not None else q.shape[-1] ** -0.5
+        if unrounded:
+            return fa._attention_ref(q, k, v, causal, scale, window)
+        return fa._flash_ref(q, k, v, causal, scale, window)[0]
+
+    ra.flash_attention = plain
+    try:
+        yield
+    finally:
+        ra.flash_attention = kernel
+
+
+def host_ms(torch, fn, reps):
+    """Median host time of ``fn`` ending in a synchronise, after one
+    untimed call."""
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return float(np.median(times))
+
+
+def transformer_phase(torch, fa):
+    """The flagship transformer LM (436 M parameters, seeded random
+    weights, bf16 compute) exported with the port's ``export_generate``,
+    served by the port's HTTP server on the card and queried with
+    REQUESTS :predict requests of LM_BATCH prompts; then checked against
+    the same module on plain attention and timed."""
+    import dataclasses
+
+    from elasticdl_tpu_torch.models import transformer as tfm
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.serving.server import ModelEndpoint, build_server
+
+    spec = load_model_spec("transformer", LM_PARAMS)
+    cfg = spec.config
+    out = {}
+    module = spec.init_fn("cuda", seed=0)
+    out["parameters"] = sum(p.numel() for p in module.parameters())
+    prompts = np.random.RandomState(4).randint(
+        0, cfg.vocab_size, size=(REQUESTS, LM_BATCH, LM_PROMPT)).astype(
+            np.int32)
+    with tempfile.TemporaryDirectory() as tmp:
+        export_dir = os.path.join(tmp, "lm", "1")
+        t0 = time.perf_counter()
+        tfm.export_generate(export_dir, module, cfg, max_new_tokens=LM_NEW,
+                            prompt_len=LM_PROMPT, model_name="lm",
+                            version=1)
+        out["export_s"] = time.perf_counter() - t0
+        del module
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        endpoint = ModelEndpoint(os.path.dirname(export_dir), device="cuda")
+        out["load_s"] = time.perf_counter() - t0
+        server = build_server(endpoint, port=0)
+        port = server.server_address[1]
+        thread = threading.Thread(target=server.serve_forever, daemon=True)
+        thread.start()
+        try:
+            code, meta = http_json(port, "GET", "/v1/models/lm")
+            if code != 200 or meta["metadata"]["generate"] != {
+                    "prompt_len": LM_PROMPT, "max_new_tokens": LM_NEW,
+                    "temperature": 0.0}:
+                fail("lm metadata: %s %s" % (code, meta))
+            bodies = [json.dumps({"instances": p.tolist()}) for p in prompts]
+            fa.LAUNCHES = 0
+            latencies, generated = [], []
+            for body in bodies:
+                t0 = time.perf_counter()
+                code, resp = http_json(port, "POST", "/v1/models/lm:predict",
+                                       body)
+                latencies.append((time.perf_counter() - t0) * 1e3)
+                if code != 200:
+                    fail("lm predict: %s %s" % (code, resp))
+                generated.append(np.asarray(resp["predictions"], np.int64))
+            launches = fa.LAUNCHES
+        finally:
+            server.shutdown()
+            server.server_close()
+            thread.join(timeout=60)
+    if launches != cfg.num_layers * len(bodies):
+        fail("flash kernel launched %d times over %d requests, want %d "
+             "each (one per layer of prefill)" % (
+                 launches, len(bodies), cfg.num_layers))
+    for prompt, seq in zip(prompts, generated):
+        if seq.shape != (LM_BATCH, LM_PROMPT + LM_NEW):
+            fail("generated shape %s" % (seq.shape,))
+        if not np.array_equal(seq[:, :LM_PROMPT], prompt):
+            fail("the prompt did not come back unchanged")
+        if seq.min() < 0 or seq.max() >= cfg.vocab_size:
+            fail("generated ids outside the vocab")
+    out.update({"launches": launches, "latency_ms": latencies,
+                "generated_tokens_per_s": LM_BATCH * LM_NEW / float(
+                    np.median(latencies)) * 1e3})
+    print("lm serve: %s M parameters, export %.1f s, load %.1f s; %d "
+          "requests x %d prompts x (%d + %d) tokens, latency ms %s, "
+          "%.1f generated tokens/s (median request); flash launches %d "
+          "(%d per request)" % (
+              "%.1f" % (out["parameters"] / 1e6), out["export_s"],
+              out["load_s"], len(bodies), LM_BATCH, LM_PROMPT, LM_NEW,
+              ["%.1f" % t for t in latencies],
+              out["generated_tokens_per_s"], launches,
+              launches // len(bodies)))
+
+    served = endpoint._snapshot().module
+    with torch.inference_mode():
+        # Teacher forcing: the plain path's forward over each generated
+        # sequence; the logit of each token the kernel path chose must
+        # lie near the plain row max.
+        worst_gap, prefill_err, floor_err = 0.0, 0.0, 0.0
+        for prompt, seq in zip(prompts, generated):
+            seq_d = torch.from_numpy(seq).cuda()
+            before = fa.LAUNCHES
+            with plain_attention(fa):
+                logits = tfm.forward(served, seq_d, cfg)
+                plain_last, _ = tfm.prefill(served, cfg,
+                                            seq_d[:, :LM_PROMPT],
+                                            LM_PROMPT + LM_NEW)
+            if fa.LAUNCHES != before:
+                fail("the plain-attention path launched the kernel")
+            rows = logits[:, LM_PROMPT - 1:-1]
+            chosen = rows.gather(-1, seq_d[:, LM_PROMPT:, None])[..., 0]
+            scale_l = float(rows.abs().max())
+            gap = float((rows.max(dim=-1).values - chosen).max()) / scale_l
+            worst_gap = max(worst_gap, gap)
+            if gap > LM_TF_TOL:
+                fail("teacher forcing: a chosen token's plain logit lies "
+                     "%.3g x max|logit| below the plain row max (limit %g)"
+                     % (gap, LM_TF_TOL))
+            with plain_attention(fa, unrounded=True):
+                unrounded_last, _ = tfm.prefill(
+                    served, cfg, seq_d[:, :LM_PROMPT], LM_PROMPT + LM_NEW)
+            kernel_last, _ = tfm.prefill(served, cfg, seq_d[:, :LM_PROMPT],
+                                         LM_PROMPT + LM_NEW)
+            scale_p = float(plain_last.abs().max())
+            floor = float(
+                (unrounded_last - plain_last).abs().max()) / scale_p
+            limit = max(LM_TOL["bfloat16"], LM_FLOOR_X * floor)
+            err = check_close("lm prefill logits bf16, kernel vs plain",
+                              kernel_last, plain_last, limit * scale_p, 0.0)
+            prefill_err = max(prefill_err, err / scale_p)
+            floor_err = max(floor_err, floor)
+            del logits, rows
+        print("lm check: teacher-forced over %d x %d generated tokens, "
+              "worst chosen-token gap to the plain row max %.3g x "
+              "max|logit| (limit %g); prefill logits, kernel vs plain, "
+              "bf16: max err %.3g x max|logit| (limit the larger of %g and "
+              "%g x the noise floor: plain vs plain with p unrounded, %.3g)"
+              % (REQUESTS * LM_BATCH, LM_NEW, worst_gap, LM_TF_TOL,
+                 prefill_err, LM_TOL["bfloat16"], LM_FLOOR_X, floor_err))
+
+        # float32 with TF32 off, prompt 2048, batch 2: the same weights.
+        cfg32 = dataclasses.replace(cfg, dtype="float32")
+        long_prompt = torch.from_numpy(np.random.RandomState(6).randint(
+            0, cfg.vocab_size, size=(2, cfg.max_seq_len))).cuda()
+        kernel_last, _ = tfm.prefill(served, cfg32, long_prompt,
+                                     cfg.max_seq_len)
+        with plain_attention(fa):
+            plain_last, _ = tfm.prefill(served, cfg32, long_prompt,
+                                        cfg.max_seq_len)
+        scale_p = float(plain_last.abs().max())
+        err32 = check_close("lm prefill logits f32 T=2048, kernel vs plain",
+                            kernel_last, plain_last,
+                            LM_TOL["float32"] * scale_p, 0.0) / scale_p
+        print("lm check: prefill logits f32 (TF32 off), batch 2, T=%d, "
+              "kernel vs plain: max err %.3g x max|logit| (limit %g)"
+              % (cfg.max_seq_len, err32, LM_TOL["float32"]))
+        out.update({"teacher_forced_worst_gap": worst_gap,
+                    "prefill_rel_err_bf16": prefill_err,
+                    "prefill_rel_err_bf16_p_unrounded": floor_err,
+                    "prefill_rel_err_f32_t2048": err32})
+        del kernel_last, plain_last
+
+        # Prefill time at batch 8, kernel and plain attention in turns.
+        prefill = {}
+        for T, reps in ((LM_PROMPT, 10), (cfg.max_seq_len, 3)):
+            x = torch.from_numpy(np.random.RandomState(7).randint(
+                0, cfg.vocab_size, size=(LM_BATCH, T))).cuda()
+            times = {"kernel": [], "plain": []}
+            for which in ("kernel", "plain", "plain", "kernel"):
+                ctx = (plain_attention(fa) if which == "plain"
+                       else contextlib.nullcontext())
+                with ctx:
+                    times[which].append(host_ms(
+                        torch, lambda: tfm.prefill(served, cfg, x, T), reps))
+            prefill[T] = {k: float(np.mean(v)) for k, v in times.items()}
+            print("lm prefill batch %d, T=%d, bf16: kernel %.2f ms, plain "
+                  "attention %.2f ms" % (LM_BATCH, T, prefill[T]["kernel"],
+                                         prefill[T]["plain"]))
+        out["prefill_ms"] = prefill
+    del served, endpoint
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -876,6 +1233,7 @@ def main():
         fail("torch.cuda.is_available() is false: this script measures "
              "the port on an NVIDIA card")
     from elasticdl_tpu_torch.ops import build
+    from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.ops import group_norm as gn
 
     smi = nvidia_smi_line()
@@ -922,6 +1280,12 @@ def main():
     t0 = time.perf_counter()
     train = training_phase(torch, gn)
     phase_s["training"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flash_err, flash_timed = flash_phase(torch, fa)
+    phase_s["flash kernel"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm = transformer_phase(torch, fa)
+    phase_s["transformer serving"] = time.perf_counter() - t0
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -954,6 +1318,21 @@ def main():
         "bound_by": bf32["bound_by"],
         "library_ms": bf32["library_ms"],
         "times_are": per % ("training step's backward", BATCH),
+    }, {
+        "name": "flash_attention_fwd",
+        "route": "cuda",
+        "source": "elasticdl_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "elasticdl_tpu/ops/flash_attention.py:87",
+        "launches": lm["launches"],
+        "max_abs_err": flash_err["bfloat16"],
+        "ms": flash_timed["bfloat16"]["ms"],
+        "plain_ms": flash_timed["bfloat16"]["plain_ms"],
+        "bound_ms": flash_timed["bfloat16"]["bound_ms"],
+        "bound_by": flash_timed["bfloat16"]["bound_by"],
+        "library_ms": flash_timed["bfloat16"]["library_ms"],
+        "times_are": "one call at the flagship long prefill, q, k, v "
+                     "[8, 16, 2048, 64] bfloat16, causal; launches over "
+                     "%d served :predict requests" % REQUESTS,
     }]
     if args.out:
         with open(args.out, "w") as f:
@@ -966,6 +1345,8 @@ def main():
                        "serve_latency_ms": latencies,
                        "serve_max_abs_err": serve_err,
                        "forward_ms": forward, "train": train,
+                       "flash_max_abs_err": flash_err,
+                       "flash_timed": flash_timed, "lm": lm,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -18,7 +18,9 @@ In the port:
  - ``params_from_jax(named)`` maps the JAX package's flat parameter
    names and layouts (``utils.pytree.flatten_with_names``) to the
    module's ``state_dict``; ``params_to_jax(module)`` maps back.  This
-   is how one npz checkpoint or servable loads into either package.
+   is how one npz checkpoint or servable loads into either package;
+ - ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
+   serves a generation export (language models only).
 
 ``params_from_jax`` / ``params_to_jax`` below implement that map for
 modules whose submodules carry flax's call-order names (``Conv_0``,
@@ -48,6 +50,9 @@ class ModelSpec:
     loss_fn: typing.Callable = None   # (outputs, labels) -> [batch] f32
     optimizer: typing.Callable = None  # parameters -> torch Optimizer
     eval_metrics_fn: typing.Callable = None  # () -> {name: Metric}
+    # (module, prompt, max_new_tokens, temperature, seed) -> tokens;
+    # set by zoo entries that serve generation exports
+    generate_fn: typing.Callable = None
 
 
 def jax_name(torch_name):

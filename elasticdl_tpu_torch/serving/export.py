@@ -83,28 +83,48 @@ def _npz_bytes(payload):
     return buf.getvalue()
 
 
+def _leaf_signature(example):
+    """One input leaf's ``{shape, dtype}``, its leading (batch) dim
+    free; a rank-0 leaf (a per-request scalar) keeps its empty shape."""
+    example = np.asarray(example)
+    shape = list(example.shape)
+    if shape:
+        shape[0] = None
+    return {"shape": shape, "dtype": str(example.dtype)}
+
+
 def export_servable(export_dir, spec_name, model_params, module,
-                    example_input, model_name="", version=0):
+                    example_input, model_name="", version=0,
+                    generate=None):
     """Write a servable export of ``module``.
 
     ``spec_name`` / ``model_params``: the zoo entry that rebuilds the
     module (``load_model_spec(spec_name, model_params)``), recorded in
-    the manifest.  ``example_input``: an ndarray fixing the serving
-    signature; its leading (batch) dim is recorded as free.  Returns the
-    manifest."""
+    the manifest.  ``example_input``: an ndarray, or a flat dict of
+    them, fixing the serving signature (the JAX package's layout:
+    ``{shape, dtype}`` per leaf, leading dim free).  ``generate``: the
+    settings of a generation export (``prompt_len``,
+    ``max_new_tokens``, ``temperature``), recorded as the manifest's
+    ``"generate"`` block; the loader then serves the zoo entry's
+    ``generate_fn``.  Returns the manifest."""
     spec = load_model_spec(spec_name, model_params)
     flat = spec.params_to_jax(module)
-    example = np.asarray(example_input)
+    if isinstance(example_input, dict):
+        signature = {key: _leaf_signature(value)
+                     for key, value in example_input.items()}
+    else:
+        signature = _leaf_signature(example_input)
     manifest = {
         "format": FORMAT,
         "model_name": model_name,
         "version": version,
         "parameters": sorted(flat),
-        "input_signature": {"shape": [None] + list(example.shape[1:]),
-                            "dtype": str(example.dtype)},
+        "input_signature": signature,
         "zoo": {"module": spec_name, "model_params": model_params},
         "loader": "elasticdl_tpu_torch.serving.loader:load_servable",
     }
+    if generate is not None:
+        manifest["generate"] = dict(generate)
     publish_export(export_dir, {
         "model.npz": _npz_bytes(flat),
         "manifest.json": json.dumps(manifest, indent=2).encode(),

@@ -6,7 +6,10 @@ manifest names the zoo entry that rebuilds the module, and the
 ``model.npz`` of the JAX package's ``elasticdl_tpu_servable_v2`` exports
 when the caller names the zoo entry (``zoo=("resnet",
 "variant=resnet50")``): both store weights in the JAX package's flat
-names and layouts.
+names and layouts.  A generation export (a manifest with a
+``"generate"`` block, written by ``models/transformer.export_generate``;
+for a JAX ``export_generate`` export the caller passes ``generate=``)
+runs the zoo entry's ``generate_fn`` on each ``predict``.
 
 Numerics: a float32 conv on the card runs through cuDNN in TF32 by
 default, and the JAX servable computes in float32.  Loading a servable
@@ -66,12 +69,21 @@ def resolve_export_dir(path, version=None):
     return os.path.join(path, str(versions[-1]))
 
 
+def is_leaf_signature(signature):
+    """True for one array's ``{shape, dtype}``, False for a dict of
+    them (a dict-input servable such as a sampling generate export)."""
+    return isinstance(signature.get("shape"), list)
+
+
 class ServableModel:
     """One loaded export on one device.  ``zoo``: ``(module,
     model_params)`` naming the zoo entry; required for a JAX-written
-    export, and overrides the manifest's for a port export."""
+    export, and overrides the manifest's for a port export.
+    ``generate``: ``{prompt_len, max_new_tokens, temperature}`` of a
+    JAX-written ``export_generate`` export (its manifest does not carry
+    them); a port export's manifest does."""
 
-    def __init__(self, export_dir, device=None, zoo=None):
+    def __init__(self, export_dir, device=None, zoo=None, generate=None):
         export_dir = resolve_export_dir(export_dir)
         self.export_dir = export_dir
         self.device = resolve_device(device)
@@ -81,6 +93,7 @@ class ServableModel:
         if fmt == FORMAT:
             zoo = zoo or (self.manifest["zoo"]["module"],
                           self.manifest["zoo"]["model_params"])
+            generate = generate or self.manifest.get("generate")
         elif fmt == JAX_FORMAT:
             # Plain-weights JAX exports only: a feature prefix
             # ("int8-weights+...") is refused by the equality above.
@@ -93,6 +106,8 @@ class ServableModel:
                 "not a servable export this loader understands: "
                 "format=%r" % fmt)
         spec = load_model_spec(*zoo)
+        if generate is not None and spec.generate_fn is None:
+            raise ValueError("zoo entry %r serves no generation" % (zoo[0],))
         with np.load(os.path.join(export_dir, "model.npz")) as z:
             named = {key: z[key] for key in z.files}
         if self.device.type == "cuda":
@@ -100,20 +115,51 @@ class ServableModel:
         self.module = spec.init_fn(self.device)
         self.module.load_state_dict(spec.params_from_jax(named))
         self._apply = spec.apply_fn
+        self._generate_fn = spec.generate_fn
+        self.generate = dict(generate) if generate is not None else None
 
     def predict(self, inputs):
-        """ndarray matching ``manifest['input_signature']`` -> ndarray."""
+        """Inputs matching ``manifest['input_signature']`` -> ndarray.
+        A generation export takes prompt ids [B, prompt_len] (or, when
+        it samples, ``{"prompt": ..., "seed": s}``) and answers prompt +
+        generated ids [B, prompt_len + max_new_tokens] int32."""
         with torch.inference_mode():
+            if self.generate is not None:
+                return self._predict_generate(inputs)
             x = torch.as_tensor(np.asarray(inputs), device=self.device)
             return self._apply(self.module, x, False).cpu().numpy()
+
+    def _predict_generate(self, inputs):
+        settings = self.generate
+        seed = 0
+        if isinstance(inputs, dict):
+            prompt, seed = inputs["prompt"], int(np.asarray(inputs["seed"]))
+        else:
+            prompt = inputs
+        prompt = np.asarray(prompt, dtype=np.int32)
+        if prompt.ndim != 2 or prompt.shape[1] != settings["prompt_len"]:
+            raise ValueError(
+                "prompt of shape %s, the export takes [batch, %d]"
+                % (prompt.shape, settings["prompt_len"]))
+        tokens = self._generate_fn(
+            self.module, torch.from_numpy(prompt).to(self.device),
+            settings["max_new_tokens"], settings["temperature"], seed)
+        return tokens.cpu().numpy()
 
     def dummy_inputs(self, batch_size):
         """Zero-filled inputs matching the signature, with every free
         (None) dim set to ``batch_size``."""
+
+        def zeros(sig):
+            shape = [batch_size if d is None else d for d in sig["shape"]]
+            return np.zeros(shape, np.dtype(sig["dtype"]))
+
         sig = self.manifest["input_signature"]
-        shape = [batch_size if d is None else d for d in sig["shape"]]
-        return np.zeros(shape, np.dtype(sig["dtype"]))
+        if is_leaf_signature(sig):
+            return zeros(sig)
+        return {key: zeros(sub) for key, sub in sig.items()}
 
 
-def load_servable(export_dir, device=None, zoo=None):
-    return ServableModel(export_dir, device=device, zoo=zoo)
+def load_servable(export_dir, device=None, zoo=None, generate=None):
+    return ServableModel(export_dir, device=device, zoo=zoo,
+                         generate=generate)

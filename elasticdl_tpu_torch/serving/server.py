@@ -7,6 +7,9 @@
   POST /v1/models/<name>:predict    -> {"predictions": [...],
        body {"instances": [...]}        "model_version": v}
        or   {"inputs": [...]}
+       or   {"inputs": {name: ...}}  (a dict-input servable, such as a
+                                      sampling generation export:
+                                      {"prompt": [[ids]], "seed": s})
 
 Errors: 400 for a bad body, 404 for an unknown path, 411 for a POST
 without Content-Length, 500 for a failure while running the model.
@@ -15,9 +18,11 @@ Responses use HTTP/1.1 keep-alive and TCP_NODELAY.
 The model runs on the card unless the caller asks for the CPU
 (``ModelEndpoint(..., device="cpu")``; the CLI reads
 ``ELASTICDL_TORCH_DEVICE``).  Predictions are computed in float32 with
-TF32 off (see serving/loader.py).  Each request runs one forward,
-serialized by an execution lock; request batching, the fleet barrier,
-binary frames, ``:lookup``, drain and SLO surfaces are not ported yet.
+TF32 off (see serving/loader.py); a generation export answers token ids
+(int32), computed in its config's dtype.  Each request runs one
+``predict``, serialized by an execution lock; request batching, the
+fleet barrier, binary frames, ``:lookup``, drain and SLO surfaces are
+not ported yet.
 
 Run: python -m elasticdl_tpu_torch.serving.server --export_dir D [--port P]
 """
@@ -31,6 +36,7 @@ from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 import numpy as np
 
 from elasticdl_tpu_torch.serving.loader import (
+    is_leaf_signature,
     load_servable,
     resolve_export_dir,
 )
@@ -38,6 +44,29 @@ from elasticdl_tpu_torch.utils.args import build_serving_parser
 from elasticdl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
+
+
+def _marshal_leaf(value, signature, name):
+    arr = np.asarray(value, dtype=signature["dtype"])
+    want = signature["shape"]
+    if arr.ndim != len(want) or any(
+            w is not None and w != d for w, d in zip(want, arr.shape)):
+        raise ValueError("%s of shape %s, model takes %s (None: any)"
+                         % (name, arr.shape, want))
+    return arr
+
+
+def _marshal(rows, signature):
+    """JSON inputs -> the ndarray, or flat dict of ndarrays, that the
+    manifest's input signature names, each leaf in its dtype and checked
+    against its shape."""
+    if is_leaf_signature(signature):
+        return _marshal_leaf(rows, signature, "inputs")
+    if not isinstance(rows, dict) or set(rows) != set(signature):
+        raise ValueError("inputs must be an object with the keys %s"
+                         % sorted(signature))
+    return {key: _marshal_leaf(rows[key], sub, key)
+            for key, sub in signature.items()}
 
 
 class ModelEndpoint:
@@ -63,6 +92,14 @@ class ModelEndpoint:
         self._lock = threading.Lock()         # model execution
         self._reload_lock = threading.Lock()  # scan/load/swap
 
+    def _snapshot(self):
+        """The one unlocked read of the live servable.  A hot swap
+        replaces it whole by one reference assignment (under the
+        execution lock), so a caller holds one version's manifest and
+        weights together and its version stamp is the one that ran."""
+        # elint: disable=EL001 -- one atomic read of a whole servable
+        return self.model
+
     def maybe_reload(self):
         """Swap in a newer complete version, if one has appeared."""
         if not self._versioned:
@@ -74,7 +111,7 @@ class ModelEndpoint:
             self._last_scan = now
             try:
                 resolved = resolve_export_dir(self.export_dir)
-                if resolved == self.model.export_dir:
+                if resolved == self._snapshot().export_dir:
                     return
                 fresh = load_servable(resolved, device=self._device)
             except (OSError, ValueError) as e:
@@ -87,7 +124,7 @@ class ModelEndpoint:
 
     def metadata(self):
         self.maybe_reload()
-        model = self.model
+        model = self._snapshot()
         return {
             "model_version_status": [{
                 "version": str(model.manifest.get("version", 0)),
@@ -108,13 +145,12 @@ class ModelEndpoint:
             raise ValueError("body needs 'instances' or 'inputs'")
         # Marshal outside the lock against one snapshot of the model; the
         # version stamp below is the snapshot's.
-        model = self.model
-        signature = model.manifest["input_signature"]
-        inputs = np.asarray(rows, dtype=signature["dtype"])
-        if list(inputs.shape[1:]) != signature["shape"][1:]:
-            raise ValueError("inputs of shape %s, model takes [batch] + %s"
-                             % (inputs.shape, signature["shape"][1:]))
+        model = self._snapshot()
+        inputs = _marshal(rows, model.manifest["input_signature"])
+        # Deliberate: one predict at a time on the one card; concurrent
+        # ones would only contend for it (request batching is ROADMAP A12).
         with self._lock:
+            # elint: disable=EL006 -- one predict at a time on the card
             outputs = model.predict(inputs)
         return {"predictions": outputs.tolist(),
                 "model_version": int(model.manifest.get("version", 0) or 0)}
@@ -207,7 +243,7 @@ def main(argv=None):
     server = build_server(endpoint, port=args.port, host=args.host)
     logger.info("serving model %r on %s:%d (%s; predict: POST "
                 "/v1/models/<name>:predict)", endpoint.name, args.host,
-                server.server_address[1], endpoint.model.device)
+                server.server_address[1], endpoint._snapshot().device)
     try:
         server.serve_forever()
     except KeyboardInterrupt:

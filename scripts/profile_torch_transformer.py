@@ -1,0 +1,166 @@
+#!/usr/bin/env python3
+"""Where the served flagship transformer LM of the PyTorch/CUDA port
+spends the card's time: device time by kernel group for one prefill and
+for one decode step, the kernel launches per call and the device's busy
+share of the wall time.  Needs one NVIDIA card.  Run from the root of a
+checkout:
+
+    python3 scripts/profile_torch_transformer.py [--steps 5]
+
+The model is the flagship config (vocab 32768, dim 1024, 24 layers, 16
+heads, 436 M parameters, seeded random weights, bf16 compute) with
+attention on the port's flash attention kernel.  It profiles what one
+served :predict runs: prefill at batch 8 with a 128-token prompt, the
+same at 2048 tokens, and one KV-cache decode step at batch 8 (position
+128 of a 256-token cache), each on weights cast to bf16 once, as
+``generate`` casts them.  ``torch.profiler`` traces ``--steps``
+synchronised calls after two warm-up ones; the untraced wall time of the
+same calls is measured apart, since tracing adds host cost.  Prints the
+card's name and power limit, then one JSON object per call as its last
+lines.
+"""
+
+import argparse
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(
+    __file__))))
+
+from elasticdl_tpu_torch.models import transformer as tfm  # noqa: E402
+from elasticdl_tpu_torch.models.spec import load_model_spec  # noqa: E402
+from elasticdl_tpu_torch.ops import build  # noqa: E402
+from elasticdl_tpu_torch.ops import flash_attention as fa  # noqa: E402
+
+LM_PARAMS = ("vocab_size=32768;dim=1024;num_heads=16;num_layers=24;"
+             "seq_len=2048;dtype=bfloat16")
+BATCH, PROMPT, NEW = 8, 128, 128
+# Kernel-name fragments -> group, first match wins.
+GROUPS = [
+    ("flash attention (B3)", ("flash_fwd",)),
+    ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "gemv", "splitK")),
+    ("softmax (decode attention)", ("softmax",)),
+    ("reduce (rmsnorm mean, max)", ("reduce",)),
+    ("copy/cast (KV-cache writes, casts, GQA repeat, cat)",
+     ("copy", "Cat", "index", "gather", "scatter", "fill")),
+    ("elementwise (rmsnorm, rope, silu, residual)",
+     ("elementwise", "vectorized", "unrolled")),
+]
+
+
+def group_of(name):
+    for group, keys in GROUPS:
+        if any(k in name for k in keys):
+            return group
+    return "other"
+
+
+def device_us(evt):
+    for attr in ("self_device_time_total", "self_cuda_time_total"):
+        value = getattr(evt, attr, None)
+        if value is not None:
+            return float(value)
+    return 0.0
+
+
+def untraced_ms(fn, steps):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(steps):
+        fn()
+        torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / steps
+
+
+def profile(fn, steps):
+    """Trace ``steps`` synchronised calls of ``fn`` after two warm-up
+    calls; device time by group, launches, busy and idle share."""
+    for _ in range(2):
+        fn()
+    wall_untraced = untraced_ms(fn, steps)
+    fa.LAUNCHES = 0
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+            torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / steps
+    kernels, launches = {}, 0
+    for evt in prof.key_averages():
+        us = device_us(evt)
+        if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
+            kernels[evt.key] = kernels.get(evt.key, 0.0) + us
+            launches += evt.count
+    if not kernels:
+        raise SystemExit("torch.profiler saw no device time")
+    by_group = {}
+    for name, us in kernels.items():
+        group = group_of(name)
+        by_group[group] = by_group.get(group, 0.0) + us / steps / 1e3
+    busy_ms = sum(kernels.values()) / steps / 1e3
+    return {
+        "steps": steps,
+        "wall_ms_untraced": wall_untraced,
+        "wall_ms_traced": wall_ms,
+        "device_busy_ms": busy_ms,
+        "device_idle_share_untraced": max(0.0, 1 - busy_ms / wall_untraced),
+        "host_gap_ms_untraced": max(0.0, wall_untraced - busy_ms),
+        "kernel_launches_per_call": launches / steps,
+        "flash_launches_per_call": fa.LAUNCHES / steps,
+        "device_ms_by_group": dict(sorted(by_group.items(),
+                                          key=lambda kv: -kv[1])),
+        "top_kernels_ms": {k[:90]: v / steps / 1e3 for k, v in sorted(
+            kernels.items(), key=lambda kv: -kv[1])[:10]},
+    }
+
+
+def main():
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--steps", type=int, default=5)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        raise SystemExit("needs an NVIDIA card")
+    print(subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True).stdout.strip())
+    build.build_all()
+    spec = load_model_spec("transformer", LM_PARAMS)
+    cfg = spec.config
+    module = spec.init_fn("cuda", seed=0)
+    rng = np.random.RandomState(0)
+    results = []
+    with torch.inference_mode():
+        w = tfm._cast(module, cfg)       # once per request, as generate
+        for T, max_len in ((PROMPT, PROMPT + NEW), (cfg.max_seq_len,
+                                                   cfg.max_seq_len)):
+            x = torch.from_numpy(rng.randint(
+                0, cfg.vocab_size, size=(BATCH, T))).cuda()
+            result = profile(lambda: tfm._prefill(w, cfg, x, max_len),
+                             args.steps)
+            result["call"] = "prefill batch %d, T=%d, bf16" % (BATCH, T)
+            results.append(result)
+        prompt = torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, size=(BATCH, PROMPT))).cuda()
+        _, caches = tfm._prefill(w, cfg, prompt, PROMPT + NEW)
+        tok = prompt[:, -1]
+        result = profile(
+            lambda: tfm._decode_step(w, cfg, caches, PROMPT, tok),
+            args.steps)
+        result["call"] = ("decode step batch %d at position %d, bf16"
+                          % (BATCH, PROMPT))
+        results.append(result)
+    for result in results:
+        print(json.dumps(result))
+
+
+if __name__ == "__main__":
+    main()

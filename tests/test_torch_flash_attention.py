@@ -1,0 +1,157 @@
+"""The port's flash attention (elasticdl_tpu_torch/ops/flash_attention.py)
+against the JAX package's, on the CPU, where the port's wrapper takes its
+plain version and the JAX kernel runs in Pallas interpret mode.
+
+Inputs are made with numpy from a seed and fed to both packages.
+Tolerance 2e-5 abs/rel in float32, the JAX oracle's own
+(tests/test_flash_attention.py): the two sides sum in other orders.  In
+bfloat16 2e-2: both round p to bf16 before the p v product, the JAX
+kernel against its running row max, the plain version against the final
+one, so outputs may sit one bf16 rounding of p and one of out apart.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from elasticdl_tpu.ops import flash_attention as jfa
+from elasticdl_tpu.parallel import ring_attention as jring
+from elasticdl_tpu_torch.ops import flash_attention as tfa
+from elasticdl_tpu_torch.parallel import ring_attention as tring
+
+TOL = 2e-5
+WINDOWS = [64, 200, 1000]    # as tests/test_window_attention.py at t=384
+
+
+def make_qkv(b=2, h=2, t=256, d=64, seed=0):
+    rng = np.random.RandomState(seed)
+    return [rng.randn(b, h, t, d).astype(np.float32) for _ in range(3)]
+
+
+def both(arrays, dtype=np.float32):
+    """The same numpy arrays as JAX and torch inputs."""
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    tdt = torch.bfloat16 if dtype == "bfloat16" else torch.float32
+    return ([jnp.asarray(a, jdt) for a in arrays],
+            [torch.from_numpy(a).to(tdt) for a in arrays])
+
+
+def close(got, want, tol=TOL):
+    np.testing.assert_allclose(
+        got.float().numpy() if isinstance(got, torch.Tensor)
+        else np.asarray(got, np.float32),
+        np.asarray(want, np.float32), atol=tol, rtol=tol)
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("t", [256, 1024])
+def test_flash_matches_jax_kernel_and_reference(causal, t):
+    """t=1024 gives the JAX kernel a K grid of two 512-wide blocks (its
+    carry across ki and the dead-block skip engage)."""
+    b, h = (2, 2) if t == 256 else (1, 1)
+    (jq, jk, jv), (q, k, v) = both(make_qkv(b=b, h=h, t=t, seed=t))
+    scale = 64 ** -0.5
+    want = jfa.flash_attention(jq, jk, jv, causal=causal, interpret=True)
+    want_ref = jfa._attention_ref(jq, jk, jv, causal, scale)
+    got = tfa.flash_attention(q, k, v, causal=causal)
+    close(got, want)
+    close(got, want_ref)
+    close(tfa._attention_ref(q, k, v, causal, scale), want_ref)
+
+
+@pytest.mark.parametrize("window", WINDOWS)
+def test_flash_window_matches_jax(window):
+    (jq, jk, jv), (q, k, v) = both(make_qkv(b=1, h=2, t=384, seed=0))
+    scale = 64 ** -0.5
+    want = jfa.flash_attention(jq, jk, jv, causal=True, interpret=True,
+                               window=window)
+    got = tfa.flash_attention(q, k, v, causal=True, window=window)
+    close(got, want)
+    close(got, jfa._attention_ref(jq, jk, jv, True, scale, window=window))
+    if window >= 384:
+        close(got, tfa.flash_attention(q, k, v, causal=True))
+
+
+@pytest.mark.parametrize("causal,window", [(True, 0), (False, 0),
+                                           (True, 200)])
+def test_stats_match_jax_flash_forward(causal, window):
+    """(out, l, m) against the JAX ``_flash_forward``'s, the residuals
+    its backward kernels read."""
+    (jq, jk, jv), (q, k, v) = both(make_qkv(b=1, h=2, t=384, seed=5))
+    scale = 64 ** -0.5
+    want = jfa._flash_forward(jq, jk, jv, causal, scale, 128, 128, True,
+                              window=window)
+    got = tfa.flash_forward(q, k, v, causal=causal, window=window)
+    assert got[1].dtype == got[2].dtype == torch.float32
+    assert got[1].shape == got[2].shape == (1, 2, 384)
+    for g, w in zip(got, want):
+        close(g, w)
+
+
+def test_bfloat16_rounds_p_as_the_jax_kernel():
+    (jq, jk, jv), (q, k, v) = both(make_qkv(b=1, h=2, t=256, seed=7),
+                                   "bfloat16")
+    want = jfa.flash_attention(jq, jk, jv, causal=True, interpret=True)
+    got = tfa.flash_attention(q, k, v, causal=True)
+    assert got.dtype == torch.bfloat16
+    close(got, want, tol=2e-2)
+
+
+def test_ring_layout_matches_jax_attention_local():
+    """[B, T, H, D] in and out, through the JAX kernel in interpret
+    mode on one side and the port's wrapper on the other."""
+    rng = np.random.RandomState(3)
+    arrays = [rng.randn(2, 128, 2, 64).astype(np.float32)
+              for _ in range(3)]
+    (jq, jk, jv), (q, k, v) = both(arrays)
+    for window in (0, 40):
+        want = jring.attention_local(jq, jk, jv, causal=True,
+                                     mode="interpret", window=window)
+        got = tring.ring_attention(q, k, v, None, causal=True,
+                                   window=window)
+        assert got.shape == (2, 128, 2, 64)
+        close(got, want)
+        close(tring.attention_local(q, k, v, window=window), want)
+
+
+def test_window_and_mesh_errors():
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(b=1, h=1, t=128))
+    qs, ks, vs = (t.transpose(1, 2) for t in (q, k, v))
+    for call in (lambda **kw: tfa.flash_attention(q, k, v, **kw),
+                 lambda **kw: tfa.flash_forward(q, k, v, **kw),
+                 lambda **kw: tring.attention_local(qs, ks, vs, **kw),
+                 lambda **kw: tring.ring_attention(qs, ks, vs, None, **kw)):
+        with pytest.raises(ValueError, match="requires causal"):
+            call(causal=False, window=64)
+        with pytest.raises(ValueError, match="window must be >= 0"):
+            call(causal=True, window=-1)
+    with pytest.raises(NotImplementedError, match="A17"):
+        tring.ring_attention(qs, ks, vs, mesh=object())
+
+
+def test_cuda_path_refuses_what_the_kernel_does_not_take():
+    """The checks a CUDA tensor meets before its launch (here on CPU
+    tensors, which themselves never reach them): grad without the
+    backward kernels, dtypes, head dims, strides.  A device that is
+    neither CPU nor CUDA is refused outright."""
+    q, k, v = (torch.from_numpy(a) for a in make_qkv(b=1, h=1, t=64))
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="backward kernels"):
+        tfa._check_cuda_inputs(q, k, v)
+    with torch.no_grad():
+        tfa._check_cuda_inputs(q, k, v)
+    # The CPU path runs the plain version with grad on: it has autograd.
+    tfa.flash_attention(q, k, v).sum().backward()
+    assert q.grad is not None
+    q = q.detach()
+    with pytest.raises(TypeError, match="bfloat16"):
+        tfa._check_cuda_inputs(q.half(), k.half(), v.half())
+    with pytest.raises(ValueError, match="head_dim"):
+        tfa._check_cuda_inputs(q[..., :32], k[..., :32], v[..., :32])
+    with pytest.raises(ValueError, match="16-byte"):
+        # [.., T=64, D=64] with the head dim strided: not contiguous.
+        tfa._check_cuda_inputs(q.transpose(-1, -2), k.transpose(-1, -2),
+                               v.transpose(-1, -2))
+    with pytest.raises(ValueError, match="cuda or cpu"):
+        tfa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))

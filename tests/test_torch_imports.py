@@ -1,5 +1,6 @@
 """The port package imports torch and never JAX, flax, optax or the JAX
-package, and resolves its device without falling back to the CPU."""
+package, resolves its device without falling back to the CPU, and is
+clean under the repo's concurrency lint (tools/elastic_lint)."""
 
 import json
 import os
@@ -33,6 +34,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
         text=True, timeout=120, check=True)
     result = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("serving.server", "ops.group_norm", "ops.build",
+                 "ops.flash_attention", "parallel.ring_attention",
+                 "models.transformer",
                  "models.mnist", "models.resnet", "models.spec",
                  "utils.checkpoint", "utils.metrics",
                  "utils.timing", "worker.trainer",
@@ -48,3 +51,18 @@ def test_cuda_requested_without_a_card_raises(monkeypatch):
     with pytest.raises(RuntimeError):
         device_mod.resolve_device(None)      # the default is the card
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
+
+
+def test_port_package_is_lint_clean():
+    """``python -m tools.elastic_lint elasticdl_tpu_torch`` finds nothing:
+    the server's deliberate unlocked snapshot read and its serialized
+    predict carry the lint's own justified inline pragmas."""
+    if REPO not in sys.path:  # tools/ is not an installed package
+        sys.path.insert(0, REPO)
+    from tools.elastic_lint import DEFAULT_BASELINE, run_paths
+
+    findings = run_paths([os.path.join(REPO, "elasticdl_tpu_torch")],
+                         baseline_path=DEFAULT_BASELINE, jobs=1)
+    assert not findings, "\n".join(
+        "%s:%d: %s %s" % (f.path, f.line, f.rule, f.message)
+        for f in findings)
