@@ -59,7 +59,31 @@ Phases, in order; any failure exits non-zero:
     prefill logits in bf16, and in float32 with TF32 off at T=2048,
     batch 2; then prefill time at batch 8, T=128 and T=2048, with the
     kernel and with plain attention;
-10. one JSON line of kernels, then the card's name and power limit, then
+10. flash attention backward kernels against plain: dq (B4) and dk, dv
+    (B5) against their plain version (``_flash_bwd_ref``) on the forward
+    kernel's residuals and a random g, at the flagship training shape
+    ([8, 16, 2048, 64] causal) in float32 and bfloat16, non-causal, a
+    sliding window, head_dim 128 and a ragged T (FLASH_BWD_CHECKS), held
+    row by row and by norm, two runs bitwise equal; then, at the flagship shape in both dtypes, each
+    kernel's time and bound, the whole plain backward's time and the
+    backward alone of F.scaled_dot_product_attention (a yardstick the
+    port never calls);
+11. transformer training: the flagship LM (436 M parameters, seeded
+    random weights) trained through the port's CollectiveTrainer at
+    bench_transformer.py's shape, batch 8 x 2048, bf16 compute, AdamW,
+    remat=True, dense cross entropy.  First, in float32 with TF32 off at
+    batch 2: step-1 gradients with the kernels against the plain
+    Function (``flash_attention_ref``), and remat=False and
+    xent_chunk=512 against remat=True; the same kernels-vs-plain check at
+    the main path's settings (bf16 compute, batch 8).  Then one step
+    whose launches are counted (B3 48 times, forward and remat
+    recompute; B4 and B5 24 times each) and after which every parameter
+    must hold a finite gradient; LM_TRAIN_STEPS timed steps on the same batch (the loss
+    must fall), ms per step, tokens/s and the model-FLOP share (mfu);
+    LM_PLAIN_STEPS with the plain Function; a checkpoint (parameters and
+    AdamW moments in the JAX names and layouts) restored into a fresh
+    trainer bit for bit, with the same next loss;
+12. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
@@ -86,8 +110,9 @@ Tolerances (|got - ref| <= atol + rtol * |ref|):
    scaled by the size of what it bounds (y, dx, dscale and dbias by
    their largest plain entry, the mean by the largest |x|), since
    activations and gradients of a real step are not of unit size;
- - flash attention and the served transformer: FLASH_TOL, LM_TOL and
-   LM_TF_TOL below, each with its reason.
+ - flash attention, the served and the trained transformer: FLASH_TOL,
+   LM_TOL, LM_TF_TOL, FLASH_BWD_TOL and LM_GRAD_MIN below, each with its
+   reason.
 """
 
 import argparse
@@ -104,6 +129,7 @@ import time
 
 import numpy as np
 
+DEVICE = "cuda"                # where the new phases' tensors live
 BATCH = 32                     # the kernel table's batch
 SERVE_BATCH = 4                # images per :predict request
 REQUESTS = 3
@@ -206,6 +232,56 @@ LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 128
 LM_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LM_FLOOR_X = 1.5
 LM_TF_TOL = 4e-2
+# Flash attention backward (B4 dq, B5 dk/dv) against its plain version
+# ``_flash_bwd_ref`` on the forward kernel's residuals and a random g:
+# (B, H, T, D, dtype, causal, window).  The flagship training shape in
+# both dtypes, non-causal, a sliding window, head_dim 128 and a ragged T.
+FLASH_BWD_CHECKS = [
+    (8, 16, 2048, 64, "bfloat16", True, 0),
+    (8, 16, 2048, 64, "float32", True, 0),
+    (2, 16, 2048, 64, "bfloat16", False, 0),
+    (2, 16, 2048, 64, "float32", False, 0),
+    (2, 16, 2048, 64, "bfloat16", True, 256),
+    (2, 16, 2048, 64, "float32", True, 256),
+    (4, 8, 2048, 128, "bfloat16", True, 0),
+    (4, 8, 2048, 128, "float32", True, 0),
+    (2, 16, 1000, 64, "bfloat16", True, 0),
+    (2, 16, 1000, 64, "float32", False, 0),
+]
+# dq, dk, dv are held row by row (``bwd_errors``): each row's error
+# ||got_r - ref_r|| over the larger of ||ref_r|| and the median row norm
+# (rows that sum few terms are not held to their own tiny norms), and the
+# whole tensor's ||got - ref|| / ||ref||; FLASH_BWD_TOL gives (row limit,
+# norm limit).  float32: sums in other orders, p from exp2 in the kernel.
+# bfloat16: both versions round ds, p and the outputs to bf16 from f32
+# values that differ in their last bits, so an element lands one bf16 ulp
+# apart now and then.  Each limit is about 3x the largest reading over
+# FLASH_BWD_CHECKS on the H100 (row 1.3e-5 and 5.9e-3, norm 1.9e-7 and
+# 1.8e-4; PERF.md).  ``gate_self_test`` shows at the flagship shape that
+# the gate rejects a kernel that drops one 64-key tile from the last 64
+# rows of dq, or zeroes dk past T/2.
+FLASH_BWD_TOL = {"float32": (4e-5, 6e-7), "bfloat16": (2e-2, 6e-4)}
+# Transformer training: bench_transformer.py's shape (batch 8 x 2048, bf16
+# compute, AdamW, remat=True as that bench defaults, dense cross entropy),
+# LM_TRAIN_STEPS timed steps on one batch (the loss must fall) and
+# LM_PLAIN_STEPS with the plain attention Function.
+LM_TRAIN_BATCH = 8
+LM_TRAIN_STEPS = 10
+LM_PLAIN_STEPS = 3
+# Step-1 gradients in float32 (TF32 off) at batch 2, kernels against the
+# plain Function: each leaf within LM_FLOOR_X times the run's own floor
+# for that leaf, norm-relative (||g - g_plain|| / ||g_plain||), and never
+# under LM_GRAD_MIN.  The floor is the distance between two equally valid
+# plain paths, the plain Function and autograd through the dense f32
+# softmax ``_attention_ref`` (up to 6.25e-6 on the H100, with the kernels
+# 5.85e-6 from the plain Function; PERF.md).  remat=False and
+# xent_chunk=512 against remat=True (kernels in all three) are held to the
+# same limits, and their losses within LM_GRAD_MIN relative.  Then the
+# same at the main path's settings (bf16 compute, remat, batch
+# LM_TRAIN_BATCH x 2048: the bf16 kernels on the strided ring-layout views
+# of a training step), each leaf within LM_FLOOR_X times its bf16 floor.
+LM_GRAD_BATCH = 2
+LM_GRAD_MIN = 1e-5
 
 
 def fail(msg):
@@ -931,20 +1007,29 @@ def training_phase(torch, gn):
     return out
 
 
-def flash_bound(B, H, T, D, esize, causal, window):
-    """Least time of one flash forward: the larger of q, k, v read, out
-    written (their dtype) and l, m written (f32) over the memory rate,
-    and 4 D operations per live (query, key) pair (q k^T and p v) over
-    the tensor-core bf16 rate or the f32 rate outside them."""
+def live_pairs(T, causal, window):
+    """(query, key) pairs attention keeps, per head."""
     if not causal:
-        pairs = T * T
-    elif window:
+        return T * T
+    if window:
         w = min(window, T)
-        pairs = w * (w + 1) // 2 + (T - w) * w
-    else:
-        pairs = T * (T + 1) // 2
-    nbytes = 4 * B * H * T * D * esize + 2 * B * H * T * 4
-    flops = 4 * D * pairs * B * H
+        return w * (w + 1) // 2 + (T - w) * w
+    return T * (T + 1) // 2
+
+
+def flash_bound(B, H, T, D, esize, causal, window, part="fwd"):
+    """Least time of one flash kernel call: the larger of its compulsory
+    bytes over the memory rate and its operations per live (query, key)
+    pair over the tensor-core bf16 rate or the f32 rate outside them.
+    fwd (B3): q, k, v read, out written, l, m written; 4 D (q k^T, p v).
+    dq (B4): q, k, v, out, dO read, dq written, l, m read, delta written;
+    6 D (q k^T, dO v^T, ds k).  dkv (B5): q, k, v, dO read, dk, dv
+    written, l, m, delta read; 8 D (q k^T, dO v^T, p^T dO, ds^T q)."""
+    pairs = live_pairs(T, causal, window)
+    tensors, stats, per_pair = {"fwd": (4, 2, 4), "dq": (6, 3, 6),
+                                "dkv": (6, 3, 8)}[part]
+    nbytes = tensors * B * H * T * D * esize + stats * B * H * T * 4
+    flops = per_pair * D * pairs * B * H
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / (BF16_FLOPS_PER_S if esize == 2
                       else F32_FLOPS_PER_S) * 1e3
@@ -1014,21 +1099,22 @@ def flash_phase(torch, fa):
 
 @contextlib.contextmanager
 def plain_attention(fa, unrounded=False):
-    """Route the transformer's attention to the plain version of the
-    kernel (``_flash_ref``), on the same tensors; ``unrounded``: to the
-    dense f32 softmax ``_attention_ref`` instead, which keeps p in f32:
-    the noise floor that the bf16 prefill check reads."""
+    """Route the transformer's attention to the plain versions of the
+    kernels (``flash_attention_ref``: ``_flash_ref`` forward,
+    ``_flash_bwd_ref`` backward), on the same tensors; ``unrounded``: to
+    the dense f32 softmax ``_attention_ref`` instead, differentiated by
+    autograd, which keeps p in f32: the noise floor that the prefill and
+    gradient checks read."""
     from elasticdl_tpu_torch.parallel import ring_attention as ra
 
     kernel = ra.flash_attention
 
-    def plain(q, k, v, causal=True, scale=None, window=0):
+    def unrounded_attention(q, k, v, causal=True, scale=None, window=0):
         scale = scale if scale is not None else q.shape[-1] ** -0.5
-        if unrounded:
-            return fa._attention_ref(q, k, v, causal, scale, window)
-        return fa._flash_ref(q, k, v, causal, scale, window)[0]
+        return fa._attention_ref(q, k, v, causal, scale, window)
 
-    ra.flash_attention = plain
+    ra.flash_attention = (unrounded_attention if unrounded
+                          else fa.flash_attention_ref)
     try:
         yield
     finally:
@@ -1047,6 +1133,161 @@ def host_ms(torch, fn, reps):
         torch.cuda.synchronize()
         times.append((time.perf_counter() - t0) * 1e3)
     return float(np.median(times))
+
+
+def check_flash_bwd(torch, fa, q, k, v, causal, window, gen, what):
+    """B4 and B5 against ``_flash_bwd_ref`` on the forward kernel's
+    residuals and a random g; two runs must be bitwise equal.  Returns
+    ``bwd_errors``' three readings, each the worst over dq, dk and dv."""
+    name = str(q.dtype).replace("torch.", "")
+    g = torch.randn(q.shape, generator=gen, device=q.device).to(q.dtype)
+    out, l, m = fa.flash_forward(q, k, v, causal=causal, window=window)
+    got = fa.flash_backward(q, k, v, out, l, m, g, causal=causal,
+                            window=window)
+    again = fa.flash_backward(q, k, v, out, l, m, g, causal=causal,
+                              window=window)
+    torch.cuda.synchronize()
+    for part, a, b in zip(("dq", "dk", "dv"), got, again):
+        if not torch.equal(a, b):
+            fail("%s %s: two runs are not bitwise equal" % (what, part))
+    del again
+    ref = fa._flash_bwd_ref(q, k, v, out, l, m, g, causal,
+                            q.shape[-1] ** -0.5, window)
+    row_tol, norm_tol = FLASH_BWD_TOL[name]
+    worst = [0.0, 0.0, 0.0]
+    for part, a, r, src in zip(("dq", "dk", "dv"), got, ref, (q, k, v)):
+        if a.dtype != src.dtype or a.shape != src.shape:
+            fail("%s %s: %s %s" % (what, part, a.dtype, tuple(a.shape)))
+        if not bool(a.isfinite().all()):
+            fail("%s %s: non-finite output" % (what, part))
+        errs = bwd_errors(a, r)
+        if not (errs[1] <= row_tol and errs[2] <= norm_tol):
+            fail("%s %s: worst row %.3g (limit %g), norm-relative %.3g "
+                 "(limit %g)" % (what, part, errs[1], row_tol, errs[2],
+                                 norm_tol))
+        worst = [max(x, y) for x, y in zip(worst, errs)]
+    if (q.shape, name, causal, window) == (
+            FLASH_BWD_CHECKS[0][:4], "bfloat16", True, 0):
+        gate_self_test(torch, fa, q, k, v, out, l, m, g, got, ref)
+    return worst
+
+
+def gate_self_test(torch, fa, q, k, v, out, l, m, g, got, ref):
+    """The gate must reject two faults made from the kernels' own outputs
+    at the flagship shape: dk zeroed for the keys past T/2, and dq of the
+    last 64 rows without the contribution of the 64-key tile before
+    theirs.  Prints the readings of both."""
+    T, scale = q.shape[-2], q.shape[-1] ** -0.5
+    rows, tile = slice(T - 64, T), slice(T - 128, T - 64)
+    # That tile's ds for those rows, as ``_flash_bwd_ref`` makes it (the
+    # tile lies wholly below their diagonal: nothing masked).
+    p = torch.exp(torch.matmul(q[..., rows, :].float(), k[..., tile, :].float()
+                               .transpose(-1, -2)) * scale
+                  - m[..., rows, None]) / l[..., rows, None]
+    gr = g[..., rows, :].float()
+    dp = torch.matmul(gr, v[..., tile, :].float().transpose(-1, -2))
+    delta = (gr * out[..., rows, :].float()).sum(dim=-1, keepdim=True)
+    ds = (p * (dp - delta) * scale).to(q.dtype).float()
+    bad_dq = got[0].clone()
+    bad_dq[..., rows, :] = (bad_dq[..., rows, :].float() - torch.matmul(
+        ds, k[..., tile, :].float())).to(q.dtype)
+    bad_dk = got[1].clone()
+    bad_dk[..., T // 2:, :] = 0
+    row_tol, norm_tol = FLASH_BWD_TOL["bfloat16"]
+    for what, bad, r in (("dk zeroed past T/2", bad_dk, ref[1]),
+                         ("dq of the last 64 rows without one key tile",
+                          bad_dq, ref[0])):
+        _, row, rel = bwd_errors(bad, r)
+        if row <= row_tol and rel <= norm_tol:
+            fail("the bf16 backward gate passed a fault (%s): worst row "
+                 "%.3g, norm-relative %.3g" % (what, row, rel))
+        print("gate self-test: %s: worst row %.3g (limit %g), "
+              "norm-relative %.3g (limit %g): rejected"
+              % (what, row, row_tol, rel, norm_tol))
+
+
+def bwd_errors(got, ref):
+    """(max abs error, worst row error, norm-relative error) of a gradient
+    [..., T, D] against its plain version: a row's error is ||got_r -
+    ref_r|| over the larger of ||ref_r|| and the median row norm."""
+    got, ref = got.double().flatten(0, -2), ref.double().flatten(0, -2)
+    diff = (got - ref).norm(dim=-1)
+    norms = ref.norm(dim=-1)
+    scale = norms.clamp(min=float(norms.median()))
+    return (float((got - ref).abs().max()), float((diff / scale).max()),
+            float(diff.norm() / norms.norm()))
+
+
+def flash_bwd_phase(torch, fa):
+    """B4 and B5 against ``_flash_bwd_ref`` at every FLASH_BWD_CHECKS shape,
+    bitwise across two runs; then, at the flagship training shape causal
+    in both dtypes, each kernel's time and bound, the plain backward's
+    time and the backward alone of F.scaled_dot_product_attention through
+    autograd (dq, dk and dv together; a yardstick the port never calls)."""
+    import torch.nn.functional as F
+
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    # per dtype: (max abs error, worst row error, norm-relative error)
+    worst = {"float32": [0.0] * 3, "bfloat16": [0.0] * 3}
+    for B, H, T, D, name, causal, window in FLASH_BWD_CHECKS:
+        q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
+            getattr(torch, name)) for _ in range(3))
+        what = "flash_bwd B=%d H=%d T=%d D=%d %s causal=%s window=%d" % (
+            B, H, T, D, name, causal, window)
+        errs = check_flash_bwd(torch, fa, q, k, v, causal, window, gen, what)
+        worst[name] = [max(x, y) for x, y in zip(worst[name], errs)]
+        print("check %-62s max_abs_err %.3g, worst row %.3g, "
+              "norm-relative %.3g, bitwise-deterministic" % (what, *errs))
+        del q, k, v
+        torch.cuda.empty_cache()
+    for name, (row_tol, norm_tol) in FLASH_BWD_TOL.items():
+        print("flash_bwd %s over all shapes: worst row %.3g (limit %g), "
+              "norm-relative %.3g (limit %g)" % (
+                  name, worst[name][1], row_tol, worst[name][2], norm_tol))
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    B, H, T, D = FLASH_TIMED
+    scale = D ** -0.5
+    timed = {}
+    for name in ("bfloat16", "float32"):
+        q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
+            getattr(torch, name)) for _ in range(4))
+        out, l, m = fa.flash_forward(q, k, v)
+        dq, dk, dv = (torch.empty_like(t) for t in (q, k, v))
+        delta = torch.empty_like(l)
+        launch = {
+            "dq": lambda: fa._launch_dq(q, k, v, out, l, m, g, dq, delta,
+                                        True, scale, 0),
+            "dkv": lambda: fa._launch_dkv(q, k, v, out, l, m, g, dk, dv,
+                                          delta, True, scale, 0)}
+        launch["dq"]()           # B5 reads the delta that B4 writes
+        plain_ms = time_ms(torch, lambda: fa._flash_bwd_ref(
+            q, k, v, out, l, m, g, True, scale), flush, reps=5)
+        # The backward alone of scaled_dot_product_attention, through
+        # autograd on a graph built once.
+        qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+        o = F.scaled_dot_product_attention(qs, ks, vs, is_causal=True)
+        library_ms = time_ms(torch, lambda: torch.autograd.grad(
+            o, (qs, ks, vs), g, retain_graph=True), flush)
+        del o, qs, ks, vs
+        for part in ("dq", "dkv"):
+            row = {"shape": [B, H, T, D], "dtype": name, "causal": True,
+                   "ms": time_ms(torch, launch[part], flush),
+                   "plain_ms": plain_ms, "library_ms": library_ms}
+            row.update(flash_bound(B, H, T, D, q.element_size(), True, 0,
+                                   part))
+            timed[(part, name)] = row
+            print("time flash_bwd_%s B=%d H=%d T=%d D=%d %s causal: kernel "
+                  "%.4f ms, bound %.4f ms (%s; %.2f GFLOP); whole plain "
+                  "backward %.4f ms, scaled_dot_product_attention backward "
+                  "%.4f ms" % (part, B, H, T, D, name, row["ms"],
+                               row["bound_ms"], row["bound_by"],
+                               row["gflop"], plain_ms, library_ms))
+        del q, k, v, g, out, l, m, dq, dk, dv, delta, launch
+    del flush
+    torch.cuda.empty_cache()
+    return worst, timed
 
 
 def transformer_phase(torch, fa):
@@ -1222,6 +1463,279 @@ def transformer_phase(torch, fa):
     return out
 
 
+def zero_flash_counts(fa):
+    fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+
+
+def flash_counts(fa):
+    return fa.LAUNCHES, fa.BWD_DQ_LAUNCHES, fa.BWD_DKV_LAUNCHES
+
+
+def norm_rel(a, b):
+    return float((a.double() - b.double()).norm() / b.double().norm())
+
+
+def lm_step1(torch, fa, spec, module, toks, attention=None):
+    """One step-1 forward and backward through the zoo entry's apply_fn
+    and loss_fn: (loss, gradients by name, flash launches)."""
+    module.zero_grad(set_to_none=True)
+    zero_flash_counts(fa)
+    with attention or contextlib.nullcontext():
+        loss = spec.loss_fn(spec.apply_fn(module, toks, True), toks).mean()
+        loss.backward()
+    torch.cuda.synchronize()
+    return float(loss.detach()), {name: p.grad for name, p in
+                                  module.named_parameters()}, flash_counts(fa)
+
+
+def lm_grads_vs_plain(torch, fa, spec, module, toks, what):
+    """Step-1 gradients with the kernels (remat: B3 48, B4 24, B5 24
+    launches) against the plain Function, each leaf within the larger of
+    LM_GRAD_MIN and LM_FLOOR_X x its floor (the plain Function against
+    autograd through the dense f32 softmax).  Returns (readings, kernel
+    gradients, limits by leaf)."""
+    cfg = spec.config
+    loss_k, grads_k, counts = lm_step1(torch, fa, spec, module, toks)
+    want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    if counts != want:
+        fail("%s step with remat launched (B3, B4, B5) %s, want %s"
+             % (what, counts, want))
+    loss_p, grads_p, counts = lm_step1(torch, fa, spec, module, toks,
+                                       plain_attention(fa))
+    if counts != (0, 0, 0):
+        fail("the plain Function launched kernels: %s" % (counts,))
+    loss_u, grads_u, _ = lm_step1(torch, fa, spec, module, toks,
+                                  plain_attention(fa, True))
+    floor = {n: norm_rel(grads_p[n], grads_u[n]) for n in grads_p}
+    limit = {n: max(LM_GRAD_MIN, LM_FLOOR_X * f) for n, f in floor.items()}
+    del grads_u
+    errs = {}
+    for n, g in grads_k.items():
+        if g is None or not bool(g.isfinite().all()):
+            fail("%s step-1 gradient of %s is missing or not finite"
+                 % (what, n))
+        errs[n] = norm_rel(g, grads_p[n])
+        if not errs[n] <= limit[n]:
+            fail("%s step-1 gradient of %s: kernels vs plain Function %.3g "
+                 "norm-relative, limit %.3g (plain-vs-plain floor %.3g)"
+                 % (what, n, errs[n], limit[n], floor[n]))
+    del grads_p
+    worst = max(errs, key=errs.get)
+    ratio = {n: errs[n] / floor[n] if floor[n] else float("inf")
+             for n in errs}
+    out = {"loss_kernels": loss_k, "loss_plain": loss_p,
+           "loss_unrounded": loss_u,
+           "grad_rel_err_max": errs[worst], "grad_rel_err_leaf": worst,
+           "floor_max": max(floor.values()),
+           "floor_leaf": max(floor, key=floor.get),
+           "floor_min": min(floor.values()),
+           "err_over_floor_max": max(ratio.values()),
+           "grad_rel_err": errs, "floor": floor}
+    print("lm train check: %s batch %d x %d, step-1 loss %.6f kernels, "
+          "%.6f plain Function, %.6f unrounded; gradients, kernels vs plain "
+          "Function: worst leaf %s %.3g norm-relative (limit the larger of "
+          "%g and %g x its floor); plain-vs-plain floor %.3g to %.3g (max "
+          "at %s); worst error / floor %.3g (%s)" % (
+              what, toks.shape[0], toks.shape[1], loss_k, loss_p, loss_u,
+              worst, errs[worst], LM_GRAD_MIN, LM_FLOOR_X, out["floor_min"],
+              out["floor_max"], out["floor_leaf"], out["err_over_floor_max"],
+              max(ratio, key=ratio.get)))
+    return out, grads_k, limit
+
+
+def lm_grad_phase(torch, fa, rng):
+    """Step-1 gradients of the flagship LM through the zoo entry's apply_fn
+    and loss_fn, kernels (remat=True) against the plain Function
+    (``lm_grads_vs_plain``): in float32 with TF32 off at batch
+    LM_GRAD_BATCH x 2048, where remat=False and xent_chunk=512 are then
+    held against remat=True to the same limits; and at the main path's
+    settings, bf16 compute at batch LM_TRAIN_BATCH x 2048."""
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+
+    use_float32_numerics()
+    params = LM_PARAMS.replace("dtype=bfloat16", "dtype=float32")
+    specs = {name: load_model_spec("transformer", params + extra)
+             for name, extra in (("remat", ";remat=true"),
+                                 ("no_remat", ";remat=false"),
+                                 ("xent_chunk", ";remat=true;xent_chunk=512"))}
+    cfg = specs["remat"].config
+    module = specs["remat"].init_fn(DEVICE, seed=0)
+    toks = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, size=(LM_GRAD_BATCH, cfg.max_seq_len))).to(DEVICE)
+    out, grads_k, limit = lm_grads_vs_plain(
+        torch, fa, specs["remat"], module, toks, "f32 (TF32 off)")
+    loss_k = out["loss_kernels"]
+
+    gaps = {}
+    for name in ("no_remat", "xent_chunk"):
+        loss, grads, counts = lm_step1(torch, fa, specs[name], module, toks)
+        layers_fwd = 1 if name == "no_remat" else 2
+        if counts != (layers_fwd * cfg.num_layers, cfg.num_layers,
+                      cfg.num_layers):
+            fail("f32 step %s launched (B3, B4, B5) %s" % (name, counts))
+        rel = {n: norm_rel(g, grads_k[n]) for n, g in grads.items()}
+        bad = [n for n in rel if not rel[n] <= limit[n]]
+        if bad or not abs(loss - loss_k) <= LM_GRAD_MIN * abs(loss_k):
+            fail("%s vs remat=True: loss %r vs %r, leaves over the limit %s"
+                 % (name, loss, loss_k, bad[:5]))
+        gaps[name] = {"loss_rel": abs(loss - loss_k) / abs(loss_k),
+                      "grad_rel_max": max(rel.values())}
+        del grads
+        print("lm train check: %s vs remat=True (kernels, f32): loss gap "
+              "%.3g relative, worst leaf gradient gap %.3g norm-relative"
+              % (name, gaps[name]["loss_rel"], gaps[name]["grad_rel_max"]))
+    out["settings_gaps"] = gaps
+    del grads_k, module
+    torch.cuda.empty_cache()
+
+    spec = load_model_spec("transformer", LM_PARAMS + ";remat=true")
+    module = spec.init_fn(DEVICE, seed=0)
+    toks = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, size=(LM_TRAIN_BATCH, cfg.max_seq_len))).to(DEVICE)
+    bf16, grads_k, _ = lm_grads_vs_plain(torch, fa, spec, module, toks,
+                                         "bf16 compute")
+    del grads_k, module
+    torch.cuda.empty_cache()
+    return {"f32": out, "bf16": bf16}
+
+
+def lm_training_phase(torch, fa):
+    """The flagship LM trained through the port's CollectiveTrainer at
+    bench_transformer.py's shape (see the module docstring, phase 11)."""
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    rng = np.random.RandomState(9)
+    out = {"grad_check": lm_grad_phase(torch, fa, rng)}
+
+    spec = load_model_spec("transformer", LM_PARAMS + ";remat=true")
+    cfg = spec.config
+    B, T = LM_TRAIN_BATCH, cfg.max_seq_len
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(DEVICE)
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        trainer = CollectiveTrainer(spec, batch_size=B, device=DEVICE,
+                                    checkpoint_saver=CheckpointSaver(
+                                        tmp.name))
+        n_params = sum(p.numel() for p in trainer.module.parameters())
+        # The main path's count: one training step, counters zeroed just
+        # before it and read just after.
+        torch.cuda.synchronize()
+        zero_flash_counts(fa)
+        first = float(trainer.train_minibatch(tokens, tokens)[0])
+        torch.cuda.synchronize()
+        counts = flash_counts(fa)
+        want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+        if counts != want:
+            fail("a training step launched (B3, B4, B5) %s, want %s "
+                 "(remat runs each layer's forward twice)" % (counts, want))
+        bad = [n for n, p in trainer.module.named_parameters()
+               if p.grad is None or not bool(p.grad.isfinite().all())
+               or float(p.grad.abs().max()) == 0.0]
+        if bad or not math.isfinite(first):
+            fail("step 1: loss %r; parameters without a finite nonzero "
+                 "gradient: %s" % (first, bad[:5]))
+        print("lm train: %.1f M parameters, batch %d x %d, bf16 compute, "
+              "AdamW, remat: step 1 loss %.4f, launches B3 %d, B4 %d, B5 %d; "
+              "every one of %d parameters got a finite gradient"
+              % (n_params / 1e6, B, T, first, counts[0], counts[1],
+                 counts[2], len(list(trainer.module.parameters()))))
+
+        # Timed steps on the same batch: the loss must fall.
+        torch.cuda.synchronize()
+        zero_flash_counts(fa)
+        t0 = time.perf_counter()
+        losses = [trainer.train_minibatch(tokens, tokens)[0]
+                  for _ in range(LM_TRAIN_STEPS)]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / LM_TRAIN_STEPS
+        losses = [float(x) for x in losses]
+        if flash_counts(fa) != tuple(LM_TRAIN_STEPS * c for c in counts):
+            fail("timed steps launched %s" % (flash_counts(fa),))
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            fail("loss did not fall over %d steps on one batch: %s"
+                 % (LM_TRAIN_STEPS, losses))
+        model_flops = (6 * n_params * B * T + 12 * cfg.head_dim
+                       * live_pairs(T, True, cfg.window) * B
+                       * cfg.num_heads * cfg.num_layers)
+        out.update({"parameters": n_params, "launches_per_step": counts,
+                    "losses": [first] + losses, "ms_per_step": ms,
+                    "tokens_per_s": B * T / ms * 1e3,
+                    "mfu": model_flops / (ms * 1e-3 * BF16_FLOPS_PER_S),
+                    "model_tflop_per_step": model_flops / 1e12})
+        print("lm train: %d steps on one batch, loss %.4f -> %.4f; %.2f ms "
+              "per step, %.0f tokens/s, mfu %.4f (6 N tokens + 12 D x live "
+              "pairs x B H L = %.2f TFLOP per step over 989 TFLOP/s)" % (
+                  LM_TRAIN_STEPS, losses[0], losses[-1], ms,
+                  out["tokens_per_s"], out["mfu"],
+                  out["model_tflop_per_step"]))
+
+        # The same steps with the plain Function in place of the kernels.
+        with plain_attention(fa):
+            trainer.train_minibatch(tokens, tokens)
+            torch.cuda.synchronize()
+            zero_flash_counts(fa)
+            t0 = time.perf_counter()
+            for _ in range(LM_PLAIN_STEPS):
+                loss = trainer.train_minibatch(tokens, tokens)[0]
+            float(loss)
+            torch.cuda.synchronize()
+            plain_ms = (time.perf_counter() - t0) * 1e3 / LM_PLAIN_STEPS
+        if flash_counts(fa) != (0, 0, 0):
+            fail("the plain-attention steps launched kernels")
+        out.update({"plain_ms_per_step": plain_ms,
+                    "plain_tokens_per_s": B * T / plain_ms * 1e3})
+        print("lm train: plain attention Function: %.2f ms per step, %.0f "
+              "tokens/s (%d steps)" % (plain_ms, out["plain_tokens_per_s"],
+                                       LM_PLAIN_STEPS))
+
+        # Checkpoint round trip: parameters and AdamW moments in the JAX
+        # names and layouts, restored bit for bit, the same next loss.
+        trainer.save_checkpoint()
+        trainer.flush_checkpoints()
+        saver = CheckpointSaver(tmp.name)
+        saved, saved_version = saver.load()
+        mu = [k for k in saved if k.startswith("opt/0/mu/")]
+        if (len(mu) != len(list(trainer.module.parameters()))
+                or saved["opt/0/mu/embed"].shape != (cfg.vocab_size,
+                                                     cfg.dim)
+                or int(saved["opt/0/count"]) != trainer.version):
+            fail("checkpoint holds %d mu slots, embed's %s, count %s"
+                 % (len(mu), saved["opt/0/mu/embed"].shape,
+                    saved["opt/0/count"]))
+        restored = CollectiveTrainer(spec, batch_size=B, device=DEVICE,
+                                     rng_seed=1, checkpoint_saver=saver)
+        if not restored.init_from_checkpoint():
+            fail("no checkpoint to restore")
+        restored.save_checkpoint()      # the same version, rewritten
+        restored.flush_checkpoints()
+        again, _ = saver.load(saved_version)
+        differ = [k for k in saved if k not in again
+                  or saved[k].dtype != again[k].dtype
+                  or not np.array_equal(saved[k], again[k])]
+        if differ or set(again) != set(saved):
+            fail("the restored trainer's state differs from the saved one "
+                 "in %s" % (differ or sorted(set(again) ^ set(saved)))[:5])
+        del saved, again
+        a = float(trainer.train_minibatch(tokens, tokens)[0])
+        b = float(restored.train_minibatch(tokens, tokens)[0])
+        if a != b:
+            fail("restored trainer's next loss %r, the original's %r" % (b, a))
+        print("lm train: checkpoint at version %d (%d mu + %d nu slots, "
+              "embed's [%d, %d]) restored into a fresh trainer bit for bit; "
+              "next loss %r on both" % (saved_version, len(mu), len(mu),
+                                        cfg.vocab_size, cfg.dim, a))
+        del restored, trainer
+    finally:
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -1286,6 +1800,12 @@ def main():
     t0 = time.perf_counter()
     lm = transformer_phase(torch, fa)
     phase_s["transformer serving"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    flash_bwd_err, bwd_timed = flash_bwd_phase(torch, fa)
+    phase_s["flash backward kernels"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    lm_train = lm_training_phase(torch, fa)
+    phase_s["transformer training"] = time.perf_counter() - t0
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -1333,7 +1853,29 @@ def main():
         "times_are": "one call at the flagship long prefill, q, k, v "
                      "[8, 16, 2048, 64] bfloat16, causal; launches over "
                      "%d served :predict requests" % REQUESTS,
+        "launches_training_step": lm_train["launches_per_step"][0],
     }]
+    for i, (part, line) in enumerate((("dq", 354), ("dkv", 429))):
+        row = bwd_timed[(part, "bfloat16")]
+        kernels.append({
+            "name": "flash_attention_bwd_" + part,
+            "route": "cuda",
+            "source": "elasticdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
+            "replaces": "elasticdl_tpu/ops/flash_attention.py:%d" % line,
+            "launches": lm_train["launches_per_step"][1 + i],
+            "max_abs_err": flash_bwd_err["bfloat16"][0],
+            "ms": row["ms"],
+            "plain_ms": row["plain_ms"],
+            "bound_ms": row["bound_ms"],
+            "bound_by": row["bound_by"],
+            "library_ms": row["library_ms"],
+            "times_are": "one call at the flagship training shape, q, k, v "
+                         "[8, 16, 2048, 64] bfloat16, causal; plain_ms and "
+                         "library_ms are the whole backward (dq, dk, dv): "
+                         "the plain version's and scaled_dot_product_"
+                         "attention's through autograd; launches in one "
+                         "training step of the flagship LM",
+        })
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "device": kind,
@@ -1347,6 +1889,10 @@ def main():
                        "forward_ms": forward, "train": train,
                        "flash_max_abs_err": flash_err,
                        "flash_timed": flash_timed, "lm": lm,
+                       "flash_bwd_errors": flash_bwd_err,
+                       "flash_bwd_timed": {"%s %s" % k: v for k, v in
+                                           bwd_timed.items()},
+                       "lm_train": lm_train,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -19,13 +19,19 @@ In the port:
    names and layouts (``utils.pytree.flatten_with_names``) to the
    module's ``state_dict``; ``params_to_jax(module)`` maps back.  This
    is how one npz checkpoint or servable loads into either package;
+ - ``to_jax_layout`` and ``from_jax_layout`` map one tensor of a
+   parameter's shape (the parameter, or one of its optimizer slots) to
+   the JAX package's layout and back; the trainer saves and restores
+   optimizer state through them;
  - ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
    serves a generation export (language models only).
 
-``params_from_jax`` / ``params_to_jax`` below implement that map for
-modules whose submodules carry flax's call-order names (``Conv_0``,
-``Dense_1``): conv kernels HWIO <-> OIHW, dense kernels ``[in, out]``
-<-> ``[out, in]``, every other leaf unchanged.
+The functions below implement those maps for modules whose submodules
+carry flax's call-order names (``Conv_0``, ``Dense_1``): conv kernels
+HWIO <-> OIHW, dense kernels ``[in, out]`` <-> ``[out, in]``, every
+other leaf unchanged.  The two layout maps are the defaults of a
+``ModelSpec``; a model that keeps the JAX layouts (the transformer)
+supplies its own.
 """
 
 import dataclasses
@@ -36,23 +42,6 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.utils.args import parse_opt_args
-
-
-@dataclasses.dataclass
-class ModelSpec:
-    name: str
-    init_fn: typing.Callable          # (device, seed) -> nn.Module
-    apply_fn: typing.Callable         # (module, inputs, train) -> outputs
-    feed: typing.Callable             # [records] -> (inputs, labels)
-    params_from_jax: typing.Callable  # {jax name: ndarray} -> state_dict
-    params_to_jax: typing.Callable    # nn.Module -> {jax name: ndarray}
-    input_shape: tuple = None         # one example's shape, no batch dim
-    loss_fn: typing.Callable = None   # (outputs, labels) -> [batch] f32
-    optimizer: typing.Callable = None  # parameters -> torch Optimizer
-    eval_metrics_fn: typing.Callable = None  # () -> {name: Metric}
-    # (module, prompt, max_new_tokens, temperature, seed) -> tokens;
-    # set by zoo entries that serve generation exports
-    generate_fn: typing.Callable = None
 
 
 def jax_name(torch_name):
@@ -81,6 +70,27 @@ def from_jax_layout(value):
     elif value.ndim == 2:
         value = value.T
     return torch.from_numpy(np.ascontiguousarray(value))
+
+
+@dataclasses.dataclass
+class ModelSpec:
+    name: str
+    init_fn: typing.Callable          # (device, seed) -> nn.Module
+    apply_fn: typing.Callable         # (module, inputs, train) -> outputs
+    feed: typing.Callable             # [records] -> (inputs, labels)
+    params_from_jax: typing.Callable  # {jax name: ndarray} -> state_dict
+    params_to_jax: typing.Callable    # nn.Module -> {jax name: ndarray}
+    input_shape: tuple = None         # one example's shape, no batch dim
+    loss_fn: typing.Callable = None   # (outputs, labels) -> [batch] f32
+    optimizer: typing.Callable = None  # parameters -> torch Optimizer
+    eval_metrics_fn: typing.Callable = None  # () -> {name: Metric}
+    # (module, prompt, max_new_tokens, temperature, seed) -> tokens;
+    # set by zoo entries that serve generation exports
+    generate_fn: typing.Callable = None
+    # One leaf's layout in the JAX package (optimizer slots included):
+    # tensor -> ndarray, ndarray -> CPU tensor.
+    to_jax_layout: typing.Callable = to_jax_layout
+    from_jax_layout: typing.Callable = from_jax_layout
 
 
 def params_from_jax(named):

@@ -1,23 +1,26 @@
-"""Flagship decoder-only transformer LM: the serving path (counterpart of
-``elasticdl_tpu/models/transformer.py``).
+"""Flagship decoder-only transformer LM: serving and training
+(counterpart of ``elasticdl_tpu/models/transformer.py``).
 
 Pre-norm RMSNorm, RoPE positions, SwiGLU MLP, tied embeddings by default,
 grouped-query attention (``num_kv_heads``) and sliding-window causal
 attention (``window``).  Prompt attention (``forward``, ``prefill``) runs
-on the flash attention kernel through ``parallel.ring_attention``;
-decode attends one query against the KV cache in plain PyTorch, as the
-JAX package does in jnp.
+on the flash attention kernels through ``parallel.ring_attention``, and
+their backward kernels when training; decode attends one query against
+the KV cache in plain PyTorch, as the JAX package does in jnp.
 
 Parameters are stacked on a leading [num_layers] axis exactly as the JAX
 pytree holds them (``layers.wq`` is [L, E, H*D]) and stay float32; every
 use casts them to ``cfg.dtype``, as the JAX code does (``generate``
-casts them once per call: the same values).  The JAX ``lax.scan`` over
-layers is a Python loop.
+casts them once per call: the same values), so the gradients reach the
+float32 master weights through those casts.  The JAX ``lax.scan`` over
+layers is a Python loop; ``remat=True`` wraps each layer in
+``torch.utils.checkpoint`` where the JAX code wraps it in
+``jax.checkpoint``, and the chunked cross-entropy checkpoints each chunk
+the same way.
 
-Not ported yet: MoE, remat, meshes and pipelining, the ulysses
-attention, and training (``loss_fn``, the optimizer, chunked
-cross-entropy); each raises ``NotImplementedError`` naming its ROADMAP
-item.
+Not ported yet: MoE, the "dots" and "attn" remat policies, meshes and
+pipelining, the ulysses attention; each raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 import dataclasses
@@ -26,9 +29,11 @@ import math
 import numpy as np
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from elasticdl_tpu_torch.models.spec import ModelSpec
 from elasticdl_tpu_torch.parallel.ring_attention import ring_attention
+from elasticdl_tpu_torch.utils import metrics
 
 NEG_INF_DECODE = -1e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -65,10 +70,13 @@ class TransformerConfig:
             raise NotImplementedError(
                 "mixture-of-experts layers are not ported yet (ROADMAP "
                 "A16)")
-        if self.remat:
+        if self.remat in ("dots", "attn"):
             raise NotImplementedError(
-                "remat is a training option; the transformer's training "
-                "slice is not ported yet (ROADMAP A16)")
+                "remat policy %r is not ported yet (ROADMAP A16); remat=True "
+                "recomputes whole layers" % (self.remat,))
+        if self.remat not in (False, True):
+            raise ValueError("remat must be one of False, True, 'dots', "
+                             "'attn'; got %r" % (self.remat,))
         if self.attention_impl != "ring":
             raise NotImplementedError(
                 "attention_impl %r is not ported yet (ROADMAP A17)"
@@ -156,11 +164,13 @@ def init_params(generator, cfg, device=None):
     return module
 
 
-def _cast(params, cfg):
+def _cast(params, cfg, names=None):
     """{name: parameter in the compute dtype}: what each use in the JAX
-    code casts (``w["wq"].astype(compute_dtype)``)."""
+    code casts (``w["wq"].astype(compute_dtype)``); only ``names`` when
+    given."""
     dtype = cfg.compute_dtype
-    return {name: p.to(dtype) for name, p in params.named_parameters()}
+    return {name: p.to(dtype) for name, p in params.named_parameters()
+            if names is None or name in names}
 
 
 def _layer(w, i):
@@ -226,7 +236,13 @@ def _forward_hidden(w, tokens, cfg):
     x = w["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
     for i in range(cfg.num_layers):
-        x = _layer_body(x, _layer(w, i), cfg, positions)
+        if cfg.remat and torch.is_grad_enabled():
+            # jax.checkpoint(layer): keep only the layer's input and
+            # recompute the rest in the backward.
+            x = checkpoint(_layer_body, x, _layer(w, i), cfg, positions,
+                           use_reentrant=False)
+        else:
+            x = _layer_body(x, _layer(w, i), cfg, positions)
     return x
 
 
@@ -370,19 +386,75 @@ def generate(params, cfg, prompt, max_new_tokens, temperature=0.0, seed=0):
     return tokens.int()
 
 
+# -- training losses ----------------------------------------------------------
+
+
+def next_token_loss(logits, tokens):
+    """Per-example mean next-token cross entropy; logits [B, T, V] float32,
+    tokens [B, T] -> [B]."""
+    b, t, vocab = logits.shape
+    per_tok = F.cross_entropy(logits[:, :-1].reshape(-1, vocab),
+                              tokens[:, 1:].reshape(-1).long(),
+                              reduction="none")
+    return per_tok.reshape(b, t - 1).mean(dim=-1)
+
+
+def _chunk_xent_sum(w, h_c, t_c, m_c, cfg):
+    logits = _head(w, h_c, cfg)                       # [B, chunk, V] f32
+    per_tok = F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                              t_c.reshape(-1), reduction="none")
+    return (per_tok.reshape(t_c.shape) * m_c[None, :]).sum(dim=-1)
+
+
+def next_token_loss_chunked(params, hidden, tokens, cfg, chunk=512):
+    """Next-token cross entropy from :func:`forward_hidden`'s hidden
+    [B, T, E] without a [B, T, V] logits tensor: ln_f, the head matmul and
+    the cross entropy run per T-chunk under ``torch.utils.checkpoint``,
+    so the live logits are [B, chunk, V] in both directions (the backward
+    recomputes each chunk's).  The same padding and mask as the JAX
+    function; returns the per-example mean, as :func:`next_token_loss`."""
+    b, t, _ = hidden.shape
+    h = hidden[:, :-1]
+    targets = tokens[:, 1:].long()
+    n = t - 1
+    pad = (-n) % chunk
+    if pad:
+        h = F.pad(h, (0, 0, 0, pad))
+        targets = F.pad(targets, (0, pad))
+    valid = (torch.arange(n + pad, device=hidden.device) < n).float()
+    names = ("ln_f", "embed") if cfg.tied_embeddings else ("ln_f", "lm_head")
+    w = _cast(params, cfg, names)
+    total = torch.zeros((b,), dtype=torch.float32, device=hidden.device)
+    for start in range(0, n + pad, chunk):
+        end = start + chunk
+        total = total + checkpoint(
+            _chunk_xent_sum, w, h[:, start:end], targets[:, start:end],
+            valid[start:end], cfg, use_reentrant=False)
+    return total / n
+
+
 # -- zoo contract and export --------------------------------------------------
+
+
+def _to_jax_layout(value):
+    """A parameter (or one of its optimizer slots) -> a host ndarray copy:
+    the stacked kernels keep the JAX layout, so nothing is transposed."""
+    return value.detach().to("cpu", copy=True).numpy()
+
+
+def _from_jax_layout(value):
+    return torch.from_numpy(np.array(value))
 
 
 def params_from_jax(named):
     """``{"embed": ..., "layers/wq": ...}`` -> ``state_dict``.  No
     transposes: the stacked kernels keep the JAX layout."""
-    return {name.replace("/", "."): torch.from_numpy(np.array(value))
+    return {name.replace("/", "."): _from_jax_layout(value)
             for name, value in named.items()}
 
 
 def params_to_jax(module):
-    return {name.replace(".", "/"): value.detach().to("cpu",
-                                                      copy=True).numpy()
+    return {name.replace(".", "/"): _to_jax_layout(value)
             for name, value in module.state_dict().items()}
 
 
@@ -393,23 +465,29 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
                window=0, xent_chunk=0, num_kv_heads=0):
     """Zoo entry for the flagship LM, with the JAX entry's arguments.
 
-    ``learning_rate`` is the training slice's and is unused here.  A
-    mesh, pipelining, MoE, remat, ``attention_impl="ulysses"`` and
-    ``xent_chunk`` raise ``NotImplementedError`` naming their ROADMAP
-    item.  ``generate_fn(module, prompt, max_new_tokens, temperature,
-    seed)`` serves generation exports.
+    ``remat`` (False | True; "dots" and "attn" raise) and ``xent_chunk``
+    (> 0: the loss through :func:`next_token_loss_chunked`, no [B, T, V]
+    logits) as in the JAX entry; the optimizer is AdamW at
+    ``learning_rate`` with weight decay 0.01 (``optax.adamw``'s).  A mesh,
+    pipelining, MoE and ``attention_impl="ulysses"`` raise
+    ``NotImplementedError`` naming their ROADMAP item.
+    ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
+    serves generation exports.
     """
-    del learning_rate
     _check_mesh(mesh)
     if pipeline_microbatches:
         raise NotImplementedError(
             "pipelining is not ported yet (ROADMAP A18)")
-    if xent_chunk:
-        raise NotImplementedError(
-            "chunked cross-entropy is a training option; the "
-            "transformer's training slice is not ported yet (ROADMAP A16)")
-    if isinstance(remat, str) and remat.strip().lower() == "false":
-        remat = False      # CLI model_params arrive as strings
+    if remat not in (False, True, "dots", "attn"):
+        # CLI model_params arrive as strings; normalise the booleans and
+        # reject typos instead of enabling remat on any truthy string.
+        normalized = {"false": False, "true": True, "dots": "dots",
+                      "attn": "attn"}.get(str(remat).strip().lower())
+        if normalized is None:
+            raise ValueError(
+                "remat must be one of False, True, 'dots', 'attn'; got %r"
+                % (remat,))
+        remat = normalized
     cfg = TransformerConfig(
         vocab_size=vocab_size, dim=dim, num_heads=num_heads,
         num_layers=num_layers, max_seq_len=seq_len, dtype=dtype,
@@ -425,8 +503,20 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
         return init_params(gen, cfg, device=device)
 
     def apply_fn(module, tokens, train):
-        del train
+        if xent_chunk and train:
+            # The memory-lean loss path: hand the final hidden states (and
+            # the module, for the head inside the chunked loss) to loss_fn
+            # instead of materialising [B, T, V] logits.
+            hidden, aux = forward_hidden(module, tokens, cfg)
+            return ("hidden", hidden, aux, module)
         return forward(module, tokens, cfg)
+
+    def loss_fn(outputs, tokens):
+        if isinstance(outputs, tuple) and outputs[0] == "hidden":
+            _, hidden, _, module = outputs
+            return next_token_loss_chunked(module, hidden, tokens, cfg,
+                                           chunk=xent_chunk)
+        return next_token_loss(outputs, tokens)
 
     def feed(records):
         toks = np.stack([np.asarray(r[0], dtype=np.int32) for r in records])
@@ -441,7 +531,13 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
         name="transformer_lm", init_fn=init_fn, apply_fn=apply_fn,
         feed=feed, params_from_jax=params_from_jax,
         params_to_jax=params_to_jax, input_shape=(seq_len,),
-        generate_fn=generate_fn)
+        loss_fn=loss_fn,
+        optimizer=lambda parameters: torch.optim.AdamW(
+            parameters, lr=learning_rate, weight_decay=0.01),
+        eval_metrics_fn=lambda: {
+            "nll": metrics.Mean(lambda outputs, labels: outputs)},
+        generate_fn=generate_fn, to_jax_layout=_to_jax_layout,
+        from_jax_layout=_from_jax_layout)
     spec.config = cfg
     return spec
 

@@ -58,32 +58,11 @@
 // cudaError_t code of a refused launch.  It allocates nothing: the caller
 // passes out, l and m.  It launches on the given stream.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "flash_common.cuh"
 
 namespace {
 
-using bf16 = __nv_bfloat16;
-constexpr int kStages = 2;        // K/V tiles in flight (bf16 path)
-
-constexpr int kBQ = 64;         // q rows per block
-constexpr int kBK = 64;         // keys per tile
-constexpr int kWarps = 4;       // 16 q rows each
-constexpr int kThreads = kWarps * 32;
-constexpr int kRows = 16;       // q rows per warp
-constexpr float kNegInf = -1e30f;
-constexpr float kLog2e = 1.4426950408889634f;
-constexpr float kLn2 = 0.6931471805599453f;
-static_assert(kBQ == kBK, "q, k and v tiles have one height");
-
-__host__ __device__ constexpr int align128(int bytes) {
-  return (bytes + 127) / 128 * 128;
-}
-
-struct Strides {
-  long long b, h, t;
-};
+using namespace flash;
 
 struct Params {
   const void* q;
@@ -97,56 +76,12 @@ struct Params {
   Strides sq, sk, sv, so;
 };
 
-// The key range a q tile starting at q0 attends: causal stops after the
-// tile holding the last row's diagonal; a window starts at the tile
-// holding the first row's band.
-__device__ __forceinline__ void key_range(const Params& prm, int q0,
-                                          int* k_begin, int* k_end) {
-  *k_begin = 0;
-  *k_end = prm.T;
-  if (prm.causal) {
-    *k_end = min(prm.T, q0 + kBQ);
-    if (prm.window > 0) *k_begin = max(0, q0 - prm.window + 1) / kBK * kBK;
-  }
-}
-
-// True when every (query, key) pair of the q tile at q0 and the key tile at
-// k0 is kept, so the tile needs no mask.
-__device__ __forceinline__ bool tile_unmasked(const Params& prm, int q0,
-                                              int k0) {
-  if (k0 + kBK > prm.T) return false;
-  if (!prm.causal) return true;
-  if (k0 + kBK - 1 > q0) return false;
-  return prm.window == 0 || q0 + kBQ - 1 - k0 < prm.window;
-}
-
-__device__ __forceinline__ bool keep(const Params& prm, int qi, int kj) {
-  if (kj >= prm.T) return false;
-  if (!prm.causal) return true;
-  return kj <= qi && (prm.window == 0 || qi - kj < prm.window);
-}
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    x += __shfl_xor_sync(0xffffffffu, x, off);
-  return x;
-}
-
 // ---------------------------------------------------------------------------
 // bfloat16: mma.sync m16n8k16, registers, double-buffered cp.async tiles.
 // ---------------------------------------------------------------------------
 
 template <int D> struct Bf16Smem {
-  static constexpr int kPitch = D + 8;   // bf16; 16-byte rows, no bank
-                                         // conflicts for 32-bit fragment loads
+  static constexpr int kPitch = kPitchBf16<D>;
   static constexpr int kTile = align128(kBQ * kPitch * 2);
   static constexpr int q = 0;
   static constexpr int k = q + kTile;
@@ -154,61 +89,6 @@ template <int D> struct Bf16Smem {
   static constexpr int bytes = v + kStages * kTile;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// Rows [r0, r0 + 64) of one (b, h) slice into a shared tile, 16 bytes per
-// cp.async; rows at or past T are zero-filled (src-size 0 reads nothing),
-// so p = 0 times them can never make a NaN.
-template <int D>
-__device__ __forceinline__ void fetch_tile(bf16* dst, const bf16* src,
-                                           long long row_stride, int r0,
-                                           int Tlen) {
-  constexpr int kPerRow = D / 8;
-  constexpr int kPitch = Bf16Smem<D>::kPitch;
-  for (int i = threadIdx.x; i < kBQ * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * 8;
-    const bool in = r0 + r < Tlen;
-    const bf16* g = src + (in ? (long long)(r0 + r) * row_stride + c : 0);
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
-                     smem_addr(dst + r * kPitch + c)),
-                 "l"(g), "r"(in ? 16 : 0));
-  }
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// c += a b for one m16n8k16 tile: a 16 x 16 bf16 (4 registers), b 16 x 8 bf16
-// (2 registers), c 16 x 8 f32.
-__device__ __forceinline__ void mma_bf16(float* c, const uint32_t* a,
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t ld_u32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Lane roles in an m16n8k16 fragment: g = lane / 4 owns rows g and g + 8,
-// t = lane % 4 owns columns 2t and 2t + 1 (and 2t + 8, 2t + 9 of A).
 template <int D, int kMinBlocks>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_fwd_bf16(Params prm) {
@@ -277,38 +157,16 @@ flash_fwd_bf16(Params prm) {
       cp_async_wait<kStages - 1>();
     }
     __syncthreads();
-    if (j == 0) {
-      const bf16* qw = sQ + (warp * kRows + g) * kPitch + 2 * t;
-#pragma unroll
-      for (int kk = 0; kk < kDSteps; ++kk) {
-        qf[kk][0] = ld_u32(qw + kk * 16);
-        qf[kk][1] = ld_u32(qw + 8 * kPitch + kk * 16);
-        qf[kk][2] = ld_u32(qw + kk * 16 + 8);
-        qf[kk][3] = ld_u32(qw + 8 * kPitch + kk * 16 + 8);
-      }
-    }
+    if (j == 0) load_a<D, kPitch>(qf, sQ + warp * kRows * kPitch, lane);
     const bf16* kt = sK + buf * kTileElems;
     const bf16* vt = sV + buf * kTileElems;
 
-    // s = q k^T for this warp's 16 rows and the tile's 64 keys; one
-    // ldmatrix gives the B fragments of two k-steps (lane L addresses key
-    // row n*8 + L%8 at column kk*16 + (L/8)*8).
-    float s[kKTiles][4];
+    // s = q k^T for this warp's 16 rows and the tile's 64 keys, 16 keys
+    // (two n-tiles) per call.
+    float s[kKTiles][4] = {};
 #pragma unroll
-    for (int n = 0; n < kKTiles; ++n) {
-      s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-      const bf16* kr = kt + (n * 8 + (lane & 7)) * kPitch + (lane >> 3) * 8;
-#pragma unroll
-      for (int kk = 0; kk < kDSteps; kk += 2) {
-        uint32_t b0, b1, b2, b3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(smem_addr(kr + kk * 16)));
-        mma_bf16(s[n], qf[kk], b0, b1);
-        mma_bf16(s[n], qf[kk + 1], b2, b3);
-      }
-    }
+    for (int c = 0; c < kBK / 16; ++c)
+      mma_abt<D, kPitch>(s + 2 * c, qf, kt + c * 16 * kPitch, lane);
 
     // Scale, mask, online softmax for rows row0 (half 0) and row0 + 8.
     // Scores are kept in log2 units (s * scale * log2 e), so that p is
@@ -368,26 +226,8 @@ flash_fwd_bf16(Params prm) {
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      // Lane L addresses row kk*16 + (L/8 & 1)*8 + L%8 of V, at columns
-      // n*8 (matrices 0, 1) or n*8 + 8 (matrices 2, 3).
-      const bf16* vr =
-          vt + (kk * 16 + ((lane >> 3) & 1) * 8 + (lane & 7)) * kPitch +
-          (lane >> 4) * 8;
-#pragma unroll
-      for (int n = 0; n < kDTiles; n += 2) {
-        uint32_t b0, b1, b2, b3;
-        asm volatile(
-            "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 "
-            "{%0,%1,%2,%3}, [%4];\n"
-            : "=r"(b0), "=r"(b1), "=r"(b2), "=r"(b3)
-            : "r"(smem_addr(vr + n * 8)));
-        mma_bf16(o[n], pa, b0, b1);
-        mma_bf16(o[n + 1], pa, b2, b3);
-      }
+      pack_a(pa, s[2 * kk], s[2 * kk + 1]);
+      mma_ab<D, kPitch>(o, pa, vt + kk * 16 * kPitch, lane);
     }
     __syncthreads();   // the next fetch overwrites the buffer just read
   }
@@ -416,7 +256,7 @@ flash_fwd_bf16(Params prm) {
 // ---------------------------------------------------------------------------
 
 template <int D> struct F32Smem {
-  static constexpr int kPitch = D + 1;     // lanes' key rows on distinct banks
+  static constexpr int kPitch = kPitchF32<D>;
   static constexpr int kSPitch = kBK + 4;  // scores, then p in place
   static constexpr int kOPitch = D + 4;
   static constexpr int q = 0;
@@ -426,29 +266,6 @@ template <int D> struct F32Smem {
   static constexpr int o = s + align128(kBQ * kSPitch * 4);
   static constexpr int bytes = o + align128(kBQ * kOPitch * 4);
 };
-
-// Rows [r0, r0 + 64) into a shared tile; rows at or past T are zero.
-template <int D>
-__device__ __forceinline__ void load_tile_f32(float* dst, const float* src,
-                                              long long row_stride, int r0,
-                                              int Tlen) {
-  constexpr int kPerRow = D / 4;
-  constexpr int kPitch = F32Smem<D>::kPitch;
-  for (int i = threadIdx.x; i < kBQ * kPerRow; i += kThreads) {
-    const int r = i / kPerRow;
-    const int c = (i % kPerRow) * 4;
-    float4 val = make_float4(0.f, 0.f, 0.f, 0.f);
-    if (r0 + r < Tlen) {
-      val = __ldg(reinterpret_cast<const float4*>(
-          src + (long long)(r0 + r) * row_stride + c));
-    }
-    float* d = dst + r * kPitch + c;
-    d[0] = val.x;
-    d[1] = val.y;
-    d[2] = val.z;
-    d[3] = val.w;
-  }
-}
 
 template <int D>
 __global__ void __launch_bounds__(kThreads)
@@ -596,17 +413,6 @@ flash_fwd_f32(Params prm) {
   }
 }
 
-template <typename Kernel>
-int launch(Kernel kernel, int bytes, const Params& prm, int BH,
-           cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-  if (err != cudaSuccess) return (int)err;
-  const dim3 grid(BH, (prm.T + kBQ - 1) / kBQ);
-  kernel<<<grid, kThreads, bytes, stream>>>(prm);
-  return (int)cudaGetLastError();
-}
-
 }  // namespace
 
 extern "C" {
@@ -639,19 +445,21 @@ int edl_flash_attention_fwd(const void* q, const void* k, const void* v,
   prm.sk = {k_sb, k_sh, k_st};
   prm.sv = {v_sb, v_sh, v_st};
   prm.so = {o_sb, o_sh, o_st};
-  const int BH = B * H;
+  const dim3 grid(B * H, (T + kBQ - 1) / kBQ);
   if (dtype == 1) {
     if (D == 64)
-      return launch(flash_fwd_bf16<64, 4>, Bf16Smem<64>::bytes, prm, BH,
+      return launch(flash_fwd_bf16<64, 4>, Bf16Smem<64>::bytes, prm, grid,
                     stream);
     if (D == 128)
-      return launch(flash_fwd_bf16<128, 1>, Bf16Smem<128>::bytes, prm, BH,
+      return launch(flash_fwd_bf16<128, 1>, Bf16Smem<128>::bytes, prm, grid,
                     stream);
   } else if (dtype == 0) {
     if (D == 64)
-      return launch(flash_fwd_f32<64>, F32Smem<64>::bytes, prm, BH, stream);
+      return launch(flash_fwd_f32<64>, F32Smem<64>::bytes, prm, grid,
+                    stream);
     if (D == 128)
-      return launch(flash_fwd_f32<128>, F32Smem<128>::bytes, prm, BH, stream);
+      return launch(flash_fwd_f32<128>, F32Smem<128>::bytes, prm, grid,
+                    stream);
   }
   return (int)cudaErrorInvalidValue;
 }

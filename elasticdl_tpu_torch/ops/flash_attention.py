@@ -1,28 +1,31 @@
-"""Flash attention forward: the CUDA kernel, its wrapper and its plain
-PyTorch versions.
+"""Flash attention, forward and backward: the CUDA kernels, their
+wrappers and their plain PyTorch versions.
 
-Counterpart of ``elasticdl_tpu/ops/flash_attention.py``.  The kernel,
-``csrc/flash_attention.cu``, replaces the TPU kernel ``_flash_kernel``
-(launched by ``_flash_forward``); its header says what bounds it and how
-it splits the work across the card.
+Counterpart of ``elasticdl_tpu/ops/flash_attention.py``.  The forward
+kernel, ``csrc/flash_attention.cu``, replaces the TPU kernel
+``_flash_kernel`` (launched by ``_flash_forward``); the backward kernels,
+``csrc/flash_attention_bwd.cu``, replace ``_bwd_dq_kernel`` and
+``_bwd_dkv_kernel`` (launched by ``_pallas_bwd``).  Each source's header
+says what bounds it and how it splits the work across the card.
 
 Layout: [batch, heads, seq, head_dim], as in the JAX package.  The
-kernel takes any strides with a contiguous last dim and writes its
-output with q's strides, so the ring layout [B, T, H, D] goes in and
-comes out as a transposed view, without a copy
+kernels take any strides with a contiguous last dim and write their
+outputs with their inputs' strides, so the ring layout [B, T, H, D] goes
+in and comes out as a transposed view, without a copy
 (``parallel/ring_attention.py``).
 
-Dispatch is by the tensor's device alone: a CPU tensor goes through the
-plain version (``_flash_ref``); a CUDA tensor launches the kernel or
-raises.  There is no switch to the plain version on the card, and the
+``flash_attention`` is one ``torch.autograd.Function`` on both devices
+(the JAX ``custom_vjp`` ``_flash``): its forward is ``flash_forward``, it
+saves the residuals (q, k, v, out, l, m) and its backward is
+``flash_backward``.  Dispatch is by the tensor's device alone: a CPU
+tensor goes through the plain versions (``_flash_ref``,
+``_flash_bwd_ref``); a CUDA tensor launches the kernels or raises.  The
 JAX wrapper's route of unfriendly shapes to jnp has no counterpart: a
-head_dim the kernel does not take raises.  ``LAUNCHES`` counts kernel
+head_dim the kernels do not take raises.  ``flash_attention_ref`` runs
+the same Function on the plain versions whatever the device, so a check
+on the card can compare with them; no model path calls it.
+``LAUNCHES``, ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` count kernel
 launches.
-
-The backward kernels (the TPU's ``_bwd_dq_kernel`` and
-``_bwd_dkv_kernel``) are not ported yet: on the card, with grad enabled
-and an input that requires a gradient, the forward raises instead of
-returning an output that carries none.
 """
 
 import ctypes
@@ -33,7 +36,9 @@ import torch
 from elasticdl_tpu_torch.ops import build
 
 NEG_INF = -1e30
-LAUNCHES = 0
+LAUNCHES = 0            # forward (B3)
+BWD_DQ_LAUNCHES = 0     # backward dq (B4)
+BWD_DKV_LAUNCHES = 0    # backward dk, dv (B5)
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _HEAD_DIMS = (64, 128)
@@ -89,6 +94,28 @@ def _flash_ref(q, k, v, causal, scale, window=0):
     return out, l, m
 
 
+def _flash_bwd_ref(q, k, v, out, l, m, g, causal, scale, window=0):
+    """Plain version of the backward kernels, with the arithmetic of the
+    TPU pair ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``: p = exp(s - m) /
+    max(l, 1e-30) rebuilt from the saved stats; dp = dO v^T and delta =
+    rowsum(dO O) in f32; ds = p (dp - delta) scale rounded to q's dtype
+    before both the ds k and the ds^T q products; p rounded to dO's dtype
+    before p^T dO.  g (dO) is cast to q's dtype first, as ``_pallas_bwd``
+    does.  Returns (dq, dk, dv) in q's, k's and v's dtypes."""
+    g = g.to(q.dtype)
+    gf = g.float()
+    p = torch.exp(_scores(q, k, causal, scale, window) - m[..., None])
+    p = p / torch.clamp(l, min=1e-30)[..., None]
+    delta = (gf * out.float()).sum(dim=-1, keepdim=True)
+    ds = torch.matmul(gf, v.float().transpose(-1, -2))
+    ds = (p * (ds - delta) * scale).to(q.dtype).float()
+    dv = torch.matmul(p.to(g.dtype).float().transpose(-1, -2), gf)
+    del p
+    dq = torch.matmul(ds, k.float())
+    dk = torch.matmul(ds.transpose(-1, -2), q.float())
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
+
+
 def _bind(lib):
     """Declare ``edl_flash_attention_fwd``'s C signature on a loaded
     library (also used by scripts/sweep_flash_attention.py)."""
@@ -105,12 +132,27 @@ def _library():
     return _bind(build.library("flash_attention"))
 
 
+@functools.cache
+def _bwd_library():
+    lib = build.library("flash_attention_bwd")
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    for fn in (lib.edl_flash_attention_bwd_dq,
+               lib.edl_flash_attention_bwd_dkv):
+        fn.argtypes = ([ptr] * 12 + [cint] * 4
+                       + [ctypes.c_float, cint, cint, cint, ptr])
+        fn.restype = cint
+    return lib
+
+
+def _rows_ok(t):
+    """Whether the kernels can read ``t`` as it is: a contiguous last dim
+    and 16-byte aligned rows (they load each row in 16-byte vectors)."""
+    vec = 16 // t.element_size()
+    return (t.stride(-1) == 1 and t.data_ptr() % 16 == 0
+            and not any(s % vec for s in t.stride()[:-1]))
+
+
 def _check_cuda_inputs(q, k, v):
-    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
-        raise RuntimeError(
-            "flash attention's backward kernels (dq, dk/dv) are not "
-            "ported yet, so the kernel's output carries no gradient; run "
-            "under torch.no_grad() or torch.inference_mode()")
     if q.dtype not in _DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             "flash attention kernel takes q, k, v all float32 or all "
@@ -127,11 +169,8 @@ def _check_cuda_inputs(q, k, v):
     if not (k.device == v.device == q.device):
         raise ValueError("q, k, v on %s, %s, %s" % (q.device, k.device,
                                                     v.device))
-    # 16-byte rows: the kernel loads each row in 16-byte vectors.
-    vec = 16 // q.element_size()
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if (t.stride(-1) != 1 or t.data_ptr() % 16
-                or any(s % vec for s in t.stride()[:-1])):
+        if not _rows_ok(t):
             raise ValueError(
                 "flash attention kernel takes %s with a contiguous last "
                 "dim and 16-byte aligned rows; got strides %s"
@@ -184,9 +223,136 @@ def flash_forward(q, k, v, causal=True, scale=None, window=0):
     return out, l, m
 
 
+def _launch_bwd(which, q, k, v, out, l, m, g, dq, dk, dv, delta, causal,
+                scale, window):
+    """Run backward kernel ``which`` ("dq" or "dkv") on [B, H, T, D] views
+    on the current stream; the slots it does not write may hold any
+    tensor of q's shape and dtype."""
+    B, H, T, D = q.shape
+    strides = (ctypes.c_longlong * 24)(*[
+        s for t in (q, k, v, out, g, dq, dk, dv) for s in t.stride()[:3]])
+    fn = getattr(_bwd_library(), "edl_flash_attention_bwd_" + which)
+    with torch.cuda.device(q.device):
+        err = fn(*[t.data_ptr() for t in (q, k, v, out, g, dq, dk, dv, l, m,
+                                         delta)],
+                 ctypes.addressof(strides), B, H, T, D, float(scale),
+                 int(bool(causal)),
+                 int(window), _DTYPES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
+    if err:
+        raise RuntimeError(
+            "flash attention backward kernel (%s) launch failed "
+            "(cudaError_t %d) for B=%d H=%d T=%d D=%d %s"
+            % (which, err, B, H, T, D, q.dtype))
+
+
+def _launch_dq(q, k, v, out, l, m, g, dq, delta, causal, scale, window):
+    """B4: writes dq and the rowsum delta = rowsum(dO O) that B5 reads."""
+    global BWD_DQ_LAUNCHES
+    _launch_bwd("dq", q, k, v, out, l, m, g, dq, dq, dq, delta, causal,
+                scale, window)
+    BWD_DQ_LAUNCHES += 1
+
+
+def _launch_dkv(q, k, v, out, l, m, g, dk, dv, delta, causal, scale,
+                window):
+    """B5: writes dk and dv; reads the delta that B4 wrote."""
+    global BWD_DKV_LAUNCHES
+    _launch_bwd("dkv", q, k, v, out, l, m, g, dk, dk, dv, delta, causal,
+                scale, window)
+    BWD_DKV_LAUNCHES += 1
+
+
+def _check_residuals(q, out, l, m, g):
+    if out.shape != q.shape or g.shape != q.shape or out.dtype != q.dtype:
+        raise ValueError(
+            "flash attention backward takes out and g of q's shape and out "
+            "of q's dtype, got %s %s, %s" % (tuple(out.shape), out.dtype,
+                                             tuple(g.shape)))
+    for name, t in (("l", l), ("m", m)):
+        if (t.dtype != torch.float32 or t.shape != q.shape[:3]
+                or not t.is_contiguous() or t.device != q.device):
+            raise ValueError(
+                "flash attention backward takes %s contiguous float32 "
+                "[B, H, T] on q's device, got %s %s" % (
+                    name, t.dtype, tuple(t.shape)))
+    if not _rows_ok(out):
+        raise ValueError(
+            "flash attention backward takes out with a contiguous last dim "
+            "and 16-byte aligned rows; got strides %s" % (out.stride(),))
+
+
+def flash_backward(q, k, v, out, l, m, g, causal=True, scale=None,
+                   window=0):
+    """The backward kernels' contract (counterpart of ``_pallas_bwd``):
+    the residuals (q, k, v, out, l, m) of ``flash_forward`` and the
+    gradient g of out -> (dq, dk, dv) in q's, k's and v's dtypes and
+    strides."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _check_window(window, causal)
+    _check_device(q)
+    if q.device.type == "cpu":
+        return _flash_bwd_ref(q, k, v, out, l, m, g, causal, scale, window)
+    _check_cuda_inputs(q, k, v)
+    _check_residuals(q, out, l, m, g)
+    g = g.to(q.dtype)
+    if not _rows_ok(g):
+        # e.g. the stride-0 expansion that ``.sum()``'s backward hands in
+        g = g.contiguous()
+    # The outputs keep their inputs' strides (preserve_format), so the
+    # ring layout's transposes back are views.
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    _launch_dq(q, k, v, out, l, m, g, dq, delta, causal, scale, window)
+    _launch_dkv(q, k, v, out, l, m, g, dk, dv, delta, causal, scale, window)
+    return dq, dk, dv
+
+
+class _Flash(torch.autograd.Function):
+    """Flash attention with its backward (the JAX ``custom_vjp``
+    ``_flash``): saves exactly the residuals (q, k, v, out, l, m).
+    ``plain`` runs the plain versions whatever the device."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window, plain):
+        if plain:
+            out, l, m = _flash_ref(q, k, v, causal, scale, window)
+        else:
+            out, l, m = flash_forward(q, k, v, causal=causal, scale=scale,
+                                      window=window)
+        ctx.save_for_backward(q, k, v, out, l, m)
+        ctx.args = (causal, scale, window, plain)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        q, k, v, out, l, m = ctx.saved_tensors
+        causal, scale, window, plain = ctx.args
+        if plain:
+            grads = _flash_bwd_ref(q, k, v, out, l, m, g, causal, scale,
+                                   window)
+        else:
+            grads = flash_backward(q, k, v, out, l, m, g, causal=causal,
+                                   scale=scale, window=window)
+        return grads + (None,) * 4
+
+
+def _apply(q, k, v, causal, scale, window, plain):
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _check_window(window, causal)
+    _check_device(q)
+    return _Flash.apply(q, k, v, causal, scale, window, plain)
+
+
 def flash_attention(q, k, v, causal=True, scale=None, window=0):
     """q, k, v: [batch, heads, seq, head_dim] -> attention output in the
-    same layout and q's dtype."""
-    return flash_forward(q, k, v, causal=causal, scale=scale,
-                         window=window)[0]
+    same layout and q's dtype, differentiable: the kernels on the card,
+    the plain versions on the CPU."""
+    return _apply(q, k, v, causal, scale, window, plain=False)
+
+
+def flash_attention_ref(q, k, v, causal=True, scale=None, window=0):
+    """``flash_attention`` through the plain versions on any device: the
+    card's checks compare the kernels with it.  No model path calls it."""
+    return _apply(q, k, v, causal, scale, window, plain=True)
 

@@ -15,8 +15,10 @@ from elasticdl_tpu_torch.ops.flash_attention import (
 
 def attention_local(q, k, v, causal=True, scale=None, window=0):
     """q, k, v: [batch, seq, heads, head_dim] -> the same layout, through
-    the flash attention kernel on the card (its plain version on the
-    CPU).  ``window`` > 0 = sliding-window causal attention."""
+    the flash attention kernels on the card (their plain versions on the
+    CPU), differentiable: the transposed views go into the Function and
+    its gradients come back with the inputs' strides.  ``window`` > 0 =
+    sliding-window causal attention."""
     _check_window(window, causal)
     o = flash_attention(q.transpose(1, 2), k.transpose(1, 2),
                         v.transpose(1, 2), causal=causal, scale=scale,

@@ -16,11 +16,12 @@ JAX trainer:
    synchronises;
  - checkpoints through ``utils.checkpoint.CheckpointSaver`` in the JAX
    package's names and layouts, optimizer state included (SGD momentum
-   as ``opt/0/trace/<param>``, Adam as ``opt/0/count``,
+   as ``opt/0/trace/<param>``, Adam and AdamW as ``opt/0/count``,
    ``opt/0/mu/<param>``, ``opt/0/nu/<param>``: what
    ``flatten_with_names`` gives optax's states), written on one
    background thread, so a checkpoint moves between the packages in both
-   directions.
+   directions.  Each slot takes its parameter's layout map from the
+   spec (``to_jax_layout``, ``from_jax_layout``).
 
 Where it differs:
 
@@ -49,8 +50,7 @@ import concurrent.futures
 import numpy as np
 import torch
 
-from elasticdl_tpu_torch.models.spec import (from_jax_layout, jax_name,
-                                             to_jax_layout)
+from elasticdl_tpu_torch.models.spec import jax_name
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.logging import get_logger
 from elasticdl_tpu_torch.utils.timing import Timing
@@ -88,11 +88,16 @@ def _pad_batch(leaves, batch_size):
     return [_pad_rows(leaf, batch_size) for leaf in leaves], weights
 
 
-def _opt_state_to_jax(optimizer, named_params):
+# Adam and AdamW keep the same slots; whether AdamW subclasses Adam
+# depends on the torch version, so both are named.
+_ADAM = (torch.optim.Adam, torch.optim.AdamW)
+
+
+def _opt_state_to_jax(optimizer, named_params, to_jax_layout):
     """A torch optimizer's state -> ``{name: ndarray}`` as
-    ``flatten_with_names`` names the optax state it stands for.  A slot
-    not created yet (before the first step) is saved as optax's initial
-    value: zeros."""
+    ``flatten_with_names`` names the optax state it stands for, each slot
+    in its parameter's JAX layout.  A slot not created yet (before the
+    first step) is saved as optax's initial value: zeros."""
     def slot(state, key, p):
         value = state.get(key)
         return to_jax_layout(value if value is not None
@@ -106,7 +111,7 @@ def _opt_state_to_jax(optimizer, named_params):
             out["0/trace/" + name] = slot(optimizer.state.get(p, {}),
                                           "momentum_buffer", p)
         return out
-    if isinstance(optimizer, torch.optim.Adam):
+    if isinstance(optimizer, _ADAM):
         count = 0
         for name, p in named_params:
             state = optimizer.state.get(p, {})
@@ -120,10 +125,10 @@ def _opt_state_to_jax(optimizer, named_params):
         "no checkpoint mapping for optimizer %s" % type(optimizer).__name__)
 
 
-def _opt_state_from_jax(optimizer, named_params, named):
-    """Load ``{name: ndarray}`` (``_opt_state_to_jax``'s names) into a
-    fresh torch optimizer.  Raises KeyError for a missing slot and
-    ValueError for a slot of the wrong shape."""
+def _opt_state_from_jax(optimizer, named_params, named, from_jax_layout):
+    """Load ``{name: ndarray}`` (``_opt_state_to_jax``'s names and
+    layouts) into a fresh torch optimizer.  Raises KeyError for a missing
+    slot and ValueError for a slot of the wrong shape."""
     def slot(key, p):
         value = from_jax_layout(named[key])
         if value.shape != p.shape:
@@ -138,7 +143,7 @@ def _opt_state_from_jax(optimizer, named_params, named):
                 optimizer.state[p]["momentum_buffer"] = slot(
                     "0/trace/" + name, p)
         return
-    if isinstance(optimizer, torch.optim.Adam):
+    if isinstance(optimizer, _ADAM):
         count = float(np.asarray(named["0/count"]))
         for name, p in named_params:
             optimizer.state[p] = {
@@ -308,7 +313,8 @@ class CollectiveTrainer(Trainer):
         with self.timing.timeit("checkpoint_save"):
             payload = dict(self.export_parameters())
             opt_named = _opt_state_to_jax(self._optimizer,
-                                          self._named_params())
+                                          self._named_params(),
+                                          self._spec.to_jax_layout)
             payload.update({"opt/" + k: v for k, v in opt_named.items()})
             if self._ckpt_executor is None:
                 self._ckpt_executor = concurrent.futures.ThreadPoolExecutor(
@@ -365,7 +371,7 @@ class CollectiveTrainer(Trainer):
         if opt_named:
             try:
                 _opt_state_from_jax(self._optimizer, self._named_params(),
-                                    opt_named)
+                                    opt_named, self._spec.from_jax_layout)
             except (KeyError, ValueError) as e:
                 # Optimizer changed since the checkpoint (e.g. Adam ->
                 # momentum): params are still good, trajectory is not.

@@ -1,11 +1,12 @@
 #!/usr/bin/env python3
-"""Where the served flagship transformer LM of the PyTorch/CUDA port
-spends the card's time: device time by kernel group for one prefill and
-for one decode step, the kernel launches per call and the device's busy
-share of the wall time.  Needs one NVIDIA card.  Run from the root of a
-checkout:
+"""Where the flagship transformer LM of the PyTorch/CUDA port spends the
+card's time, served or trained: device time by kernel group for one
+prefill and one decode step, or for one training step, the kernel
+launches per call and the device's busy share of the wall time.  Needs
+one NVIDIA card.  Run from the root of a checkout:
 
     python3 scripts/profile_torch_transformer.py [--steps 5]
+    python3 scripts/profile_torch_transformer.py --train [--steps 3]
 
 The model is the flagship config (vocab 32768, dim 1024, 24 layers, 16
 heads, 436 M parameters, seeded random weights, bf16 compute) with
@@ -15,9 +16,12 @@ same at 2048 tokens, and one KV-cache decode step at batch 8 (position
 128 of a 256-token cache), each on weights cast to bf16 once, as
 ``generate`` casts them.  ``torch.profiler`` traces ``--steps``
 synchronised calls after two warm-up ones; the untraced wall time of the
-same calls is measured apart, since tracing adds host cost.  Prints the
-card's name and power limit, then one JSON object per call as its last
-lines.
+same calls is measured apart, since tracing adds host cost.  With
+``--train`` it profiles one training step through the port's
+CollectiveTrainer at bench_transformer.py's shape instead: batch 8 x
+2048, bf16 compute, AdamW, remat=True, dense cross entropy, one batch
+repeated.  Prints the card's name and power limit, then one JSON object
+per call as its last lines.
 """
 
 import argparse
@@ -44,10 +48,13 @@ BATCH, PROMPT, NEW = 8, 128, 128
 # Kernel-name fragments -> group, first match wins.
 GROUPS = [
     ("flash attention (B3)", ("flash_fwd",)),
+    ("flash attention dq (B4)", ("bwd_dq_",)),
+    ("flash attention dk, dv (B5)", ("bwd_dkv_",)),
     ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "gemv", "splitK")),
-    ("softmax (decode attention)", ("softmax",)),
+    ("optimizer (AdamW)", ("multi_tensor_apply", "foreach", "adam")),
+    ("softmax (decode attention, cross entropy)", ("softmax", "nll_loss")),
     ("reduce (rmsnorm mean, max)", ("reduce",)),
-    ("copy/cast (KV-cache writes, casts, GQA repeat, cat)",
+    ("copy/cast (KV-cache writes, casts, GQA repeat, cat, embedding)",
      ("copy", "Cat", "index", "gather", "scatter", "fill")),
     ("elementwise (rmsnorm, rope, silu, residual)",
      ("elementwise", "vectorized", "unrolled")),
@@ -55,8 +62,9 @@ GROUPS = [
 
 
 def group_of(name):
+    name = name.lower()
     for group, keys in GROUPS:
-        if any(k in name for k in keys):
+        if any(k.lower() in name for k in keys):
             return group
     return "other"
 
@@ -84,7 +92,7 @@ def profile(fn, steps):
     for _ in range(2):
         fn()
     wall_untraced = untraced_ms(fn, steps)
-    fa.LAUNCHES = 0
+    fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts) as prof:
@@ -115,6 +123,8 @@ def profile(fn, steps):
         "host_gap_ms_untraced": max(0.0, wall_untraced - busy_ms),
         "kernel_launches_per_call": launches / steps,
         "flash_launches_per_call": fa.LAUNCHES / steps,
+        "flash_bwd_launches_per_call": [fa.BWD_DQ_LAUNCHES / steps,
+                                        fa.BWD_DKV_LAUNCHES / steps],
         "device_ms_by_group": dict(sorted(by_group.items(),
                                           key=lambda kv: -kv[1])),
         "top_kernels_ms": {k[:90]: v / steps / 1e3 for k, v in sorted(
@@ -122,9 +132,30 @@ def profile(fn, steps):
     }
 
 
+def profile_training(steps):
+    """One training step of the flagship LM through the port's trainer at
+    bench_transformer.py's shape."""
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    spec = load_model_spec("transformer", LM_PARAMS + ";remat=true")
+    cfg = spec.config
+    trainer = CollectiveTrainer(spec, batch_size=BATCH, device="cuda")
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(BATCH, cfg.max_seq_len)).astype(
+            np.int32)).cuda()
+    result = profile(lambda: trainer.train_minibatch(tokens, tokens),
+                     steps)
+    result["call"] = ("training step batch %d x %d, bf16 compute, AdamW, "
+                      "remat" % (BATCH, cfg.max_seq_len))
+    return result
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=5)
+    parser.add_argument("--train", action="store_true",
+                        help="profile a training step instead of serving")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
@@ -133,6 +164,9 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
     build.build_all()
+    if args.train:
+        print(json.dumps(profile_training(args.steps)))
+        return
     spec = load_model_spec("transformer", LM_PARAMS)
     cfg = spec.config
     module = spec.init_fn("cuda", seed=0)

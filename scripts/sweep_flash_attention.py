@@ -12,7 +12,6 @@ that must occur):
  - ``committed``: the source as it is;
  - ``min_blocks_1``: no register cap for D=64 (the compiler's choice,
    fewer blocks per SM);
- - ``stages_3``: three K/V tiles in flight instead of two;
  - ``q_tiles_fastest``: the grid's fastest axis runs the q tiles of one
    head instead of the heads.
 
@@ -45,15 +44,13 @@ from elasticdl_tpu_torch.ops import flash_attention as fa  # noqa: E402
 VARIANTS = {
     "committed": [],
     "min_blocks_1": [("flash_fwd_bf16<64, 4>", "flash_fwd_bf16<64, 1>")],
-    "stages_3": [("constexpr int kStages = 2;",
-                  "constexpr int kStages = 3;")],
     "q_tiles_fastest": [
         ("  const int bh = blockIdx.x;\n"
          "  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;\n",
          "  const int bh = blockIdx.y;\n"
          "  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;\n"),
-        ("const dim3 grid(BH, (prm.T + kBQ - 1) / kBQ);",
-         "const dim3 grid((prm.T + kBQ - 1) / kBQ, BH);"),
+        ("const dim3 grid(B * H, (T + kBQ - 1) / kBQ);",
+         "const dim3 grid((T + kBQ - 1) / kBQ, B * H);"),
     ],
 }
 # (B, H, T, D, dtype): the flagship long prefill in both dtypes, head_dim

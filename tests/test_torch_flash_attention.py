@@ -132,18 +132,19 @@ def test_window_and_mesh_errors():
 
 def test_cuda_path_refuses_what_the_kernel_does_not_take():
     """The checks a CUDA tensor meets before its launch (here on CPU
-    tensors, which themselves never reach them): grad without the
-    backward kernels, dtypes, head dims, strides.  A device that is
-    neither CPU nor CUDA is refused outright."""
+    tensors, which themselves never reach them): dtypes, head dims,
+    strides; grad is no longer refused.  A device that is neither CPU
+    nor CUDA is refused outright."""
     q, k, v = (torch.from_numpy(a) for a in make_qkv(b=1, h=1, t=64))
     q.requires_grad_()
-    with pytest.raises(RuntimeError, match="backward kernels"):
-        tfa._check_cuda_inputs(q, k, v)
-    with torch.no_grad():
-        tfa._check_cuda_inputs(q, k, v)
-    # The CPU path runs the plain version with grad on: it has autograd.
+    tfa._check_cuda_inputs(q, k, v)
+    # A gradient flows through the Function: on the CPU its backward is
+    # the plain version of the backward kernels.
     tfa.flash_attention(q, k, v).sum().backward()
-    assert q.grad is not None
+    out, l, m = tfa._flash_ref(q.detach(), k, v, True, 64 ** -0.5)
+    want = tfa._flash_bwd_ref(q.detach(), k, v, out, l, m,
+                              torch.ones_like(out), True, 64 ** -0.5)[0]
+    assert torch.equal(q.grad, want)
     q = q.detach()
     with pytest.raises(TypeError, match="bfloat16"):
         tfa._check_cuda_inputs(q.half(), k.half(), v.half())

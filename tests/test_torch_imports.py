@@ -44,6 +44,18 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     assert result["banned"] == []
 
 
+def test_every_kernel_source_is_built():
+    """Each CUDA source in ``ops/csrc`` is one library that ``build_all``
+    compiles (``chip_smoke.py`` builds them all on the card)."""
+    from elasticdl_tpu_torch.ops import build
+
+    assert build.sources() == ["flash_attention", "flash_attention_bwd",
+                               "group_norm", "group_norm_bwd"]
+    for name in build.sources():
+        assert os.path.basename(build.library_path(name)).startswith(
+            "lib%s-" % name)
+
+
 def test_cuda_requested_without_a_card_raises(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA is not available"):

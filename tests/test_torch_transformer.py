@@ -196,8 +196,8 @@ def test_config_and_export_validation(tmp_path):
         ttfm.model_spec(vocab_size=64, dim=32, num_heads=4, num_layers=2,
                         seq_len=16, num_kv_heads=3)
     for kwargs, item in (({"moe_experts": 2}, "A16"),
-                         ({"remat": "true"}, "A16"),
-                         ({"xent_chunk": 64}, "A16"),
+                         ({"remat": "dots"}, "A16"),
+                         ({"remat": "attn"}, "A16"),
                          ({"attention_impl": "ulysses"}, "A17"),
                          ({"pipeline_microbatches": 2}, "A18"),
                          ({"mesh": object()}, "A18")):
