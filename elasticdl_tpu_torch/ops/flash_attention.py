@@ -132,9 +132,10 @@ def _library():
     return _bind(build.library("flash_attention"))
 
 
-@functools.cache
-def _bwd_library():
-    lib = build.library("flash_attention_bwd")
+def _bind_bwd(lib):
+    """Declare the C signatures of ``edl_flash_attention_bwd_dq`` and
+    ``_dkv`` on a loaded library (also used by
+    scripts/sweep_flash_attention.py)."""
     ptr, cint = ctypes.c_void_p, ctypes.c_int
     for fn in (lib.edl_flash_attention_bwd_dq,
                lib.edl_flash_attention_bwd_dkv):
@@ -142,6 +143,11 @@ def _bwd_library():
                        + [ctypes.c_float, cint, cint, cint, ptr])
         fn.restype = cint
     return lib
+
+
+@functools.cache
+def _bwd_library():
+    return _bind_bwd(build.library("flash_attention_bwd"))
 
 
 def _rows_ok(t):
@@ -246,8 +252,18 @@ def _launch_bwd(which, q, k, v, out, l, m, g, dq, dk, dv, delta, causal,
             % (which, err, B, H, T, D, q.dtype))
 
 
+def _bwd_scratch(q):
+    """The f32 scratch that B4 writes and B5 reads, four floats per row of
+    q [B, H, T, D]: the bf16 D=64 pair keeps (m log2 e, 1 / max(l,
+    1e-30), delta = rowsum(dO O), delta scale) per row there; the other
+    kernels keep delta alone in its first B*H*T floats."""
+    return torch.empty(q.shape[:3] + (4,), dtype=torch.float32,
+                       device=q.device)
+
+
 def _launch_dq(q, k, v, out, l, m, g, dq, delta, causal, scale, window):
-    """B4: writes dq and the rowsum delta = rowsum(dO O) that B5 reads."""
+    """B4: writes dq and, into the scratch ``delta`` (``_bwd_scratch``),
+    the row stats that B5 reads."""
     global BWD_DQ_LAUNCHES
     _launch_bwd("dq", q, k, v, out, l, m, g, dq, dq, dq, delta, causal,
                 scale, window)
@@ -256,7 +272,7 @@ def _launch_dq(q, k, v, out, l, m, g, dq, delta, causal, scale, window):
 
 def _launch_dkv(q, k, v, out, l, m, g, dk, dv, delta, causal, scale,
                 window):
-    """B5: writes dk and dv; reads the delta that B4 wrote."""
+    """B5: writes dk and dv; reads the row stats that B4 wrote."""
     global BWD_DKV_LAUNCHES
     _launch_bwd("dkv", q, k, v, out, l, m, g, dk, dk, dv, delta, causal,
                 scale, window)
@@ -302,7 +318,7 @@ def flash_backward(q, k, v, out, l, m, g, causal=True, scale=None,
     # The outputs keep their inputs' strides (preserve_format), so the
     # ring layout's transposes back are views.
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
-    delta = torch.empty(q.shape[:3], dtype=torch.float32, device=q.device)
+    delta = _bwd_scratch(q)
     _launch_dq(q, k, v, out, l, m, g, dq, delta, causal, scale, window)
     _launch_dkv(q, k, v, out, l, m, g, dk, dv, delta, causal, scale, window)
     return dq, dk, dv

@@ -192,3 +192,90 @@ def test_function_saves_the_custom_vjp_residuals():
     with pytest.raises(ValueError, match="requires causal"):
         tfa.flash_backward(q.detach(), k, v, ref_out, l, m, g,
                            causal=False, window=8)
+
+
+def _backward_sources():
+    """The backward's CUDA source and the headers it includes, comments
+    stripped: {file name: code}."""
+    import os
+    import re
+
+    from elasticdl_tpu_torch.ops import build
+
+    with open(os.path.join(build.CSRC, "flash_attention_bwd.cu")) as f:
+        main = f.read()
+    names = ["flash_attention_bwd.cu"] + re.findall(
+        r'#include "([^"]+)"', main)
+    code = {}
+    for name in names:
+        with open(os.path.join(build.CSRC, name)) as f:
+            text = f.read()
+        text = re.sub(r"/\*.*?\*/", "", text, flags=re.S)
+        code[name] = re.sub(r"//[^\n]*", "", text)
+    return code
+
+
+def test_backward_source_has_no_atomics():
+    """B4 and B5 are deterministic by construction: no atomic operation
+    (CUDA's atomic* functions, PTX atom.* or red.*) in their source or the
+    headers it includes."""
+    import re
+
+    code = _backward_sources()
+    assert set(code) >= {"flash_attention_bwd.cu", "flash_common.cuh",
+                         "hopper.cuh"}
+    for name, text in code.items():
+        assert not re.search(r"atomic|\batom\.|\bred\.", text, re.I), name
+
+
+def test_flagship_backward_dispatches_to_the_wgmma_kernels():
+    """bf16 at head_dim 64 (the flagship LM's attention) reaches the
+    kernels built on wgmma and TMA; head_dim 128 keeps the mma.sync pair."""
+    import re
+
+    code = _backward_sources()
+    body = code["flash_attention_bwd.cu"]
+    for which in ("dq", "dkv"):
+        entry = body[body.index("int edl_flash_attention_bwd_%s(" % which):]
+        bf16 = entry[entry.index("if (dtype == 1) {"):]
+        assert re.match(
+            r"if \(dtype == 1\) \{\s*if \(D == 64\)\s*return launch_hop\("
+            r"bwd_%s_wgmma," % which, bf16), which
+        assert "bwd_%s_bf16<128" % which in bf16[:bf16.index("}")]
+    hopper = code["hopper.cuh"]
+    assert "wgmma.mma_async" in hopper
+    assert "cp.async.bulk.tensor" in hopper
+
+
+def test_bwd_scratch_holds_four_floats_per_row():
+    q = torch.zeros((2, 3, 5, 64), dtype=torch.bfloat16)
+    scratch = tfa._bwd_scratch(q)
+    assert scratch.shape == (2, 3, 5, 4)
+    assert scratch.dtype == torch.float32 and scratch.is_contiguous()
+
+
+def test_sweep_variants_apply_to_the_committed_sources():
+    """Every variant and ablation of scripts/sweep_flash_attention.py is a
+    set of substitutions whose patterns must occur in the committed
+    kernel source; a stale one would only show as a failed call on the
+    card."""
+    import os
+    import sys
+
+    from elasticdl_tpu_torch.ops import build
+
+    sys.path.insert(0, os.path.join(os.path.dirname(build.CSRC), "..", "..",
+                                    "scripts"))
+    try:
+        import sweep_flash_attention as sweep
+    finally:
+        sys.path.pop(0)
+    tables = [(source, variants)
+              for source, variants, *_ in sweep.MODES.values()]
+    tables.append(("flash_attention_bwd", sweep.BWD_ABLATIONS))
+    for source, variants in tables:
+        with open(os.path.join(build.CSRC, source + ".cu")) as f:
+            text = f.read()
+        for name, subs in variants.items():
+            changed = sweep.variant_source(text, subs)
+            assert (changed == text) == (not subs), (source, name)

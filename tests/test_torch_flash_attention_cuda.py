@@ -182,6 +182,13 @@ def check_bwd(q, k, v, causal, window=0, seed=3):
     ((2, 4, 1000, 64), True, 0),        # ragged tail tile
     ((1, 2, 77, 128), False, 0),        # ragged, one partial tile
     ((1, 1, 1, 64), True, 0),           # one position
+    # the edges of the bf16 D=64 kernels' 128-row blocks and 64-row tiles
+    ((2, 4, 1, 64), True, 0),
+    ((2, 4, 127, 64), True, 0),
+    ((2, 4, 129, 64), False, 0),
+    ((2, 4, 129, 64), True, 0),
+    ((2, 4, 2048, 64), True, 64),       # a window of one tile
+    ((2, 4, 640, 128), True, 200),      # head_dim 128 with a window
 ])
 def test_backward_kernels_match_plain(card, shape, causal, window, dtype):
     check_bwd(*_qkv(shape, card, dtype, seed=4), causal=causal,
@@ -205,6 +212,29 @@ def test_backward_takes_ring_layout_views(card):
     for name, got, want in zip(("dq", "dk", "dv"), (qt, kt, vt), ref):
         assert got.grad.transpose(1, 2).is_contiguous()
         assert_grad_close(got.grad, want, g, name)
+
+
+def test_backward_ring_views_across_block_edges(card):
+    """The ring layout's transposed views at a T that ends inside a
+    128-row block, causal with a window of one tile and without."""
+    q, k, v = _qkv((2, 300, 4, 64), card, torch.bfloat16, seed=7)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    for window in (0, 64):
+        check_bwd(qt, kt, vt, causal=True, window=window, seed=8)
+
+
+def test_backward_is_bitwise_deterministic(card):
+    """Many blocks of each kernel at once (B x H = 64 heads, 16 blocks
+    each): two runs give the same bits, with no atomics to reorder sums."""
+    q, k, v = _qkv((4, 16, 2048, 64), card, torch.bfloat16, seed=9)
+    gen = torch.Generator(device=card).manual_seed(10)
+    g = torch.randn(q.shape, generator=gen, device=card).to(q.dtype)
+    out, l, m = fa.flash_forward(q, k, v)
+    first = fa.flash_backward(q, k, v, out, l, m, g)
+    for _ in range(2):
+        again = fa.flash_backward(q, k, v, out, l, m, g)
+        for a, b in zip(first, again):
+            assert torch.equal(a, b)
 
 
 def test_outputs_are_deterministic(card):
