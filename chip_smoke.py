@@ -22,9 +22,10 @@ Phases, in order; any failure exits non-zero:
     uses it; two runs must be bitwise equal; then per shape at batch 32
     the kernel's time, the plain version's, the backward alone of
     F.group_norm + ReLU through autograd, and the bound;
- 5. serving: a seeded ResNet-50 (224x224x3 in, 1000 classes) is exported
-    with the port's exporter, served by the port's HTTP server on the
-    card, and answers three :predict requests of four images;
+ 5. serving: TF32 off, as the serving entry point turns it off; a seeded
+    ResNet-50 (224x224x3 in, 1000 classes) is exported with the port's
+    exporter, served by the port's HTTP server on the card, and answers
+    three :predict requests of four images;
     predictions must match the same module run with the plain GroupNorm,
     and the forward kernel must have launched 53 times per forward;
  6. forward: the served module's forward at batch 4 and 32 with the
@@ -43,11 +44,15 @@ Phases, in order; any failure exits non-zero:
  8. flash attention kernel against plain: the flash attention forward
     (B3) against its plain version (``_flash_ref``: out, l and m) at the
     served transformer's prefill shapes (q, k, v [8, 16, 128, 64] and
-    [8, 16, 2048, 64]), non-causal, a sliding window, head_dim 128 and a
-    ragged T, in float32 and bfloat16 (FLASH_CHECKS); then, at [8, 16,
-    2048, 64] causal in both dtypes, the kernel's time, the plain
-    version's, F.scaled_dot_product_attention's (a yardstick the port
-    never calls) and the bound;
+    [8, 16, 2048, 64]), non-causal, a sliding window, head_dim 128, a
+    ragged T and the edges of the bf16 kernel's 128-row blocks (T = 1,
+    127, 129, windows of 64 and 128 keys), in float32 and bfloat16
+    (FLASH_CHECKS); two runs at [8, 16, 2048, 64] bf16 must be bitwise
+    equal; then, at [8, 16, 2048, 64] causal in both dtypes and at
+    [8, 8, 2048, 128] bf16 (head_dim 128 at the same FLOPs), the
+    kernel's time, the plain version's, F.scaled_dot_product_attention's
+    (a yardstick the port never calls), the bound and the share of it
+    reached;
  9. transformer serving: the flagship LM (vocab 32768, dim 1024, 24
     layers, 16 heads, 436 M parameters, seeded random weights, bf16
     compute) exported with the port's ``export_generate`` (greedy,
@@ -66,11 +71,11 @@ Phases, in order; any failure exits non-zero:
     sliding window, head_dim 128, a ragged T and the edges of the bf16
     kernels' 128-row blocks (T = 1, 127, 129, a 64-key window;
     FLASH_BWD_CHECKS), held row by row and by norm, two runs bitwise
-    equal; then, at the flagship shape in both dtypes, each kernel's time
-    and bound, the whole plain backward's time and the backward alone of
-    F.scaled_dot_product_attention (a yardstick the port never calls),
-    and for B4, B5 and the pair the share of the bound reached and the
-    ratio to that backward;
+    equal; then, at the flagship shape in both dtypes and at [8, 8, 2048,
+    128] bf16, each kernel's time and bound, the whole plain backward's
+    time and the backward alone of F.scaled_dot_product_attention (a
+    yardstick the port never calls), and for B4, B5 and the pair the
+    share of the bound reached and the ratio to that backward;
 11. transformer training: the flagship LM (436 M parameters, seeded
     random weights) trained through the port's CollectiveTrainer at
     bench_transformer.py's shape, batch 8 x 2048, bf16 compute, AdamW,
@@ -193,7 +198,10 @@ TRAIN_GRAD_RTOL = 2e-2
 # Flash attention forward (B3) against its plain version ``_flash_ref``:
 # (B, H, T, D, dtype, causal, window).  The served model's prefill at the
 # decode bench's prompt (T=128) and at its longest (T=2048, both
-# dtypes), non-causal, a sliding window, head_dim 128 and a ragged T.
+# dtypes), non-causal, a sliding window, head_dim 128 and a ragged T;
+# then the edges of the bf16 D=64 kernel's blocks (256 rows; 128 in the
+# sweep's two-warpgroup variants) and 64-row tiles: one position, T = 127,
+# 129, 255 and 257, and windows of one and two tiles.
 FLASH_CHECKS = [
     (8, 16, 128, 64, "bfloat16", True, 0),
     (8, 16, 2048, 64, "bfloat16", True, 0),
@@ -204,8 +212,20 @@ FLASH_CHECKS = [
     (4, 8, 2048, 128, "bfloat16", True, 0),
     (2, 16, 1000, 64, "bfloat16", True, 0),
     (2, 16, 1000, 64, "float32", False, 0),
+    (2, 16, 1, 64, "bfloat16", True, 0),
+    (2, 16, 1, 64, "bfloat16", False, 0),
+    (2, 16, 127, 64, "bfloat16", True, 0),
+    (2, 16, 127, 64, "bfloat16", False, 0),
+    (2, 16, 129, 64, "bfloat16", True, 0),
+    (2, 16, 129, 64, "bfloat16", False, 0),
+    (2, 16, 255, 64, "bfloat16", True, 0),
+    (2, 16, 257, 64, "bfloat16", False, 0),
+    (2, 16, 2048, 64, "bfloat16", True, 64),
+    (2, 16, 2048, 64, "bfloat16", True, 128),
 ]
 FLASH_TIMED = (8, 16, 2048, 64)  # the flagship long prefill, causal
+# head_dim 128 at the flagship's FLOPs (half the heads), bf16, causal
+FLASH_TIMED_D128 = (8, 8, 2048, 128)
 # out: float32 2e-5 / 2e-5, the JAX oracle's tolerance (sums in other
 # orders); bfloat16 2e-2 / 2e-2: the kernel rounds p = exp(s - m) to bf16
 # against its running row max, the plain version against the final one,
@@ -663,7 +683,9 @@ def serving_phase(torch, gn):
     from elasticdl_tpu_torch.models.spec import load_model_spec
     from elasticdl_tpu_torch.serving.export import export_servable
     from elasticdl_tpu_torch.serving.server import ModelEndpoint, build_server
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
 
+    use_float32_numerics()   # as the serving entry point: TF32 off
     model_params = "variant=resnet50;num_classes=1000;image_size=224"
     spec = load_model_spec("resnet", model_params)
     module = spec.init_fn("cuda")
@@ -1084,11 +1106,22 @@ def flash_phase(torch, fa):
         del q, k, v, got, ref
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    B, H, T, D = FLASH_TIMED
     timed = {}
-    for name in ("bfloat16", "float32"):
+    for B, H, T, D, name in (FLASH_TIMED + ("bfloat16",),
+                             FLASH_TIMED + ("float32",),
+                             FLASH_TIMED_D128 + ("bfloat16",)):
         q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
             getattr(torch, name)) for _ in range(3))
+        if (D, name) == (64, "bfloat16"):
+            # Every output row has one owner: two runs give the same bits.
+            first, again = fa.flash_forward(q, k, v), fa.flash_forward(q, k, v)
+            torch.cuda.synchronize()
+            if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                fail("flash_fwd B=%d H=%d T=%d D=%d: two runs are not "
+                     "bitwise equal" % (B, H, T, D))
+            print("check flash_fwd B=%d H=%d T=%d D=%d %s causal: out, l and "
+                  "m bitwise equal across two runs" % (B, H, T, D, name))
+            del first, again
         row = {"shape": [B, H, T, D], "dtype": name, "causal": True,
                "ms": time_ms(torch, lambda: fa.flash_forward(q, k, v),
                              flush),
@@ -1098,13 +1131,17 @@ def flash_phase(torch, fa):
                    F.scaled_dot_product_attention(q, k, v, is_causal=True)),
                    flush)}
         row.update(flash_bound(B, H, T, D, q.element_size(), True, 0))
-        timed[name] = row
+        row["bound_share"] = row["bound_ms"] / row["ms"]
+        row["over_library"] = row["ms"] / row["library_ms"]
+        timed[name if D == 64 else "%s d%d" % (name, D)] = row
         print("time flash_fwd B=%d H=%d T=%d D=%d %s causal: kernel %.4f "
               "ms, plain %.4f ms, scaled_dot_product_attention %.4f ms, "
-              "bound %.4f ms (%s; %.2f GFLOP)" % (
+              "bound %.4f ms (%s; %.2f GFLOP); %.1f %% of the bound, %.2fx "
+              "the library" % (
                   B, H, T, D, name, row["ms"], row["plain_ms"],
                   row["library_ms"], row["bound_ms"], row["bound_by"],
-                  row["gflop"]))
+                  row["gflop"], 100 * row["bound_share"],
+                  row["over_library"]))
         del q, k, v
     del flush
     torch.cuda.empty_cache()
@@ -1268,10 +1305,12 @@ def flash_bwd_phase(torch, fa):
                   name, worst[name][1], row_tol, worst[name][2], norm_tol))
 
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    B, H, T, D = FLASH_TIMED
-    scale = D ** -0.5
     timed = {}
-    for name in ("bfloat16", "float32"):
+    for B, H, T, D, name in (FLASH_TIMED + ("bfloat16",),
+                             FLASH_TIMED + ("float32",),
+                             FLASH_TIMED_D128 + ("bfloat16",)):
+        scale = D ** -0.5
+        name_d = name if D == 64 else "%s d%d" % (name, D)
         q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
             getattr(torch, name)) for _ in range(4))
         out, l, m = fa.flash_forward(q, k, v)
@@ -1298,7 +1337,7 @@ def flash_bwd_phase(torch, fa):
                    "plain_ms": plain_ms, "library_ms": library_ms}
             row.update(flash_bound(B, H, T, D, q.element_size(), True, 0,
                                    part))
-            timed[(part, name)] = row
+            timed[(part, name_d)] = row
             print("time flash_bwd_%s B=%d H=%d T=%d D=%d %s causal: kernel "
                   "%.4f ms, bound %.4f ms (%s; %.2f GFLOP); whole plain "
                   "backward %.4f ms, scaled_dot_product_attention backward "
@@ -1307,18 +1346,18 @@ def flash_bwd_phase(torch, fa):
                                row["gflop"], plain_ms, library_ms))
         # Each kernel and the pair: the share of the bound reached, and
         # the time over the library's backward (which computes all three).
-        pair = {key: timed[("dq", name)][key] + timed[("dkv", name)][key]
+        pair = {key: timed[("dq", name_d)][key] + timed[("dkv", name_d)][key]
                 for key in ("ms", "bound_ms")}
         pair["library_ms"] = library_ms
-        timed[("pair", name)] = pair
+        timed[("pair", name_d)] = pair
         for part, label in (("dq", "dq (B4)"), ("dkv", "dk, dv (B5)"),
                             ("pair", "B4 + B5")):
-            row = timed[(part, name)]
+            row = timed[(part, name_d)]
             row["bound_share"] = row["bound_ms"] / row["ms"]
             row["over_library"] = row["ms"] / library_ms
             print("flash_bwd %s %s: %.4f ms, %.1f %% of its bound %.4f ms; "
                   "%.2fx scaled_dot_product_attention's backward %.4f ms" % (
-                      label, name, row["ms"], 100 * row["bound_share"],
+                      label, name_d, row["ms"], 100 * row["bound_share"],
                       row["bound_ms"], row["over_library"], library_ms))
         del q, k, v, g, out, l, m, dq, dk, dv, delta, launch
     del flush
@@ -1337,7 +1376,9 @@ def transformer_phase(torch, fa):
     from elasticdl_tpu_torch.models import transformer as tfm
     from elasticdl_tpu_torch.models.spec import load_model_spec
     from elasticdl_tpu_torch.serving.server import ModelEndpoint, build_server
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
 
+    use_float32_numerics()   # as the serving entry point: TF32 off
     spec = load_model_spec("transformer", LM_PARAMS)
     cfg = spec.config
     out = {}
@@ -1890,6 +1931,8 @@ def main():
                      "[8, 16, 2048, 64] bfloat16, causal; launches over "
                      "%d served :predict requests" % REQUESTS,
         "launches_training_step": lm_train["launches_per_step"][0],
+        "d128": {key: flash_timed["bfloat16 d128"][key] for key in (
+            "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }]
     for i, (part, line) in enumerate((("dq", 354), ("dkv", 429))):
         row = bwd_timed[(part, "bfloat16")]
@@ -1911,6 +1954,8 @@ def main():
                          "the plain version's and scaled_dot_product_"
                          "attention's through autograd; launches in one "
                          "training step of the flagship LM",
+            "d128": {key: bwd_timed[(part, "bfloat16 d128")][key] for key in (
+                "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
         })
     if args.out:
         with open(args.out, "w") as f:

@@ -17,48 +17,87 @@
 // T=2048, D=64, causal, bf16) the live (i, j) pairs number T(T+1)/2 per head,
 // 4 D flops each (q k^T and p v): 68.75 GFLOP, 0.0695 ms at 989 TFLOP/s,
 // against 136 MB of q, k, v, out, l, m, 0.041 ms at 3.35 TB/s: bound by
-// tensor-core operations.  At the serving prompt (T=128) the same call moves
-// 8.5 MB, 2.5 us, and is bound by bytes (launch latency dominates).  In f32
-// there are no tensor cores for full-precision products: 1.03 ms per
-// flagship call at 67 TFLOP/s.
+// tensor-core operations.  The softmax's exponentials are a second limit
+// of the same size: one per live pair, 268.6 M, on the 16 exp2 units a
+// cycle of each SM (about 4.2 T/s over 132 SMs at 1.98 GHz): 0.064 ms, so
+// the two have to overlap for the kernel to near either.  At the
+// serving prompt (T=128) the same call moves 8.5 MB, 2.5 us, and is bound
+// by bytes (launch latency dominates).  In f32 there are no tensor cores
+// for full-precision products: 1.03 ms per flagship call at 67 TFLOP/s.
 //
 // How it splits the work.  The TPU walked K/V tiles along a sequential grid
-// axis, carrying (acc, l, m) in VMEM scratch.  Here one block owns one
-// (batch*head, 64-row q tile) and loops over 64-row K/V tiles itself, so the
-// loop takes the place of that grid axis; its 4 warps own 16 q rows each and
-// share the K/V tiles in shared memory.  Tiles above the diagonal (causal)
-// and below the band (window) are never loaded, and only tiles that cross
-// the diagonal, the band's edge or the ragged tail are masked.  Blocks are
-// scheduled heaviest first (causal q tiles near the end see the most keys),
-// heads along the grid's fastest axis (measured faster than a head's q
-// tiles together).
+// axis, carrying (acc, l, m) in VMEM scratch.  Here a block owns a run of
+// q rows of one (batch, head) and loops over the live 64-row K/V tiles
+// itself, so the loop takes the place of that grid axis.  Tiles above the
+// diagonal (causal) and below the band (window) are never loaded, and only
+// tiles that cross the diagonal, the band's edge or the ragged tail are
+// masked.  Causal q rows near the end see the most keys, so blocks launch
+// heaviest first.  Three designs, chosen by dtype and D in the C entry
+// point (a dispatch, not a fallback):
 //
-//  - bfloat16 (the served path), bound by tensor-core operations: both
-//    products run on the tensor cores through mma.sync m16n8k16 (bf16 in,
-//    f32 accumulate).  A warp keeps its q fragments, its 16 x 64 score tile,
-//    its running (m, l) and its 16 x D accumulator in registers; the score
-//    tile's accumulator layout is the layout of the p v product's A operand,
-//    so p goes from the softmax to the tensor cores without touching shared
-//    memory.  Scores are kept in log2 units, so each p is one exp2; row max
-//    and sum take two shuffles within a quad of lanes.  K and V tiles are
-//    double-buffered: cp.async fetches tile j + 1 while tile j is computed;
-//    their B fragments come through ldmatrix (V's transposed).  For
-//    D = 64 the registers are held to 128 a thread, so that four blocks
-//    share an SM (scripts/sweep_flash_attention.py measured it faster than
-//    the two blocks that the compiler's own register count leaves room for).
+//  - bfloat16, D = 64 (the flagship LM's path): wgmma fed by TMA, warp
+//    specialised.  A block owns 128 q rows: two consumer warpgroups of 64
+//    rows each and one producer warp, one thread of which keeps TMA loads
+//    of the K and V tiles in flight through a ring of kFwdStages stages,
+//    each with a full and an empty mbarrier (hopper.cuh); no
+//    __syncthreads() in the loop.  Tiles are rows of 64 bf16 = 128 bytes,
+//    loaded with the 128-byte swizzle and read by wgmma through
+//    descriptors of the same swizzle.  Per K/V tile a warpgroup computes
+//    S = Q K^T with both operands in shared memory, the online softmax on
+//    S in registers (scores in log2 units, one ex2.approx.ftz per
+//    element; each thread keeps partial row sums, reduced once at the
+//    end), and O += P V with P from registers (rounded to bf16: the
+//    accumulator's layout is the A operand's) and V read MN-major.  The
+//    chain S -> softmax -> P V is serial within a warpgroup, and the tile
+//    is released when its product is done.  What bounds it is that chain:
+//    one warpgroup alone takes 75 % of the time of two, and the kernel
+//    without any wgmma 91 % (scripts/sweep_flash_attention.py --ablate,
+//    PERF.md), so the tensor cores wait on the softmax's instruction
+//    stream.  The lever is the number of chains per SM: the chain needs
+//    96 registers a thread, so two blocks (four chains) share an SM.  Two
+//    schedules that hide a chain's softmax under products measured slower
+//    here and are kept as switches for the sweep: issuing tile j's S
+//    before tile j - 1's P V (kOverlap: the product's registers stay live
+//    under the next S, which costs the second block per SM), and a
+//    ping-pong of the warpgroups on named barriers (kPingPong).  Both
+//    warpgroups walk every tile of the block's range in the same rounds
+//    (a warpgroup with no live pair in a tile passes it on), so the
+//    ping-pong stays in step and the ring never waits on a warpgroup that
+//    has run out of work.  Blocks launch in groups of kFwdHeadGroup
+//    heads, heaviest first within a group, so a group's K and V stay in
+//    L2.  Every output row has one owner and no atomics are used: two
+//    runs are bitwise equal.
+//  - bfloat16, D = 128: mma.sync m16n8k16 (bf16 in, f32 accumulate).  A
+//    block owns 64 q rows; its 4 warps own 16 rows each and keep their q
+//    fragments, their 16 x 64 score tile, their running (m, l) and their
+//    16 x D accumulator in registers; the score tile's accumulator layout
+//    is the layout of the p v product's A operand, so p goes from the
+//    softmax to the tensor cores without touching shared memory.  K and V
+//    tiles are double-buffered: cp.async fetches tile j + 1 while tile j is
+//    computed; their B fragments come through ldmatrix (V's transposed).
+//    Heads run along the grid's fastest axis.  The template also takes
+//    D = 64 (scripts/sweep_flash_attention.py times it as the earlier
+//    design: there 128 registers a thread let four blocks share an SM).
 //  - float32, bound by the CUDA cores' f32 rate (TF32 would lose the
 //    float32 accuracy this path promises): FMA products over tiles in
 //    shared memory, the online softmax one row at a time with warp
 //    shuffles.  It is the simple design.
 //
-// Not done yet (later work): wgmma, TMA, warp specialisation, a persistent
-// schedule.
+// Not done yet (later work): D = 128 on wgmma (two swizzle panels a row),
+// a persistent schedule, a TMA store of the output.
+//
+// Every mbarrier wait traps after 2^24 polls (hopper.cuh): a deadlock
+// becomes a launch failure instead of a hung card.
 //
 // C interface (bound with ctypes): edl_flash_attention_fwd returns 0 or the
-// cudaError_t code of a refused launch.  It allocates nothing: the caller
-// passes out, l and m.  It launches on the given stream.
+// cudaError_t code of a refused launch (also when the CUDA driver refuses
+// a TMA map).  It allocates nothing: the caller passes out, l and m.  It
+// launches on the given stream.
+
+#include <string.h>
 
 #include "flash_common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -77,7 +116,8 @@ struct Params {
 };
 
 // ---------------------------------------------------------------------------
-// bfloat16: mma.sync m16n8k16, registers, double-buffered cp.async tiles.
+// bfloat16, D = 128: mma.sync m16n8k16, registers, double-buffered cp.async
+// tiles.
 // ---------------------------------------------------------------------------
 
 template <int D> struct Bf16Smem {
@@ -249,6 +289,382 @@ flash_fwd_bf16(Params prm) {
       prm.m[(long long)bh * Tlen + qi] = m_run[half] * kLn2;
     }
   }
+}
+
+// ---------------------------------------------------------------------------
+// bfloat16, D = 64: wgmma fed by TMA, warp specialised (the source header
+// says how the work is split).
+// ---------------------------------------------------------------------------
+
+using hopper::kWgThreads;
+constexpr int kConsumers = 2;                // consumer warpgroups
+// The consumer warpgroups, then one producer warp.
+constexpr int kFwdThreads = kConsumers * kWgThreads + 32;
+constexpr int kStream = 64;                  // rows of a Q, K or V tile
+constexpr int kOwned = kConsumers * kStream;  // q rows a block owns
+constexpr int kFwdStages = 4;                // ring depth
+constexpr int kFwdHeadGroup = 16;            // heads launched together
+// Both measured slower at D = 64 and kept for the sweep's variants:
+constexpr bool kPingPong = false;  // warpgroups issue products in turn
+constexpr bool kOverlap = false;   // P V of tile j - 1 under tile j's softmax
+constexpr int kTileBf16 = kStream * 64 * 2;  // a 64 x 64 bf16 tile, bytes
+constexpr int kTileElems64 = kStream * 64;
+constexpr int kPingPongBar = 1;              // named barriers 1 ..
+static_assert(kStream == kBQ && kStream == kBK, "tile_unmasked's tiles");
+
+using FwdRing = hopper::Ring<kFwdStages>;
+
+struct FwdHopParams {
+  CUtensorMap q, k, v;  // [B, H, T, 64] bf16: 64 x 64 boxes, swizzled
+  Params prm;
+};
+
+struct FwdHopSmem {
+  static constexpr int q = 0;  // the block's rows: a tile per warpgroup
+  static constexpr int k = q + kConsumers * kTileBf16;  // the ring
+  static constexpr int v = k + kFwdStages * kTileBf16;
+  static constexpr int bars = v + kFwdStages * kTileBf16;
+  static constexpr int bytes = bars + (2 * kFwdStages + 1) * 8 + 1024;
+};
+
+// The ping-pong: warpgroup wg waits on its own barrier before it issues
+// its products and then lets the next one (wg + 1, in a ring) go.  The
+// last warpgroup lets 0 go first; 0 takes the last pass after its final
+// round, so every barrier phase is completed.
+__device__ __forceinline__ void pingpong_wait(int wg) {
+  if (kPingPong) hopper::named_barrier(kPingPongBar + wg, 2 * kWgThreads);
+}
+__device__ __forceinline__ void pingpong_pass(int wg) {
+  if (kPingPong)
+    hopper::named_barrier_arrive(kPingPongBar + (wg + 1) % kConsumers,
+                                 2 * kWgThreads);
+}
+
+// o *= alpha, per row (register e holds row 8 ((e >> 1) & 1) + g).
+__device__ __forceinline__ void rescale(float (&o)[32],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int e = 0; e < 32; ++e) o[e] *= alpha[(e >> 1) & 1];
+}
+
+// s = Q K^T for the warpgroup's 64 rows and a K tile, both in shared
+// memory; committed as one group.
+__device__ __forceinline__ void issue_s(float (&s)[32], uint64_t desc_q,
+                                        const bf16* k_tile) {
+  using namespace hopper;
+  const uint64_t desc_k = desc_sw128(k_tile);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_ss(s, desc_q + kk * kDescKStepKMajor,
+             desc_k + kk * kDescKStepKMajor, kk);
+  wgmma_commit();
+}
+
+// o += P V: P from registers (bf16 A fragments), V read MN-major;
+// committed as one group.
+__device__ __forceinline__ void issue_pv(float (&o)[32],
+                                         const uint32_t (&pa)[4][4],
+                                         const bf16* v_tile) {
+  using namespace hopper;
+  const uint64_t desc_v = desc_sw128(v_tile);
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+    wgmma_rs_mn(o, pa[kk], desc_v + kk * kDescKStepMNMajor);
+  wgmma_commit();
+}
+
+// The online softmax of one tile for this lane's rows `row` (half 0) and
+// row + 8: s (raw scores) becomes p = exp2(s c - m) in place, masked
+// where the tile needs it; m_run (log2 units) and the partial sums l_part
+// move to the new row max, and alpha is the factor that moves O there.
+// Maxima and sums run as two interleaved chains per row (8-column groups
+// even and odd), which halves their latency.
+__device__ __forceinline__ void online_softmax(
+    float (&s)[32], float (&m_run)[2], float (&l_part)[2], float (&alpha)[2],
+    const Params& prm, int qw0, int row, int k0, int t, float c) {
+  using hopper::ex2;
+  float mx[2][2] = {{kNegInf, kNegInf}, {kNegInf, kNegInf}};
+  if (tile_unmasked(prm, qw0, k0)) {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      s[e] *= c;
+      float& m = mx[(e >> 1) & 1][(e >> 2) & 1];
+      m = fmaxf(m, s[e]);
+    }
+  } else {
+#pragma unroll
+    for (int e = 0; e < 32; ++e) {
+      const int hh = (e >> 1) & 1;
+      const int kj = k0 + 8 * (e >> 2) + 2 * t + (e & 1);
+      s[e] = keep(prm, row + 8 * hh, kj) ? s[e] * c : kNegInf;
+      float& m = mx[hh][(e >> 2) & 1];
+      m = fmaxf(m, s[e]);
+    }
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float mt = fmaxf(mx[hh][0], mx[hh][1]);
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 1));
+    mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 2));
+    const float m_new = fmaxf(m_run[hh], mt);
+    alpha[hh] = ex2(m_run[hh] - m_new);
+    m_run[hh] = m_new;
+  }
+  float sum[2][2] = {{0.f, 0.f}, {0.f, 0.f}};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) {
+    const int hh = (e >> 1) & 1;
+    s[e] = ex2(s[e] - m_run[hh]);
+    sum[hh][(e >> 2) & 1] += s[e];
+  }
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh)
+    l_part[hh] = l_part[hh] * alpha[hh] + (sum[hh][0] + sum[hh][1]);
+}
+
+// A round in which the warpgroup has no live pair: it keeps its turn in
+// the ping-pong and releases the tile.
+__device__ __forceinline__ void pass_tile(FwdRing& ring, int wg,
+                                          uint64_t* full, uint64_t* empty,
+                                          int lane) {
+  hopper::mbar_wait(&full[ring.stage], ring.phase);
+  pingpong_wait(wg);
+  pingpong_pass(wg);
+  hopper::warp_release(&empty[ring.stage], lane);
+  ring.advance();
+}
+
+// B3.  Consumer warpgroup w owns q rows q0 + 64 w .. + 63 with Q resident;
+// per K/V tile: S = Q K^T (both in shared memory), the online softmax in
+// registers, O += P V (P from registers, V read MN-major), the tile
+// released when its product is done: the chain is serial within a
+// warpgroup, and the other warpgroup's chain fills the tensor cores.
+// With kOverlap the P V product of tile j - 1 is issued after tile j's S
+// and runs while tile j's softmax does.  The walk is cut into straight
+// runs (the tiles before the warpgroup's live run, its first tile, the
+// rest of the run, with kOverlap the run's last P V, the tiles after) so
+// that no branch lies between a wgmma and the wait that retires it:
+// ptxas cannot see that two branches on the same condition agree, and
+// otherwise retires every wgmma at once (C7514).  Two blocks share an SM
+// (96 registers a thread, 81 KB of shared memory each): four consumer
+// chains per SM, which is what bounds this kernel (PERF.md).
+__global__ void __launch_bounds__(kFwdThreads, 2)
+flash_fwd_wgmma(const __grid_constant__ FwdHopParams hp) {
+  using L = FwdHopSmem;
+  using namespace hopper;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t* empty = full + kFwdStages;
+  uint64_t* resident = empty + kFwdStages;
+
+  const Params& prm = hp.prm;
+  const int Tlen = prm.T;
+  int bh, rank;
+  block_order<kFwdHeadGroup>(&bh, &rank);
+  const int q0 = (gridDim.y - 1 - rank) * kOwned;  // the last rows see most
+  const int b = bh / prm.H, h = bh % prm.H;
+  int k_begin = 0, k_end = Tlen;
+  if (prm.causal) {
+    k_end = min(Tlen, q0 + kOwned);
+    if (prm.window > 0)
+      k_begin = max(0, q0 - prm.window + 1) / kStream * kStream;
+  }
+  const int n_tiles = (k_end - k_begin + kStream - 1) / kStream;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kFwdStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumers * kWgThreads / 32);
+    }
+    mbar_init(resident, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = warpgroup_index();
+  const int tid = threadIdx.x % kWgThreads;
+  if (wg == kConsumers) {
+    // Producer: one thread issues every load.
+    if (tid == 0) {
+      // The Q tiles that hold a row before T: never a box past T.
+      const int parts = min(kConsumers, (Tlen - q0 + kStream - 1) / kStream);
+      mbar_arrive_expect_tx(resident, parts * kTileBf16);
+      for (int i = 0; i < parts; ++i)
+        tma_load_4d(sQ + i * kTileElems64, &hp.q, resident, 0,
+                    q0 + i * kStream, h, b);
+      FwdRing ring;
+      for (int j = 0; j < n_tiles; ++j) {
+        const int k0 = k_begin + j * kStream;
+        mbar_wait(&empty[ring.stage], ring.phase ^ 1);
+        mbar_arrive_expect_tx(&full[ring.stage], 2 * kTileBf16);
+        tma_load_4d(sK + ring.stage * kTileElems64, &hp.k, &full[ring.stage],
+                    0, k0, h, b);
+        tma_load_4d(sV + ring.stage * kTileElems64, &hp.v, &full[ring.stage],
+                    0, k0, h, b);
+        ring.advance();
+      }
+    }
+    return;
+  }
+
+  const int warp = tid >> 5, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int qw0 = q0 + wg * kStream;    // the warpgroup's first row
+  const int row = qw0 + warp * 16 + g;  // this lane's rows: row, row + 8
+  const float c = prm.scale * kLog2e;   // scores in log2 units
+  const uint64_t desc_q = desc_sw128(sQ + wg * kTileElems64);
+  // The warpgroup's live tiles form one run [j_lo, j_hi) (the band).
+  int j_lo = 0, j_hi = 0;
+  for (int j = n_tiles - 1; j >= 0; --j) {
+    if (tile_live(prm, qw0, k_begin + j * kStream)) {
+      if (j_hi == 0) j_hi = j + 1;
+      j_lo = j;
+    }
+  }
+
+  float o[32], s[32];
+  uint32_t pa[4][4] = {};
+#pragma unroll
+  for (int e = 0; e < 32; ++e) o[e] = s[e] = 0.f;
+  // Per row half: running max (log2 units), this thread's partial sum of
+  // p, and the last tile's rescale factor.
+  float m_run[2] = {kNegInf, kNegInf}, l_part[2] = {0.f, 0.f};
+  float alpha[2] = {1.f, 1.f};
+
+  if (wg == kConsumers - 1) pingpong_pass(wg);
+  mbar_wait(resident, 0);
+  FwdRing ring;
+  int j = 0;
+  for (; j < j_lo; ++j) pass_tile(ring, wg, full, empty, lane);
+  if (j_hi > j_lo) {
+    // The run's first tile: S alone, then (without kOverlap) its P V.
+    mbar_wait(&full[ring.stage], ring.phase);
+    pingpong_wait(wg);
+    issue_s(s, desc_q, sK + ring.stage * kTileElems64);
+    pingpong_pass(wg);
+    wgmma_wait<0>();
+    fence_regs(s);
+    online_softmax(s, m_run, l_part, alpha, prm, qw0, row,
+                   k_begin + j * kStream, t, c);
+    pack_acc_a(pa, s);
+    if (!kOverlap) {
+      issue_pv(o, pa, sV + ring.stage * kTileElems64);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      warp_release(&empty[ring.stage], lane);
+    }
+    int held = ring.stage;  // with kOverlap: the stage the pending P V reads
+    ring.advance();
+    for (++j; j < j_hi; ++j) {
+      mbar_wait(&full[ring.stage], ring.phase);
+      pingpong_wait(wg);
+      issue_s(s, desc_q, sK + ring.stage * kTileElems64);
+      if (kOverlap) {
+        rescale(o, alpha);
+        issue_pv(o, pa, sV + held * kTileElems64);
+      }
+      pingpong_pass(wg);
+      if (kOverlap)
+        wgmma_wait<1>();  // S; the previous P V runs on
+      else
+        wgmma_wait<0>();
+      fence_regs(s);
+      online_softmax(s, m_run, l_part, alpha, prm, qw0, row,
+                     k_begin + j * kStream, t, c);
+      if (kOverlap) {
+        wgmma_wait<0>();  // the previous P V
+        fence_regs(o);
+        fence_regs(pa);
+        warp_release(&empty[held], lane);
+      }
+      pack_acc_a(pa, s);
+      if (!kOverlap) {
+        // The product ends within the round: none of its registers is
+        // live under the next S, which keeps the warpgroup within the 96
+        // registers of two blocks per SM and clear of serialised wgmma
+        // (C7512).
+        rescale(o, alpha);
+        issue_pv(o, pa, sV + ring.stage * kTileElems64);
+        wgmma_wait<0>();
+        fence_regs(o);
+        fence_regs(pa);
+        warp_release(&empty[ring.stage], lane);
+      }
+      held = ring.stage;
+      ring.advance();
+    }
+    if (kOverlap) {
+      // The run's last P V, in the next round's turn when there is one.
+      const bool turn = j < n_tiles;
+      if (turn) {
+        mbar_wait(&full[ring.stage], ring.phase);
+        pingpong_wait(wg);
+      }
+      rescale(o, alpha);
+      issue_pv(o, pa, sV + held * kTileElems64);
+      if (turn) pingpong_pass(wg);
+      wgmma_wait<0>();
+      fence_regs(o);
+      fence_regs(pa);
+      warp_release(&empty[held], lane);
+      if (turn) {
+        warp_release(&empty[ring.stage], lane);
+        ring.advance();
+        ++j;
+      }
+    }
+  }
+  for (; j < n_tiles; ++j) pass_tile(ring, wg, full, empty, lane);
+  if (wg == 0) pingpong_wait(wg);
+
+  bf16* out = static_cast<bf16*>(prm.o) + b * prm.so.b + h * prm.so.h;
+#pragma unroll
+  for (int hh = 0; hh < 2; ++hh) {
+    float l = l_part[hh];
+    l += __shfl_xor_sync(0xffffffffu, l, 1);
+    l += __shfl_xor_sync(0xffffffffu, l, 2);
+    const int qi = row + 8 * hh;
+    if (qi >= Tlen) continue;
+    const float l_safe = fmaxf(l, 1e-30f);
+    bf16* orow = out + (long long)qi * prm.so.t + 2 * t;
+#pragma unroll
+    for (int j8 = 0; j8 < 8; ++j8)
+      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j8) = __floats2bfloat162_rn(
+          o[4 * j8 + 2 * hh] / l_safe, o[4 * j8 + 2 * hh + 1] / l_safe);
+    if (t == 0) {
+      prm.l[(long long)bh * Tlen + qi] = l;
+      prm.m[(long long)bh * Tlen + qi] = m_run[hh] * kLn2;
+    }
+  }
+}
+
+// The tensor maps and the launch of the wgmma kernel; a map the CUDA driver
+// refuses is an error, as a refused launch is.
+int launch_wgmma(const Params& prm, int B, cudaStream_t stream) {
+  FwdHopParams hp;
+  memset(&hp, 0, sizeof(hp));
+  const Strides* s[3] = {&prm.sq, &prm.sk, &prm.sv};
+  const void* base[3] = {prm.q, prm.k, prm.v};
+  CUtensorMap* maps[3] = {&hp.q, &hp.k, &hp.v};
+  for (int i = 0; i < 3; ++i)
+    if (!hopper::encode_rows_bf16(maps[i], base[i], s[i]->b, s[i]->h,
+                                  s[i]->t, B, prm.H, prm.T))
+      return (int)cudaErrorInvalidValue;
+  hp.prm = prm;
+  const int bytes = FwdHopSmem::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err != cudaSuccess) return (int)err;
+  const dim3 grid(B * prm.H, (prm.T + kOwned - 1) / kOwned);
+  flash_fwd_wgmma<<<grid, kFwdThreads, bytes, stream>>>(hp);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -447,9 +863,7 @@ int edl_flash_attention_fwd(const void* q, const void* k, const void* v,
   prm.so = {o_sb, o_sh, o_st};
   const dim3 grid(B * H, (T + kBQ - 1) / kBQ);
   if (dtype == 1) {
-    if (D == 64)
-      return launch(flash_fwd_bf16<64, 4>, Bf16Smem<64>::bytes, prm, grid,
-                    stream);
+    if (D == 64) return launch_wgmma(prm, B, stream);
     if (D == 128)
       return launch(flash_fwd_bf16<128, 1>, Bf16Smem<128>::bytes, prm, grid,
                     stream);

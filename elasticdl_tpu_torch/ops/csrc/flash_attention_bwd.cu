@@ -483,7 +483,7 @@ bwd_dkv_bf16(BwdParams prm) {
 // empty mbarrier.  No __syncthreads() in the loop.
 // ---------------------------------------------------------------------------
 
-constexpr int kWgThreads = 128;
+using hopper::kWgThreads;
 // Consumer warpgroups 0 and 1, then one producer warp.  ptxas compiles
 // these kernels within 168 registers a thread whether the producer is a
 // warp or a warpgroup that hands its registers to the consumers by
@@ -502,20 +502,6 @@ struct HopParams {
   CUtensorMap q, k, v, g;  // [B, H, T, 64] bf16: 64 x 64 boxes, swizzled
   BwdParams prm;
 };
-
-// Whether any (query, key) pair of the 64 queries at r0 and the 64 keys at
-// c0 is kept; a tile with none is neither loaded for nor multiplied.
-__device__ __forceinline__ bool tile_live(const BwdParams& prm, int r0,
-                                          int c0) {
-  if (r0 >= prm.T || c0 >= prm.T) return false;
-  if (!prm.causal) return true;
-  if (c0 > r0 + kStream - 1) return false;  // above the diagonal
-  return prm.window == 0 || r0 - (c0 + kStream - 1) < prm.window;
-}
-
-__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
-  return p + ((1024 - (hopper::smem_u32(p) & 1023)) & 1023);
-}
 
 // The row stats of the 64 rows of a warpgroup at qw0, two threads a row:
 // (m log2 e, 1 / max(l, 1e-30), delta, delta * scale) with delta =
@@ -559,55 +545,16 @@ __device__ __forceinline__ void wg_row_stats(const BwdParams& prm, int bh,
   }
 }
 
-// A consumer warp's arrival on a stage's empty barrier, once all its lanes
-// are done with the stage: one arrival per warp.
-__device__ __forceinline__ void warp_release(uint64_t* bar, int lane) {
-  __syncwarp();
-  if (lane == 0) hopper::mbar_arrive(bar);
-}
-
-// The calling thread's warpgroup (2: the producer warp), as a value the
-// compiler can see is the same across the warp, as the role branches
-// around the warp-collective wgmma and barrier instructions are.
-__device__ __forceinline__ int warpgroup_index() {
-  return __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
-}
-
-// This block's (batch * head, rank), rank 0 the heaviest.  Blocks launch
-// in groups of kHeadGroup heads, each group's heads at rank 0 first, then
-// rank 1, and so on: the heaviest go first within a group, and a group's
-// streamed tiles (16 heads x 512 KB at T = 2048) stay in L2 while its
-// blocks run, where heads outermost would reread them from memory.
-__device__ __forceinline__ void block_order(int* bh, int* rank) {
-  const int heads = gridDim.x, ranks = gridDim.y;
-  const int id = blockIdx.x + heads * blockIdx.y;  // launch order
-  const int group = id / (kHeadGroup * ranks);
-  const int n = min(kHeadGroup, heads - group * kHeadGroup);
-  const int rem = id - group * kHeadGroup * ranks;
-  *rank = rem / n;
-  *bh = group * kHeadGroup + rem % n;
-}
-
-// The ring's position, shared by the producer's and each consumer's walk.
-struct Ring {
-  int stage = 0;
-  uint32_t phase = 0;
-  __device__ __forceinline__ void advance() {
-    if (++stage == kHopStages) {
-      stage = 0;
-      phase ^= 1;
-    }
-  }
-};
+using HopRing = hopper::Ring<kHopStages>;
 
 // A consumer walks past `count` tiles it has no live pair in: it waits
 // for each (so it never runs a phase ahead) and releases it.
-__device__ __forceinline__ void skip_tiles(Ring& ring, int count,
+__device__ __forceinline__ void skip_tiles(HopRing& ring, int count,
                                            uint64_t* full, uint64_t* empty,
                                            int lane) {
   for (int i = 0; i < count; ++i) {
     hopper::mbar_wait(&full[ring.stage], ring.phase);
-    warp_release(&empty[ring.stage], lane);
+    hopper::warp_release(&empty[ring.stage], lane);
     ring.advance();
   }
 }
@@ -645,7 +592,7 @@ bwd_dq_wgmma(const __grid_constant__ HopParams hp) {
   const BwdParams& prm = hp.prm;
   const int Tlen = prm.T;
   int bh, rank;
-  block_order(&bh, &rank);
+  block_order<kHeadGroup>(&bh, &rank);
   const int q0 = (gridDim.y - 1 - rank) * kOwned;  // the last rows see most
   const int b = bh / prm.H, h = bh % prm.H;
   int k_begin = 0, k_end = Tlen;
@@ -679,7 +626,7 @@ bwd_dq_wgmma(const __grid_constant__ HopParams hp) {
         tma_load_4d(sG + i * kTileElems64, &hp.g, resident, 0,
                     q0 + i * kStream, h, b);
       }
-      Ring ring;
+      HopRing ring;
       for (int j = 0; j < n_tiles; ++j) {
         const int k0 = k_begin + j * kStream;
         mbar_wait(&empty[ring.stage], ring.phase ^ 1);
@@ -722,7 +669,7 @@ bwd_dq_wgmma(const __grid_constant__ HopParams hp) {
       }
     }
 
-    Ring ring;
+    HopRing ring;
     skip_tiles(ring, j_lo, full, empty, lane);
     mbar_wait(resident, 0);
     int held = 0;  // the stage the in-flight dQ product reads
@@ -832,7 +779,7 @@ bwd_dkv_wgmma(const __grid_constant__ HopParams hp) {
   const BwdParams& prm = hp.prm;
   const int Tlen = prm.T;
   int bh, rank;
-  block_order(&bh, &rank);
+  block_order<kHeadGroup>(&bh, &rank);
   const int k0 = rank * kOwned;  // causal: the first keys see the most
   const int b = bh / prm.H, h = bh % prm.H;
   int q_begin = 0, q_end = Tlen;
@@ -871,7 +818,7 @@ bwd_dkv_wgmma(const __grid_constant__ HopParams hp) {
       }
       const float4* rows =
           reinterpret_cast<const float4*>(prm.delta) + (long long)bh * Tlen;
-      Ring ring;
+      HopRing ring;
       for (int j = 0; j < n_tiles; ++j) {
         const int q0 = q_begin + j * kStream;
         float* st = sStats + ring.stage * L::kStats;
@@ -917,7 +864,7 @@ bwd_dkv_wgmma(const __grid_constant__ HopParams hp) {
     // the tile: carried into the next one, they and its S^T and dP^T
     // would need more registers than the warpgroup has, and ptxas would
     // serialise every wgmma.
-    Ring ring;
+    HopRing ring;
     skip_tiles(ring, j_lo, full, empty, lane);
     mbar_wait(resident, 0);
     for (int j = j_lo; j < j_hi; ++j) {

@@ -68,6 +68,33 @@ __device__ __forceinline__ bool tile_unmasked(const P& prm, int q0, int k0) {
   return prm.window == 0 || q0 + kBQ - 1 - k0 < prm.window;
 }
 
+// Whether any (query, key) pair of the 64 queries at r0 and the 64 keys at
+// c0 is kept; a tile with none is neither loaded for nor multiplied.
+template <typename P>
+__device__ __forceinline__ bool tile_live(const P& prm, int r0, int c0) {
+  if (r0 >= prm.T || c0 >= prm.T) return false;
+  if (!prm.causal) return true;
+  if (c0 > r0 + kBQ - 1) return false;  // above the diagonal
+  return prm.window == 0 || r0 - (c0 + kBK - 1) < prm.window;
+}
+
+// This block's (batch * head, rank) on a grid (heads, ranks), rank 0 the
+// heaviest.  Blocks launch in groups of kGroup heads, each group's heads at
+// rank 0 first, then rank 1, and so on: the heaviest go first within a
+// group, and a group's streamed tiles (16 heads x 512 KB at T = 2048) stay
+// in L2 while its blocks run, where heads outermost would reread them from
+// memory.
+template <int kGroup>
+__device__ __forceinline__ void block_order(int* bh, int* rank) {
+  const int heads = gridDim.x, ranks = gridDim.y;
+  const int id = blockIdx.x + heads * blockIdx.y;  // launch order
+  const int group = id / (kGroup * ranks);
+  const int n = min(kGroup, heads - group * kGroup);
+  const int rem = id - group * kGroup * ranks;
+  *rank = rem / n;
+  *bh = group * kGroup + rem % n;
+}
+
 // Whether query qi attends key kj; positions at or past T are never kept.
 template <typename P>
 __device__ __forceinline__ bool keep(const P& prm, int qi, int kj) {

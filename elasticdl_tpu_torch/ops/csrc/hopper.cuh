@@ -1,7 +1,9 @@
 // Hopper (sm_90a) building blocks for the port's warp-specialised kernels:
 // mbarriers, TMA tile loads, cp.async into an mbarrier, wgmma on
-// 128-byte-swizzled shared tiles, and the host-side encoding of TMA tensor
-// maps.  Used by flash_attention_bwd.cu.
+// 128-byte-swizzled shared tiles, named barriers, the ring of stages that
+// a producer warp fills for consumer warpgroups, and the host-side
+// encoding of TMA tensor maps.  Used by flash_attention.cu (the bf16
+// D = 64 forward) and flash_attention_bwd.cu (the bf16 D = 64 backward).
 //
 // Shared tiles are rows of exactly 128 bytes (64 bf16) that TMA writes
 // with CU_TENSOR_MAP_SWIZZLE_128B: the 16-byte chunk c of row r lands at
@@ -116,10 +118,57 @@ __device__ __forceinline__ float ex2(float x) {
 
 // ---- warpgroups -----------------------------------------------------------
 
+constexpr int kWgThreads = 128;
+
 // Barrier `id` (1-15; 0 is __syncthreads) over `threads` threads.
 __device__ __forceinline__ void named_barrier(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
+
+// The calling threads' arrival on barrier `id` without waiting: they count
+// among its `threads`, and the threads that named_barrier() on it go on
+// once all have come.
+__device__ __forceinline__ void named_barrier_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// The calling thread's warpgroup, as a value the compiler can see is the
+// same across the warp, as the role branches around the warp-collective
+// wgmma and barrier instructions are.
+__device__ __forceinline__ int warpgroup_index() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / kWgThreads, 0);
+}
+
+// ---- a ring of stages -----------------------------------------------------
+//
+// A producer warp fills a ring of shared-memory stages for consumer
+// warpgroups; each stage has a full barrier (the producer's TMA bytes) and
+// an empty one (one arrival per consumer warp).
+
+// Swizzled tiles start on 1024-byte boundaries.
+__device__ __forceinline__ unsigned char* align1024(unsigned char* p) {
+  return p + ((1024 - (smem_u32(p) & 1023)) & 1023);
+}
+
+// A consumer warp's arrival on a stage's empty barrier, once all its lanes
+// are done with the stage: one arrival per warp.
+__device__ __forceinline__ void warp_release(uint64_t* bar, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(bar);
+}
+
+// The ring's position, shared by the producer's and each consumer's walk.
+template <int kStages>
+struct Ring {
+  int stage = 0;
+  uint32_t phase = 0;
+  __device__ __forceinline__ void advance() {
+    if (++stage == kStages) {
+      stage = 0;
+      phase ^= 1;
+    }
+  }
+};
 
 // ---- wgmma ----------------------------------------------------------------
 

@@ -6,7 +6,10 @@ kernel, ``csrc/flash_attention.cu``, replaces the TPU kernel
 ``_flash_kernel`` (launched by ``_flash_forward``); the backward kernels,
 ``csrc/flash_attention_bwd.cu``, replace ``_bwd_dq_kernel`` and
 ``_bwd_dkv_kernel`` (launched by ``_pallas_bwd``).  Each source's header
-says what bounds it and how it splits the work across the card.
+says what bounds it and how it splits the work across the card; in both,
+bfloat16 at head_dim 64 (the flagship LM's attention) runs on wgmma fed
+by TMA, head_dim 128 and float32 on earlier designs, chosen by dtype and
+head_dim in the C entry points.
 
 Layout: [batch, heads, seq, head_dim], as in the JAX package.  The
 kernels take any strides with a contiguous last dim and write their

@@ -11,10 +11,13 @@ names and layouts.  A generation export (a manifest with a
 for a JAX ``export_generate`` export the caller passes ``generate=``)
 runs the zoo entry's ``generate_fn`` on each ``predict``.
 
+Inputs and outputs are one array or a tree (dicts, lists, tuples) of
+them, as the JAX servable takes and returns.
+
 Numerics: a float32 conv on the card runs through cuDNN in TF32 by
 default, and the JAX servable computes in float32.  Loading a servable
-onto a CUDA device therefore turns TF32 off for convs and matmuls in
-the process, so that served predictions keep float32 accuracy.
+changes no process-wide setting (as the JAX loader); the serving entry
+point (``serving/server.py:main``) turns TF32 off before it loads one.
 """
 
 import json
@@ -25,8 +28,8 @@ import torch
 
 from elasticdl_tpu_torch.models.spec import load_model_spec
 from elasticdl_tpu_torch.serving.export import FORMAT
-from elasticdl_tpu_torch.utils.device import (resolve_device,
-                                              use_float32_numerics)
+from elasticdl_tpu_torch.utils.device import resolve_device
+from elasticdl_tpu_torch.utils.pytree import tree_map
 
 JAX_FORMAT = "elasticdl_tpu_servable_v2"
 
@@ -110,8 +113,6 @@ class ServableModel:
             raise ValueError("zoo entry %r serves no generation" % (zoo[0],))
         with np.load(os.path.join(export_dir, "model.npz")) as z:
             named = {key: z[key] for key in z.files}
-        if self.device.type == "cuda":
-            use_float32_numerics()
         self.module = spec.init_fn(self.device)
         self.module.load_state_dict(spec.params_from_jax(named))
         self._apply = spec.apply_fn
@@ -119,15 +120,19 @@ class ServableModel:
         self.generate = dict(generate) if generate is not None else None
 
     def predict(self, inputs):
-        """Inputs matching ``manifest['input_signature']`` -> ndarray.
-        A generation export takes prompt ids [B, prompt_len] (or, when
-        it samples, ``{"prompt": ..., "seed": s}``) and answers prompt +
-        generated ids [B, prompt_len + max_new_tokens] int32."""
+        """Inputs matching ``manifest['input_signature']`` (an array, or
+        a tree of them) -> the module's outputs as ndarrays, in the same
+        tree.  A generation export takes prompt ids [B, prompt_len] (or,
+        when it samples, ``{"prompt": ..., "seed": s}``) and answers
+        prompt + generated ids [B, prompt_len + max_new_tokens] int32."""
         with torch.inference_mode():
             if self.generate is not None:
                 return self._predict_generate(inputs)
-            x = torch.as_tensor(np.asarray(inputs), device=self.device)
-            return self._apply(self.module, x, False).cpu().numpy()
+            x = tree_map(lambda a: torch.as_tensor(np.asarray(a),
+                                                   device=self.device),
+                         inputs)
+            return tree_map(lambda t: t.cpu().numpy(),
+                            self._apply(self.module, x, False))
 
     def _predict_generate(self, inputs):
         settings = self.generate

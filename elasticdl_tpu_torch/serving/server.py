@@ -17,9 +17,12 @@ Responses use HTTP/1.1 keep-alive and TCP_NODELAY.
 
 The model runs on the card unless the caller asks for the CPU
 (``ModelEndpoint(..., device="cpu")``; the CLI reads
-``ELASTICDL_TORCH_DEVICE``).  Predictions are computed in float32 with
-TF32 off (see serving/loader.py); a generation export answers token ids
-(int32), computed in its config's dtype.  Each request runs one
+``ELASTICDL_TORCH_DEVICE``).  The CLI turns TF32 off for the process
+(``utils.device.use_float32_numerics``) before it loads the model, so
+predictions are computed in float32; a library caller sets the numerics
+it wants.  A generation export answers token ids (int32), computed in
+its config's dtype.  Predictions are any tree of arrays the model
+returns, written as JSON by ``_jsonable``.  Each request runs one
 ``predict``, serialized by an execution lock; request batching, the
 fleet barrier, binary frames, ``:lookup``, drain and SLO surfaces are
 not ported yet.
@@ -41,6 +44,7 @@ from elasticdl_tpu_torch.serving.loader import (
     resolve_export_dir,
 )
 from elasticdl_tpu_torch.utils.args import build_serving_parser
+from elasticdl_tpu_torch.utils.device import use_float32_numerics
 from elasticdl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -67,6 +71,24 @@ def _marshal(rows, signature):
                          % sorted(signature))
     return {key: _marshal_leaf(rows[key], sub, key)
             for key, sub in signature.items()}
+
+
+def _jsonable(outputs):
+    """Model output tree (array | tuple | list | dict) -> JSON: ndarray
+    leaves by one ``.tolist()``, numpy scalars by ``.item()``, plain
+    scalars and strings as they are, anything else through
+    ``np.asarray``."""
+    if isinstance(outputs, np.ndarray):
+        return outputs.tolist()
+    if isinstance(outputs, np.generic):
+        return outputs.item()
+    if isinstance(outputs, dict):
+        return {k: _jsonable(v) for k, v in outputs.items()}
+    if isinstance(outputs, (list, tuple)):
+        return [_jsonable(v) for v in outputs]
+    if outputs is None or isinstance(outputs, (bool, int, float, str)):
+        return outputs
+    return np.asarray(outputs).tolist()
 
 
 class ModelEndpoint:
@@ -152,7 +174,7 @@ class ModelEndpoint:
         with self._lock:
             # elint: disable=EL006 -- one predict at a time on the card
             outputs = model.predict(inputs)
-        return {"predictions": outputs.tolist(),
+        return {"predictions": _jsonable(outputs),
                 "model_version": int(model.manifest.get("version", 0) or 0)}
 
 
@@ -237,6 +259,7 @@ def build_server(endpoints, port=0, host="127.0.0.1"):
 def main(argv=None):
     args = build_serving_parser().parse_args(argv)
     device = os.environ.get("ELASTICDL_TORCH_DEVICE", "cuda")
+    use_float32_numerics()
     endpoint = ModelEndpoint(args.export_dir, name=args.model_name,
                              poll_interval=args.poll_interval,
                              device=device)

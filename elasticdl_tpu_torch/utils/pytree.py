@@ -1,11 +1,32 @@
 """Nested-dict <-> flat named-dict bridges (counterpart of
-``elasticdl_tpu/utils/pytree.py:19-42``).
+``elasticdl_tpu/utils/pytree.py:19-42``), and the two tree walks the
+trainer and the servable need for pytree features (``tree_leaves``,
+``tree_map``; ``jax.tree_util``'s, for trees of dicts, lists and tuples).
 
 JAX flattens a dict in sorted-key order and joins the path with ``/``;
 a recursive walk over sorted keys gives the same names for flax param
 dicts (``Bottleneck_3/Conv_1/kernel``), so checkpoints and exports name
 their tensors identically in both packages.
 """
+
+
+def tree_leaves(tree):
+    """The leaves of a tree of dicts, lists and tuples in JAX's order
+    (a dict's keys sorted); anything else is a leaf."""
+    if isinstance(tree, dict):
+        return [leaf for key in sorted(tree) for leaf in tree_leaves(tree[key])]
+    if isinstance(tree, (list, tuple)):
+        return [leaf for sub in tree for leaf in tree_leaves(sub)]
+    return [tree]
+
+
+def tree_map(fn, tree):
+    """``fn`` applied to every leaf of ``tree``, its structure kept."""
+    if isinstance(tree, dict):
+        return {key: tree_map(fn, sub) for key, sub in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, sub) for sub in tree)
+    return fn(tree)
 
 import numpy as np
 

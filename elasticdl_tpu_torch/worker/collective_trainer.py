@@ -7,7 +7,8 @@ JAX trainer:
 
  - padding to a static batch with a loss mask (``_masked_mean``,
    ``_pad_batch``), so a partial minibatch trains on the same shapes as
-   a full one;
+   a full one; features and labels may be one array or a tree (dicts,
+   lists, tuples) of them, every leaf padded alike;
  - gradient accumulation (``accum_steps``): the minibatch is split into
    ``accum`` microbatches, their gradients are summed and divided by
    ``accum``, as the JAX trainer's ``lax.scan`` does; here the scan is a
@@ -53,6 +54,7 @@ import torch
 from elasticdl_tpu_torch.models.spec import jax_name
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.logging import get_logger
+from elasticdl_tpu_torch.utils.pytree import tree_leaves, tree_map
 from elasticdl_tpu_torch.utils.timing import Timing
 from elasticdl_tpu_torch.worker.trainer import Trainer
 
@@ -74,18 +76,20 @@ def _pad_rows(t, rows):
     return torch.cat([t, t.new_zeros((rows - t.shape[0],) + t.shape[1:])])
 
 
-def _pad_batch(leaves, batch_size):
-    """Pad every leaf to batch_size rows; returns (padded, weights)."""
-    n = leaves[0].shape[0]
+def _pad_batch(tree, batch_size):
+    """Pad every leaf of ``tree`` (a tensor, or a tree of dicts, lists
+    and tuples of them) to batch_size rows; returns (padded, weights)."""
+    first = tree_leaves(tree)[0]
+    n = first.shape[0]
     if n > batch_size:
         raise ValueError(
             "minibatch has %d records > trainer's global batch %d"
             % (n, batch_size)
         )
     weights = torch.zeros(batch_size, dtype=torch.float32,
-                          device=leaves[0].device)
+                          device=first.device)
     weights[:n] = 1.0
-    return [_pad_rows(leaf, batch_size) for leaf in leaves], weights
+    return tree_map(lambda leaf: _pad_rows(leaf, batch_size), tree), weights
 
 
 # Adam and AdamW keep the same slots; whether AdamW subclasses Adam
@@ -213,8 +217,10 @@ class CollectiveTrainer(Trainer):
         else:
             loss = 0.0
             for i in range(accum):
+                micro_features, micro_labels = tree_map(
+                    lambda leaf: leaf[i], (features, labels))
                 loss = loss + self._loss_and_grads(
-                    features[i], labels[i], weights[i])
+                    micro_features, micro_labels, weights[i])
             for p in self._module.parameters():
                 if p.grad is not None:
                     p.grad.div_(accum)
@@ -228,15 +234,17 @@ class CollectiveTrainer(Trainer):
         """Batch prep on the trainer's device: pad to the static batch
         (with the loss mask) and reshape for accumulation."""
         with self.timing.timeit("batch_prep"):
-            leaves = [self._as_tensor(features), self._as_tensor(labels)]
-            n = int(leaves[0].shape[0])
+            batch = tree_map(self._as_tensor, (features, labels))
+            n = int(tree_leaves(batch)[0].shape[0])
             accum, micro = self._accum_steps, self._batch_size
-            leaves, weights = _pad_batch(leaves, accum * micro)
+            batch, weights = _pad_batch(batch, accum * micro)
             if accum > 1:
-                leaves = [leaf.reshape((accum, micro) + tuple(leaf.shape[1:]))
-                          for leaf in leaves]
+                batch = tree_map(
+                    lambda leaf: leaf.reshape((accum, micro)
+                                              + tuple(leaf.shape[1:])),
+                    batch)
                 weights = weights.reshape(accum, micro)
-        return PreparedBatch(leaves[0], leaves[1], weights,
+        return PreparedBatch(batch[0], batch[1], weights,
                              n if count is None else count)
 
     def train_minibatch(self, features, labels):
@@ -260,13 +268,13 @@ class CollectiveTrainer(Trainer):
             self.save_checkpoint()
 
     def _forward(self, features):
-        n = int(np.shape(features)[0])
-        (padded,), _ = _pad_batch([self._as_tensor(features)],
-                                  self._batch_size)
+        features = tree_map(self._as_tensor, features)
+        n = int(tree_leaves(features)[0].shape[0])
+        padded, _ = _pad_batch(features, self._batch_size)
         self._module.eval()
         with torch.inference_mode():
             out = self._spec.apply_fn(self._module, padded, False)
-        return out[:n].float().cpu().numpy()
+        return tree_map(lambda t: t[:n].float().cpu().numpy(), out)
 
     def evaluate_minibatch(self, features, labels):
         return self._forward(features), np.asarray(labels)

@@ -5,18 +5,33 @@ dq and B5 dk/dv, ``--kernel bwd``).  Needs one NVIDIA card.  Run from the
 root of a checkout:
 
     python3 scripts/sweep_flash_attention.py [--kernel fwd|bwd] [--rounds 2]
+    python3 scripts/sweep_flash_attention.py --ablate
     python3 scripts/sweep_flash_attention.py --kernel bwd --ablate
 
 Each variant is the committed source (``elasticdl_tpu_torch/ops/csrc/
 flash_attention.cu`` or ``flash_attention_bwd.cu``) with one design choice
 changed by textual substitutions (every occurrence of a pattern that must
-occur).  Forward:
+occur).  Forward (B3; bf16 D=64 is the wgmma kernel, the flagship LM's
+path):
 
- - ``committed``: the source as it is;
- - ``min_blocks_1``: no register cap for D=64 (the compiler's choice,
-   fewer blocks per SM);
- - ``q_tiles_fastest``: the grid's fastest axis runs the q tiles of one
-   head instead of the heads.
+ - ``committed``: the source as it is (128-row blocks of two consumer
+   warpgroups and a producer warp, two blocks per SM, a ring of 4
+   stages, blocks launched in groups of 16 heads, each warpgroup's S ->
+   softmax -> P V chain serial);
+ - ``mma_sync``: bf16 D=64 dispatched to the earlier mma.sync kernel
+   (``flash_fwd_bf16<64, 4>``, 64-row blocks, four blocks per SM), the
+   design this one replaced, timed in the same call;
+ - ``stages_2``, ``stages_3``, ``stages_6``: a ring of 2, 3 or 6 stages;
+ - ``group_8``, ``group_32``: groups of 8 or 32 heads;
+ - ``pingpong``: the warpgroups issue their products in turns (named
+   barriers), so one's softmax runs under the other's wgmma;
+ - ``overlap``: each warpgroup issues tile j's S before tile j - 1's
+   P V and runs tile j's softmax under that product;
+ - ``pingpong_overlap``: both (the scheduling of FlashAttention-3);
+ - ``one_block``: the registers of one block per SM (ptxas then takes
+   103), and ``overlap_one_block``, the overlap with room for it;
+ - ``consumers_3``, ``consumers_4``: one block per SM of 192 or 256 rows,
+   3 or 4 consumer warpgroups (fewer K/V rereads from L2).
 
 Backward (bf16, D=64, the path the flagship LM trains on):
 
@@ -27,9 +42,10 @@ Backward (bf16, D=64, the path the flagship LM trains on):
  - ``heads_fastest``: one group of every head, i.e. each rank across all
    heads before the next rank (the order of the mma.sync kernels).
 
-``--ablate`` (backward only) times the committed kernels beside variants
-that each remove one part of the work, to see what bounds them; their
-outputs are wrong by construction, so they are timed and not checked:
+``--ablate`` times the committed wgmma kernels (forward, or backward)
+beside variants that each remove one part of the work, to see what
+bounds them; their outputs are wrong by construction, so they are timed
+and not checked:
 
  - ``no_exp2``: the exp2 of p replaced by the identity;
  - ``one_warpgroup``: only consumer warpgroup 0 computes (half the rows);
@@ -53,6 +69,7 @@ import ctypes
 import functools
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -66,17 +83,38 @@ import chip_smoke  # noqa: E402
 from elasticdl_tpu_torch.ops import build  # noqa: E402
 from elasticdl_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
+_FWD_STAGES = "constexpr int kFwdStages = 4;"
+_FWD_GROUP = "constexpr int kFwdHeadGroup = 16;"
+_ONE_BLOCK = ("__launch_bounds__(kFwdThreads, 2)",
+              "__launch_bounds__(kFwdThreads, 1)")
+_PINGPONG = ("constexpr bool kPingPong = false;",
+             "constexpr bool kPingPong = true;")
+_OVERLAP = ("constexpr bool kOverlap = false;",
+            "constexpr bool kOverlap = true;")
+
+
+def _consumers(n):     # one block of n consumer warpgroups per SM
+    return [("constexpr int kConsumers = 2;",
+             "constexpr int kConsumers = %d;" % n), _ONE_BLOCK]
+
+
 FWD_VARIANTS = {
     "committed": [],
-    "min_blocks_1": [("flash_fwd_bf16<64, 4>", "flash_fwd_bf16<64, 1>")],
-    "q_tiles_fastest": [
-        ("  const int bh = blockIdx.x;\n"
-         "  const int q0 = (gridDim.y - 1 - blockIdx.y) * kBQ;\n",
-         "  const int bh = blockIdx.y;\n"
-         "  const int q0 = (gridDim.x - 1 - blockIdx.x) * kBQ;\n"),
-        ("const dim3 grid(B * H, (T + kBQ - 1) / kBQ);",
-         "const dim3 grid((T + kBQ - 1) / kBQ, B * H);"),
-    ],
+    "mma_sync": [("if (D == 64) return launch_wgmma(prm, B, stream);",
+                  "if (D == 64)\n      return launch(flash_fwd_bf16<64, 4>, "
+                  "Bf16Smem<64>::bytes, prm, grid, stream);")],
+    "stages_2": [(_FWD_STAGES, _FWD_STAGES.replace("4", "2"))],
+    "stages_3": [(_FWD_STAGES, _FWD_STAGES.replace("4", "3"))],
+    "stages_6": [(_FWD_STAGES, _FWD_STAGES.replace("4", "6"))],
+    "group_8": [(_FWD_GROUP, _FWD_GROUP.replace("16", "8"))],
+    "group_32": [(_FWD_GROUP, _FWD_GROUP.replace("16", "32"))],
+    "pingpong": [_PINGPONG],
+    "overlap": [_OVERLAP],
+    "pingpong_overlap": [_PINGPONG, _OVERLAP],
+    "one_block": [_ONE_BLOCK],
+    "overlap_one_block": [_OVERLAP, _ONE_BLOCK],
+    "consumers_3": _consumers(3),
+    "consumers_4": _consumers(4),
 }
 _STAGES = "constexpr int kHopStages = 4;"
 _GROUP = "constexpr int kHeadGroup = 16;"
@@ -110,22 +148,36 @@ __device__ __forceinline__ void ablated_mma(float (&d)[32],
 }
 }
 """
+_NO_EXP2 = [("ex2(", "ex2_ablated("), (_INCLUDE, _INCLUDE + (
+    "namespace { __device__ __forceinline__ float ex2_ablated(float x) "
+    "{ return x; } }\n"))]
+_NO_MMA = [("wgmma_ss(", "ablated_mma("), ("wgmma_rs_mn(", "ablated_mma("),
+           (_INCLUDE, _INCLUDE + _ABLATED_MMA)]
+FWD_ABLATIONS = {     # the forward's live-tile test is B4's, word for word
+    "committed": [],
+    "no_exp2": _NO_EXP2,
+    "one_warpgroup": [(_B4_LIVE, _B4_LIVE.replace("if (", "if (wg == 0 && "))],
+    "no_mma": _NO_MMA,
+    "no_consume": [(_B4_LIVE, _B4_LIVE.replace("if (", "if (false && "))],
+}
 BWD_ABLATIONS = {
     "committed": [],
-    "no_exp2": [("ex2(", "ex2_ablated("), (_INCLUDE, _INCLUDE + (
-        "namespace { __device__ __forceinline__ float ex2_ablated(float x) "
-        "{ return x; } }\n"))],
+    "no_exp2": _NO_EXP2,
     "one_warpgroup": [(_B4_LIVE, _B4_LIVE.replace("if (", "if (wg == 0 && ")),
                       (_B5_LIVE, _B5_LIVE.replace("if (", "if (wg == 0 && "))],
-    "no_mma": [("wgmma_ss(", "ablated_mma("), ("wgmma_rs_mn(", "ablated_mma("),
-               (_INCLUDE, _INCLUDE + _ABLATED_MMA)],
+    "no_mma": _NO_MMA,
     "no_consume": [(_B4_LIVE, _B4_LIVE.replace("if (", "if (false && ")),
                    (_B5_LIVE, _B5_LIVE.replace("if (", "if (false && "))],
 }
-# (B, H, T, D, dtype): the flagship long prefill in both dtypes, head_dim
-# 128, and the served prompt; all causal.
-FWD_SHAPES = [(8, 16, 2048, 64, "bfloat16"), (8, 16, 2048, 64, "float32"),
-              (4, 8, 2048, 128, "bfloat16"), (8, 16, 128, 64, "bfloat16")]
+# (B, H, T, D, dtype, causal, window): the flagship long prefill in both
+# dtypes, head_dim 128 at the same FLOPs, the served prompt, and the
+# other masks at a cut batch.  --ablate times the bf16 D=64 ones.
+FWD_SHAPES = [(8, 16, 2048, 64, "bfloat16", True, 0),
+              (8, 16, 2048, 64, "float32", True, 0),
+              (8, 8, 2048, 128, "bfloat16", True, 0),
+              (8, 16, 128, 64, "bfloat16", True, 0),
+              (2, 16, 2048, 64, "bfloat16", False, 0),
+              (2, 16, 2048, 64, "bfloat16", True, 256)]
 # (B, H, T, D, causal, window), bf16: the flagship training shape, and
 # the backward's other masks at a cut batch.
 BWD_SHAPES = [(8, 16, 2048, 64, True, 0), (2, 16, 2048, 64, False, 0),
@@ -162,35 +214,62 @@ def build_variants(name, variants, out_dir):
         text = proc.communicate()[0].decode(errors="replace")
         if proc.returncode:
             raise SystemExit("nvcc failed for %s:\n%s" % (variant, text))
-        built[variant] = (lib, [line.strip() for line in text.splitlines()
-                                if "registers" in line or "spill" in line or "C75" in line])
+        built[variant] = (lib, [_ptxas_line(line) for line in text.splitlines()
+                                if any(key in line for key in (
+                                    "entry function", "registers", "spill",
+                                    "C75"))])
     return built
 
 
-def fwd_cases(gen, dev):
+def _ptxas_line(line):
+    """A ptxas line with each mangled kernel name cut to the kernel's
+    own (``flash_fwd_wgmma``, ``flash_fwd_bf16<128, 1>``, ...)."""
+    def short(match):
+        name = re.search(r"(flash_fwd_[a-z0-9]+|bwd_[a-z]+_[a-z0-9]+)"
+                         r"(?:ILi(\d+)ELi(\d+)E)?", match.group(0))
+        if name is None:
+            return match.group(0)
+        args = [a for a in name.groups()[1:] if a]
+        return name.group(1) + ("<%s>" % ", ".join(args) if args else "")
+    return re.sub(r"_Z\w+", short, line.replace("ptxas info    : ", "")
+                  .strip())
+
+
+def fwd_cases(gen, dev, ablate=False):
     cases = []
-    for B, H, T, D, name in FWD_SHAPES:
+    for B, H, T, D, name, causal, window in FWD_SHAPES:
+        if ablate and (D, name) != (64, "bfloat16"):
+            continue
         q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
             getattr(torch, name)) for _ in range(3))
-        ref = fa._flash_ref(q, k, v, True, D ** -0.5)
-        cases.append(("%dx%dx%dx%d %s" % (B, H, T, D, name), (q, k, v, ref)))
+        ref = fa._flash_ref(q, k, v, causal, D ** -0.5, window)
+        label = "%dx%dx%dx%d %s causal=%s window=%d" % (B, H, T, D, name,
+                                                        causal, window)
+        cases.append((label, (q, k, v, causal, window, name, ref)))
     return cases
 
 
-def fwd_check_and_time(variant, label, case, flush):
-    q, k, v, ref = case
-    got = fa.flash_forward(q, k, v)
-    torch.cuda.synchronize()
-    atol, rtol = chip_smoke.FLASH_TOL[label.split()[-1]]
-    chip_smoke.check_close("%s %s" % (variant, label), got[0], ref[0], atol,
-                           rtol)
-    chip_smoke.check_close("%s %s l" % (variant, label), got[1], ref[1],
-                           0.0, 2e-5)
-    return {"ms": chip_smoke.time_ms(
-        torch, lambda: fa.flash_forward(q, k, v), flush)}
+def fwd_check_and_time(variant, label, case, flush, check=True):
+    """The kernel against ``_flash_ref`` under chip_smoke.py's gate (out,
+    l and m; unless ``check`` is false: the ablations), then its time."""
+    q, k, v, causal, window, name, ref = case
+    call = functools.partial(fa.flash_forward, q, k, v, causal=causal,
+                             window=window)
+    if check:
+        got = call()
+        torch.cuda.synchronize()
+        atol, rtol = chip_smoke.FLASH_TOL[name]
+        what = "%s %s" % (variant, label)
+        chip_smoke.check_close(what, got[0], ref[0], atol, rtol)
+        s_max = float((torch.matmul(q.float(), k.float().transpose(-1, -2))
+                       * q.shape[-1] ** -0.5).abs().max())
+        chip_smoke.check_close(what + " m", got[2], ref[2], 1e-5 * s_max,
+                               0.0)
+        chip_smoke.check_close(what + " l", got[1], ref[1], 0.0, 2e-5)
+    return {"ms": chip_smoke.time_ms(torch, call, flush)}
 
 
-def bwd_cases(gen, dev):
+def bwd_cases(gen, dev, ablate=False):
     cases = []
     for B, H, T, D, causal, window in BWD_SHAPES:
         q, k, v, g = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
@@ -234,9 +313,9 @@ def bwd_check_and_time(variant, label, case, flush, check=True):
 
 MODES = {
     "fwd": ("flash_attention", FWD_VARIANTS, fwd_cases, fwd_check_and_time,
-            "_library", fa._bind),
+            "_library", fa._bind, FWD_ABLATIONS),
     "bwd": ("flash_attention_bwd", BWD_VARIANTS, bwd_cases,
-            bwd_check_and_time, "_bwd_library", fa._bind_bwd),
+            bwd_check_and_time, "_bwd_library", fa._bind_bwd, BWD_ABLATIONS),
 }
 
 
@@ -245,17 +324,15 @@ def main():
     parser.add_argument("--kernel", choices=sorted(MODES), default="fwd")
     parser.add_argument("--rounds", type=int, default=2)
     parser.add_argument("--ablate", action="store_true",
-                        help="backward: time the ablations (unchecked)")
+                        help="time the ablations (unchecked)")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
-    source, variants, make_cases, check_and_time, attr, bind = MODES[
-        args.kernel]
+    (source, variants, make_cases, check_and_time, attr, bind,
+     ablations) = MODES[args.kernel]
     if args.ablate:
-        if args.kernel != "bwd":
-            raise SystemExit("--ablate is for --kernel bwd")
-        variants = BWD_ABLATIONS
-        check_and_time = functools.partial(bwd_check_and_time, check=False)
+        variants = ablations
+        check_and_time = functools.partial(check_and_time, check=False)
     print(chip_smoke.nvidia_smi_line())
     built = build_variants(source, variants,
                            os.path.join(build.BUILD_DIR, "sweep"))
@@ -265,7 +342,7 @@ def main():
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(5)
     flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
-    cases = make_cases(gen, dev)
+    cases = make_cases(gen, dev, args.ablate)
     loader = getattr(fa, attr)
     times = {name: {label: {} for label, _ in cases} for name in libs}
     try:

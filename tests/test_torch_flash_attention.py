@@ -156,3 +156,59 @@ def test_cuda_path_refuses_what_the_kernel_does_not_take():
                                v.transpose(-1, -2))
     with pytest.raises(ValueError, match="cuda or cpu"):
         tfa.flash_attention(q.to("meta"), k.to("meta"), v.to("meta"))
+
+
+def _kernel_sources(main):
+    """``csrc/<main>`` and the headers it includes, comments stripped."""
+    import os
+    import re
+
+    from elasticdl_tpu_torch.ops import build
+
+    with open(os.path.join(build.CSRC, main)) as f:
+        names = [main] + re.findall(r'#include "([^"]+)"', f.read())
+    code = {}
+    for name in names:
+        with open(os.path.join(build.CSRC, name)) as f:
+            text = re.sub(r"/\*.*?\*/", "", f.read(), flags=re.S)
+        code[name] = re.sub(r"//[^\n]*", "", text)
+    return code
+
+
+def test_forward_source_has_no_atomics():
+    """B3 is deterministic by construction: no atomic operation (CUDA's
+    atomic* functions, PTX atom.* or red.*) in its source or the headers
+    it includes."""
+    import re
+
+    code = _kernel_sources("flash_attention.cu")
+    assert set(code) >= {"flash_attention.cu", "flash_common.cuh",
+                         "hopper.cuh"}
+    for name, text in code.items():
+        assert not re.search(r"atomic|\batom\.|\bred\.", text, re.I), name
+
+
+def test_flagship_forward_dispatches_to_the_wgmma_kernel():
+    """bf16 at head_dim 64 (the flagship LM's attention) reaches the kernel
+    built on wgmma and TMA; bf16 at head_dim 128 keeps the mma.sync
+    kernel and float32 the FMA kernels: a dispatch by dtype and D, with
+    an error for anything else."""
+    import re
+
+    body = _kernel_sources("flash_attention.cu")["flash_attention.cu"]
+    entry = body[body.index("int edl_flash_attention_fwd("):]
+    bf16 = entry[entry.index("if (dtype == 1) {"):]
+    assert re.match(r"if \(dtype == 1\) \{\s*if \(D == 64\) return "
+                    r"launch_wgmma\(prm, B, stream\);", bf16)
+    assert "flash_fwd_bf16<128, 1>" in bf16[:bf16.index("}")]
+    f32 = entry[entry.index("if (dtype == 0) {"):]
+    f32 = f32[:f32.index("}")]
+    assert "flash_fwd_f32<64>" in f32 and "flash_fwd_f32<128>" in f32
+    assert "return (int)cudaErrorInvalidValue;" in entry
+    launcher = body[body.index("int launch_wgmma("):]
+    launcher = launcher[:launcher.index("\n}\n")]
+    assert "flash_fwd_wgmma<<<" in launcher
+    assert "encode_rows_bf16" in launcher
+    for op in ("wgmma_ss(", "wgmma_rs_mn(", "tma_load_4d(",
+               "named_barrier_arrive("):
+        assert op in body, op

@@ -270,9 +270,9 @@ def test_sweep_variants_apply_to_the_committed_sources():
         import sweep_flash_attention as sweep
     finally:
         sys.path.pop(0)
-    tables = [(source, variants)
-              for source, variants, *_ in sweep.MODES.values()]
-    tables.append(("flash_attention_bwd", sweep.BWD_ABLATIONS))
+    tables = []
+    for source, variants, *_, ablations in sweep.MODES.values():
+        tables += [(source, variants), (source, ablations)]
     for source, variants in tables:
         with open(os.path.join(build.CSRC, source + ".cu")) as f:
             text = f.read()

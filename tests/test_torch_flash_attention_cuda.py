@@ -84,9 +84,45 @@ def check(q, k, v, causal, window=0):
     ((2, 2, 384, 64), True, 40),        # window inside one tile
     ((1, 2, 640, 128), True, 200),      # window across tiles
     ((1, 1, 1, 64), True, 0),           # one position
+    # the edges of the bf16 D=64 kernel's blocks (256 rows, 128 in two-
+    # warpgroup builds) and 64-row tiles
+    ((2, 4, 1, 64), False, 0),
+    ((2, 4, 127, 64), True, 0),
+    ((2, 4, 127, 64), False, 0),
+    ((2, 4, 129, 64), True, 0),
+    ((2, 4, 129, 64), False, 0),
+    ((2, 4, 255, 64), True, 0),
+    ((2, 4, 257, 64), False, 0),
+    ((2, 4, 2048, 64), True, 64),       # a window of one tile
+    ((2, 4, 2048, 64), True, 128),      # and of two
 ])
 def test_kernel_matches_plain(card, shape, causal, window, dtype):
     check(*_qkv(shape, card, dtype), causal=causal, window=window)
+
+
+def test_ring_views_across_block_edges(card):
+    """The ring layout's transposed views at a T that ends inside a
+    128-row block, causal with windows of one and two tiles and without,
+    and non-causal: out is written with q's strides, rows past T
+    untouched."""
+    q, k, v = _qkv((2, 300, 4, 64), card, torch.bfloat16, seed=11)
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    for causal, window in ((True, 0), (True, 64), (True, 128),
+                           (False, 0)):
+        check(qt, kt, vt, causal=causal, window=window)
+        out = fa.flash_forward(qt, kt, vt, causal=causal, window=window)[0]
+        assert out.stride() == qt.stride()
+
+
+def test_forward_is_bitwise_deterministic(card):
+    """The flagship long prefill (B x H = 128 heads, 16 blocks each): out,
+    l and m of two runs give the same bits; every output row has one
+    owner."""
+    q, k, v = _qkv((8, 16, 2048, 64), card, torch.bfloat16, seed=12)
+    first = fa.flash_forward(q, k, v)
+    for _ in range(2):
+        for a, b in zip(first, fa.flash_forward(q, k, v)):
+            assert torch.equal(a, b)
 
 
 def test_ring_layout_views_take_no_copy(card):
