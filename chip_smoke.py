@@ -13,15 +13,18 @@ Phases, in order; any failure exits non-zero:
     plain PyTorch version at every GroupNorm shape of ResNet-50, at the
     served batch (4) and at batch 32 in float32 and bfloat16 and at
     bench.py's batch (128) in bfloat16, ReLU off and on, plus a
-    large-mean case; then, at batch 32 and per shape, the kernel's time,
-    the plain version's, F.group_norm's (a yardstick the port never
-    calls) and the bound;
+    large-mean case; then, per shape at batch 32 in both dtypes and at
+    batch 128 in bfloat16, the kernel's time, the plain version's,
+    F.group_norm's (a yardstick the port never calls) and the bound,
+    summed over the 53 calls of a forward with the share of the bound
+    reached;
  4. backward kernel against plain: the GroupNorm backward (B2) against
     its plain version (``_bwd_ref``) at every shape, at batch 32 in
     float32 and bfloat16 and at batch 128 in bfloat16, ReLU as the model
     uses it; two runs must be bitwise equal; then per shape at batch 32
-    the kernel's time, the plain version's, the backward alone of
-    F.group_norm + ReLU through autograd, and the bound;
+    in both dtypes and at batch 128 in bfloat16 the kernel's time, the
+    plain version's, the backward alone of F.group_norm + ReLU through
+    autograd, and the bound, summed over the 53 calls of a step;
  5. serving: TF32 off, as the serving entry point turns it off; a seeded
     ResNet-50 (224x224x3 in, 1000 classes) is exported with the port's
     exporter, served by the port's HTTP server on the card, and answers
@@ -382,27 +385,42 @@ def bound(B, HW, C, esize, backward=False):
             "bound_by": "bytes" if bytes_ms >= ops_ms else "operations"}
 
 
-def add_row(rows, totals, row, count):
+# (batch, dtype) of the GroupNorm kernels' timed sums, and the key of
+# each in the totals: the kernel table's batch in both dtypes, and
+# bench.py's training setting (batch 128, bf16 compute).
+GN_TIMED = ((BATCH, "float32", "float32"), (BATCH, "bfloat16", "bfloat16"),
+            (BENCH_BATCH, "bfloat16", "bfloat16 b128"))
+
+
+def add_row(rows, totals, key, row, count):
     rows.append(row)
-    for key in totals[row["dtype"]]:
-        totals[row["dtype"]][key] += count * row[key]
+    for part in totals[key]:
+        totals[key][part] += count * row[part]
 
 
 def new_totals():
-    return {name: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
-                   "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
-            for name in ("float32", "bfloat16")}
+    return {key: {"ms": 0.0, "plain_ms": 0.0, "library_ms": 0.0,
+                  "bound_ms": 0.0, "bytes_ms": 0.0, "ops_ms": 0.0}
+            for _, _, key in GN_TIMED}
 
 
 def finish_totals(totals):
     for tot in totals.values():
         tot["bound_by"] = ("bytes" if tot["bytes_ms"] >= tot["ops_ms"]
                            else "operations")
+        tot["share_of_bound"] = tot["bound_ms"] / tot["ms"]
+
+
+def gn_sums(tot):
+    """One timed sum of a GroupNorm kernel, as the kernels line gives
+    it."""
+    return {key: tot[key] for key in ("ms", "plain_ms", "bound_ms",
+                                      "library_ms", "share_of_bound")}
 
 
 def kernel_phase(torch, gn):
     """Kernel against plain at every ResNet-50 GroupNorm shape, at the
-    batches of CHECK_BATCHES; times at batch 32 in both dtypes."""
+    batches of CHECK_BATCHES; times at the (batch, dtype) of GN_TIMED."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -411,10 +429,12 @@ def kernel_phase(torch, gn):
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     totals = new_totals()
     for HW, C, model_relu, count in RESNET50_GN:
+        inputs = {}
         for batch, names in CHECK_BATCHES:
             x = torch.randn(batch, HW, C, generator=gen, device=dev)
             scale = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
             bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+            inputs[batch] = (x, scale, bias)
             for name in names:
                 xd = x.to(getattr(torch, name))
                 atol, rtol = TOL[name]
@@ -430,10 +450,10 @@ def kernel_phase(torch, gn):
                     check_close(what + " rstd", got[2], ref[2], 2e-5, 2e-5)
                     max_err[name] = max(max_err[name], err)
                     print("check %-48s max_abs_err %.3g" % (what, err))
-        # x, scale and bias are the batch-32 tensors here.
-        for dtype in (torch.float32, torch.bfloat16):
+        for batch, name, key in GN_TIMED:
+            x, scale, bias = inputs[batch]
+            dtype = getattr(torch, name)
             xd = x.to(dtype)
-            name = str(dtype).replace("torch.", "")
             relu = model_relu
 
             def kernel():
@@ -450,18 +470,19 @@ def kernel_phase(torch, gn):
                 if relu:
                     torch.relu_(y)
 
-            row = {"HW": HW, "C": C, "dtype": name, "relu": relu,
-                   "per_forward": count,
+            row = {"B": batch, "HW": HW, "C": C, "dtype": name,
+                   "relu": relu, "per_forward": count,
                    "ms": time_ms(torch, kernel, flush),
                    "plain_ms": time_ms(torch, plain, flush),
                    "library_ms": time_ms(torch, library, flush)}
-            row.update(bound(BATCH, HW, C, xd.element_size()))
-            add_row(rows, totals, row, count)
+            row.update(bound(batch, HW, C, xd.element_size()))
+            add_row(rows, totals, key, row, count)
             print("time B=%d HW=%d C=%d %s relu=%s x%d: kernel %.4f ms, "
                   "plain %.4f ms, F.group_norm %.4f ms, bound %.4f ms (%s)"
-                  % (BATCH, HW, C, name, relu, count, row["ms"],
+                  % (batch, HW, C, name, relu, count, row["ms"],
                      row["plain_ms"], row["library_ms"], row["bound_ms"],
                      row["bound_by"]))
+        del inputs
     finish_totals(totals)
 
     # Large mean: 1e4 + N(0, 1), against float64.
@@ -505,8 +526,8 @@ def check_bwd(torch, gn, args, name):
 def backward_phase(torch, gn):
     """Backward kernel against plain at every ResNet-50 GroupNorm shape,
     ReLU as the model uses it, at the batches of CHECK_BATCHES but the
-    served one; bitwise equal across two runs; times per shape at batch
-    32."""
+    served one; bitwise equal across two runs; times per shape at the
+    (batch, dtype) of GN_TIMED."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -515,11 +536,13 @@ def backward_phase(torch, gn):
     rows, max_err = [], {"float32": 0.0, "bfloat16": 0.0}
     totals = new_totals()
     for HW, C, relu, count in RESNET50_GN:
+        inputs = {}
         for batch, names in CHECK_BATCHES[1:]:
             x = torch.randn(batch, HW, C, generator=gen, device=dev)
             dy = torch.randn(batch, HW, C, generator=gen, device=dev)
             scale = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
             bias = 0.1 * torch.randn(C, generator=gen, device=dev)
+            inputs[batch] = (x, dy, scale, bias)
             for name in names:
                 xd, dyd = x.to(getattr(torch, name)), dy.to(
                     getattr(torch, name))
@@ -529,10 +552,10 @@ def backward_phase(torch, gn):
                         relu)
                 max_err[name] = max(max_err[name],
                                     check_bwd(torch, gn, args, name))
-        # x, dy, scale and bias are the batch-32 tensors here.
-        for dtype in (torch.float32, torch.bfloat16):
+        for batch, name, key in GN_TIMED:
+            x, dy, scale, bias = inputs[batch]
+            dtype = getattr(torch, name)
             xd, dyd = x.to(dtype), dy.to(dtype)
-            name = str(dtype).replace("torch.", "")
             _, mean, rstd = gn.group_norm_fwd(xd, scale, bias, GROUPS,
                                               relu=relu)
             args = (xd, dyd, scale, bias, mean, rstd, GROUPS, 1e-6, relu)
@@ -556,21 +579,22 @@ def backward_phase(torch, gn):
             def library():
                 torch.autograd.grad(y, (xl, w, b), dyl, retain_graph=True)
 
-            row = {"HW": HW, "C": C, "dtype": name, "relu": relu,
-                   "per_step": count,
+            row = {"B": batch, "HW": HW, "C": C, "dtype": name,
+                   "relu": relu, "per_step": count,
                    "ms": time_ms(torch, kernel, flush),
                    "plain_ms": time_ms(torch, plain, flush),
                    "library_ms": time_ms(torch, library, flush)}
-            row.update(bound(BATCH, HW, C, xd.element_size(),
+            row.update(bound(batch, HW, C, xd.element_size(),
                              backward=True))
-            add_row(rows, totals, row, count)
+            add_row(rows, totals, key, row, count)
             print("time bwd B=%d HW=%d C=%d %s relu=%s x%d: kernel %.4f ms, "
                   "plain %.4f ms, F.group_norm backward %.4f ms, bound "
-                  "%.4f ms (%s)" % (BATCH, HW, C, name, relu, count,
+                  "%.4f ms (%s)" % (batch, HW, C, name, relu, count,
                                     row["ms"], row["plain_ms"],
                                     row["library_ms"], row["bound_ms"],
                                     row["bound_by"]))
             del y, xl, w, b
+        del inputs
     finish_totals(totals)
     return rows, max_err, totals
 
@@ -1845,21 +1869,23 @@ def main():
     t0 = time.perf_counter()
     rows, max_err, totals = kernel_phase(torch, gn)
     phase_s["forward kernel"] = time.perf_counter() - t0
-    for name, tot in totals.items():
+    for (batch, name, _), tot in zip(GN_TIMED, totals.values()):
         print("kernel per ResNet-50 forward at batch %d (53 calls, %s): "
               "kernel %.4f ms, plain %.4f ms, F.group_norm %.4f ms, bound "
-              "%.4f ms (%s)" % (BATCH, name, tot["ms"], tot["plain_ms"],
-                                tot["library_ms"], tot["bound_ms"],
-                                tot["bound_by"]))
+              "%.4f ms (%s), %.1f %% of the bound" % (
+                  batch, name, tot["ms"], tot["plain_ms"],
+                  tot["library_ms"], tot["bound_ms"], tot["bound_by"],
+                  100 * tot["share_of_bound"]))
     t0 = time.perf_counter()
     bwd_rows, bwd_err, bwd_totals = backward_phase(torch, gn)
     phase_s["backward kernel"] = time.perf_counter() - t0
-    for name, tot in bwd_totals.items():
+    for (batch, name, _), tot in zip(GN_TIMED, bwd_totals.values()):
         print("backward kernel per ResNet-50 step at batch %d (53 calls, "
               "%s): kernel %.4f ms, plain %.4f ms, F.group_norm backward "
-              "%.4f ms, bound %.4f ms (%s)" % (
-                  BATCH, name, tot["ms"], tot["plain_ms"],
-                  tot["library_ms"], tot["bound_ms"], tot["bound_by"]))
+              "%.4f ms, bound %.4f ms (%s), %.1f %% of the bound" % (
+                  batch, name, tot["ms"], tot["plain_ms"],
+                  tot["library_ms"], tot["bound_ms"], tot["bound_by"],
+                  100 * tot["share_of_bound"]))
 
     t0 = time.perf_counter()
     module, serve_launches, latencies, serve_err = serving_phase(torch, gn)
@@ -1902,6 +1928,9 @@ def main():
         "bound_by": f32["bound_by"],
         "library_ms": f32["library_ms"],
         "times_are": per % ("forward", BATCH),
+        "share_of_bound": f32["share_of_bound"],
+        "b32_bf16": gn_sums(totals["bfloat16"]),
+        "b128_bf16": gn_sums(totals["bfloat16 b128"]),
     }, {
         "name": "group_norm_bwd",
         "route": "cuda",
@@ -1915,6 +1944,9 @@ def main():
         "bound_by": bf32["bound_by"],
         "library_ms": bf32["library_ms"],
         "times_are": per % ("training step's backward", BATCH),
+        "share_of_bound": bf32["share_of_bound"],
+        "b32_bf16": gn_sums(bwd_totals["bfloat16"]),
+        "b128_bf16": gn_sums(bwd_totals["bfloat16 b128"]),
     }, {
         "name": "flash_attention_fwd",
         "route": "cuda",

@@ -19,241 +19,375 @@
 // carried dscale/dbias across its sequential grid (B,); Hopper's blocks run
 // in no order, and the design must not use atomics: two runs on one input
 // give bitwise-equal dx, dscale and dbias (the trainer's bitwise contracts
-// rest on it).  So, in B1's image, four launches:
-//   1. gn_bwd_partial: one block per (batch, chunk of rows), threads along
-//      C (coalesced rows); per-(batch, chunk, channel) partial s1, s2.
-//      Reads x and dy once.
-//   2. gn_bwd_merge: one block per (batch, group): per channel, s1 and s2
-//      summed over the chunks in chunk order; per group, the two means of
-//      s * scale, by a fixed-shape tree in shared memory.
-//   3. gn_bwd_affine: per channel, dscale and dbias summed over the batch
-//      in batch order.
-//   4. gn_bwd_dx: one elementwise pass; reads x and dy a second time.
+// rest on it).  So, in B1's image (gn_common.cuh), two launches:
+//   1. gn_bwd_cluster: a cluster of K blocks per batch row, persistent
+//      over the batch rows (gn_common.cuh).  Block k copies its rows of x
+//      and dy into shared memory by cp.async.bulk (as many as fit: all of
+//      them in bfloat16; about half of the float32 stem's and of
+//      56x56x256's), and sums s1, s2 per channel in 16-byte vectors, one
+//      channel vector per thread, over its lanes in a fixed order.  Rank
+//      k owns a run of groups: every block pushes its per-channel sums of
+//      those groups into rank k's shared memory, which adds them in rank
+//      order, writes the row's per-channel s1, s2 to the workspace and
+//      pushes the two group means of s * scale into every block.  Then dx
+//      from the resident rows, coefficients in registers, a piece at a
+//      time; each piece, once done, receives the cluster's next batch row.
+//   2. gn_bwd_affine: dscale and dbias, the workspace summed over the batch
+//      in a fixed order: 8 runs of the batch per channel, then the 8 in
+//      order.  Launched with programmatic stream serialization: it is
+//      launched as the first kernel's blocks exit, and waits for the
+//      first kernel's writes (griddepcontrol.wait).
 // Every sum has a fixed order, so the result does not depend on how the
-// blocks are scheduled.  Reading x and dy twice makes 5 passes over the
-// data where 3 is the least; keeping a chunk on chip between passes 1
-// and 4 is later work.
+// blocks are scheduled.
 //
 // C interface (bound with ctypes): edl_group_norm_bwd returns 0 or the
-// cudaError_t code of a bad argument or refused launch.  It allocates
-// nothing: the caller passes a float32 workspace of
-// edl_group_norm_bwd_workspace(...) floats.
-
-#include <algorithm>
+// cudaError_t code of a bad plan or refused launch.  It allocates
+// nothing: the caller passes a float32 workspace of 2 B C floats.
 
 #include "gn_common.cuh"
 
 namespace {
 
-using gn::from_f;
+namespace cg = cooperative_groups;
 using gn::kThreads;
-using gn::load_f;
 
-// Partial s1, s2 per (batch, chunk, channel) over `rows` rows; the thread
-// layout is gn_partial_stats' (group_norm.cu): tc = min(C, 256) channels
-// side by side, lanes = 256 / tc rows at a time.
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_partial(const T* __restrict__ x, const T* __restrict__ dy,
+// Rows in flight per thread from device memory: 8 values of x and of dy.
+template <int V>
+constexpr int kUnroll = 8 / V;
+constexpr int kAffineRuns = 8;  // runs of the batch per channel
+
+// At most 128 registers: two blocks of small clusters share an SM.
+template <typename T, int V>
+__global__ void __launch_bounds__(kThreads, 2)
+gn_bwd_cluster(const T* __restrict__ x, const T* __restrict__ dy,
                const float* __restrict__ scale,
                const float* __restrict__ bias,
                const float* __restrict__ mean,
-               const float* __restrict__ rstd, float* __restrict__ ps1,
-               float* __restrict__ ps2, int HW, int C, int rows,
-               int nchunks, int relu) {
-  __shared__ float s1[kThreads];
-  __shared__ float s2[kThreads];
-  const int b = blockIdx.y;
-  const int k = blockIdx.x;
-  const int r0 = k * rows;
-  const int n = min(rows, HW - r0);
-  const int tc = min(C, kThreads);
+               const float* __restrict__ rstd, T* __restrict__ dx,
+               float* __restrict__ csum, int B, int HW, int C, int G, int R,
+               int rr, int pieces, int relu) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  cg::cluster_group cluster = cg::this_cluster();
+  gn::cluster_arrive_relaxed();
+  const int K = gridDim.x;
+  const int k = blockIdx.x;   // the cluster spans x: k is its rank
+  const int cpg = C / G;
+  const int nv = C / V;
+  const int tc = min(nv, kThreads);
   const int lanes = kThreads / tc;
-  const int c0 = threadIdx.x % tc;
   const int lane = threadIdx.x / tc;
-  const int64_t base = ((int64_t)b * HW + r0) * C;
-  const T* xb = x + base;
-  const T* dyb = dy + base;
-  for (int cb = 0; cb < C; cb += tc) {
-    const int c = cb + c0;
-    float a1 = 0.f, a2 = 0.f;
-    if (lane < lanes && c < C) {
-      const float m = mean[(int64_t)b * C + c];
-      const float rs = rstd[(int64_t)b * C + c];
-      const float a = gn::affine_a(rs, scale[c]);
-      const float bb = gn::affine_b(bias[c], m, a);
-      for (int r = lane; r < n; r += lanes) {
-        const int64_t o = (int64_t)r * C + c;
-        const float xv = load_f(xb + o);
-        float g = load_f(dyb + o);
-        if (relu && !(fmaf(xv, a, bb) > 0.f)) g = 0.f;
-        a1 += g;
-        a2 = fmaf(g, (xv - m) * rs, a2);
+  const int cv0 = threadIdx.x % tc;
+  const int n = min(R, HW - k * R);
+  const int nres = min(rr, n);
+  const int per = nres > 0 ? gn::rows_per_piece(nres, pieces) : 1;
+  const int used = (nres + per - 1) / per;   // pieces holding rows
+  // Rank kk owns groups [kk G / K, (kk + 1) G / K); `own` channels fit
+  // any rank's.
+  const int own = (G + K - 1) / K * cpg;
+  const int g0 = k * G / K, g1 = (k + 1) * G / K;
+
+  T* xs = reinterpret_cast<T*>(smem);
+  T* dys = xs + (int64_t)rr * C;
+  float* red1 =
+      reinterpret_cast<float*>(smem + 2 * (int64_t)rr * C * sizeof(T));
+  float* red2 = red1 + lanes * C;
+  float* recv = red2 + lanes * C;   // [s1, s2][K][own]
+  float* gall = recv + 2 * K * own;   // [G][mean_g(s1 sc), mean_g(s2 sc)]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(
+      smem + gn::smem_bytes(C, G, K, rr, pieces, sizeof(T), V, true) -
+      8 * pieces);
+  auto rows_of = [&](int b) { return ((int64_t)b * HW + (int64_t)k * R) * C; };
+
+  if (threadIdx.x == 0 && nres > 0) {
+    for (int p = 0; p < pieces; ++p) hopper::mbar_init(&bars[p], 1);
+    hopper::mbar_init_fence();
+    for (int p = 0; p < used; ++p)
+      gn::bulk_load_piece<T>(xs, x + rows_of(blockIdx.y), dys,
+                             dy + rows_of(blockIdx.y), nres, per, p, C,
+                             &bars[p]);
+  }
+  __syncthreads();
+
+  uint32_t phase = 0;
+  for (int b = blockIdx.y; b < B; b += gridDim.y, phase ^= 1) {
+    const T* xb = x + rows_of(b);
+    const T* dyb = dy + rows_of(b);
+    T* dxb = dx + rows_of(b);
+    const float* mb = mean + (int64_t)b * C;
+    const float* rb = rstd + (int64_t)b * C;
+    const int next = b + gridDim.y;
+
+    // Pass 1: per-channel s1 = sum(g), s2 = sum(g * xhat).
+    for (int cv = cv0; lane < lanes && cv < nv; cv += kThreads) {
+      const int c0 = cv * V;
+      float m[V], rs[V], a[V], bb[V], s1[V], s2[V];
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        m[v] = mb[c0 + v];
+        rs[v] = rb[c0 + v];
+        a[v] = gn::affine_a(rs[v], scale[c0 + v]);
+        bb[v] = gn::affine_b(bias[c0 + v], m[v], a[v]);
+        s1[v] = s2[v] = 0.f;
+      }
+      auto add = [&](const float (&xv)[V], const float (&gv)[V]) {
+#pragma unroll
+        for (int v = 0; v < V; ++v) {
+          float g = gv[v];
+          if (relu && !(fmaf(xv[v], a[v], bb[v]) > 0.f)) g = 0.f;
+          s1[v] += g;
+          s2[v] = fmaf(g, (xv[v] - m[v]) * rs[v], s2[v]);
+        }
+      };
+      for (int p = 0; p < used; ++p) {
+        hopper::mbar_wait(&bars[p], phase);
+        const int end = min(nres, (p + 1) * per);
+#pragma unroll 2
+        for (int r = p * per + lane; r < end; r += lanes) {
+          float xv[V], gv[V];
+          gn::load_shared<T, V>(xs + (int64_t)r * C + c0, xv);
+          gn::load_shared<T, V>(dys + (int64_t)r * C + c0, gv);
+          add(xv, gv);
+        }
+      }
+      for (int r = nres + lane; r < n; r += kUnroll<V> * lanes) {
+        float xv[kUnroll<V>][V], gv[kUnroll<V>][V];
+#pragma unroll
+        for (int u = 0; u < kUnroll<V>; ++u)
+          if (r + u * lanes < n) {
+            const int64_t o = (int64_t)(r + u * lanes) * C + c0;
+            gn::load_global<T, V>(xb + o, xv[u]);
+            gn::load_global<T, V>(dyb + o, gv[u]);
+          }
+#pragma unroll
+        for (int u = 0; u < kUnroll<V>; ++u)
+          if (r + u * lanes < n) add(xv[u], gv[u]);
+      }
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        red1[lane * C + c0 + v] = s1[v];
+        red2[lane * C + c0 + v] = s2[v];
       }
     }
-    s1[threadIdx.x] = a1;
-    s2[threadIdx.x] = a2;
     __syncthreads();
-    if (threadIdx.x < tc && c < C) {
+    // Per channel over the lanes in lane order, pushed to the channel's
+    // owner (slot k of its receive buffer).  The owner read the last
+    // row's before the cluster barrier this block passed since.
+    if (b == blockIdx.y) gn::cluster_wait();
+    for (int c = threadIdx.x; c < C; c += kThreads) {
       float t1 = 0.f, t2 = 0.f;
       for (int l = 0; l < lanes; ++l) {
-        t1 += s1[l * tc + threadIdx.x];
-        t2 += s2[l * tc + threadIdx.x];
+        t1 += red1[l * C + c];
+        t2 += red2[l * C + c];
       }
-      const int64_t o = ((int64_t)b * nchunks + k) * C + c;
-      ps1[o] = t1;
-      ps2[o] = t2;
+      const int g = c / cpg;
+      const int owner = ((g + 1) * K - 1) / G;   // largest kk: kk G / K <= g
+      const int j = c - owner * G / K * cpg;
+      gn::push(cluster, recv, owner, (int64_t)k * own + j, t1);
+      gn::push(cluster, recv, owner, (int64_t)(K + k) * own + j, t2);
+    }
+    cluster.sync();
+    // The owner: each channel's s1, s2 over the K blocks in rank order, to
+    // the workspace; s * scale kept in slot 0 (column j is read, then
+    // overwritten, by one thread).
+    const int nown = (g1 - g0) * cpg;
+    for (int j = threadIdx.x; j < nown; j += kThreads) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int kk = 0; kk < K; ++kk) {
+        t1 += recv[(int64_t)kk * own + j];
+        t2 += recv[(int64_t)(K + kk) * own + j];
+      }
+      const int c = g0 * cpg + j;
+      csum[(int64_t)b * C + c] = t1;
+      csum[((int64_t)B + b) * C + c] = t2;
+      recv[j] = t1 * scale[c];
+      recv[(int64_t)K * own + j] = t2 * scale[c];
     }
     __syncthreads();
-  }
-}
-
-// Per (batch, group): per-channel totals cs1, cs2 [B, C] over the chunks,
-// and the group means gcoef[(b * G + g) * 2 + {0, 1}] of s1 * scale and
-// s2 * scale.
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_merge(const float* __restrict__ ps1, const float* __restrict__ ps2,
-             const float* __restrict__ scale, float* __restrict__ cs1,
-             float* __restrict__ cs2, float* __restrict__ gcoef, int HW,
-             int C, int G, int nchunks) {
-  __shared__ float t1[kThreads];
-  __shared__ float t2[kThreads];
-  const int g = blockIdx.x;
-  const int b = blockIdx.y;
-  const int cpg = C / G;
-  float g1 = 0.f, g2 = 0.f;
-  for (int j = threadIdx.x; j < cpg; j += kThreads) {
-    const int c = g * cpg + j;
-    float u1 = 0.f, u2 = 0.f;
-    for (int k = 0; k < nchunks; ++k) {
-      const int64_t o = ((int64_t)b * nchunks + k) * C + c;
-      u1 += ps1[o];
-      u2 += ps2[o];
-    }
-    cs1[(int64_t)b * C + c] = u1;
-    cs2[(int64_t)b * C + c] = u2;
-    g1 = fmaf(u1, scale[c], g1);
-    g2 = fmaf(u2, scale[c], g2);
-  }
-  t1[threadIdx.x] = g1;
-  t2[threadIdx.x] = g2;
-  __syncthreads();
-  for (int s = kThreads / 2; s > 0; s >>= 1) {
-    if (threadIdx.x < s) {
-      t1[threadIdx.x] += t1[threadIdx.x + s];
-      t2[threadIdx.x] += t2[threadIdx.x + s];
-    }
-    __syncthreads();
-  }
-  if (threadIdx.x == 0) {
+    // Per owned group, over its channels in order; to every block (which
+    // all read the last row's in their second pass, before this row's
+    // first cluster barrier).
     const float inv = 1.f / ((float)HW * (float)cpg);
-    const int64_t o = ((int64_t)b * G + g) * 2;
-    gcoef[o] = t1[0] * inv;
-    gcoef[o + 1] = t2[0] * inv;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_affine(const float* __restrict__ cs1, const float* __restrict__ cs2,
-              float* __restrict__ dscale, float* __restrict__ dbias, int B,
-              int C) {
-  const int c = blockIdx.x * kThreads + threadIdx.x;
-  if (c >= C) return;
-  float u1 = 0.f, u2 = 0.f;
-  for (int b = 0; b < B; ++b) {
-    u1 += cs1[(int64_t)b * C + c];
-    u2 += cs2[(int64_t)b * C + c];
-  }
-  dbias[c] = u1;
-  dscale[c] = u2;
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads)
-gn_bwd_dx(const T* __restrict__ x, const T* __restrict__ dy,
-          T* __restrict__ dx, const float* __restrict__ scale,
-          const float* __restrict__ bias, const float* __restrict__ mean,
-          const float* __restrict__ rstd, const float* __restrict__ gcoef,
-          int hwc, int C, int G, int relu) {
-  // One batch row per blockIdx.y, so the channel index needs only a
-  // 32-bit remainder.
-  const int b = blockIdx.y;
-  const int cpg = C / G;
-  const int64_t row = (int64_t)b * hwc;
-  const float* mb = mean + (int64_t)b * C;
-  const float* rb = rstd + (int64_t)b * C;
-  const float* gb = gcoef + (int64_t)b * G * 2;
-  for (int j = blockIdx.x * kThreads + threadIdx.x; j < hwc;
-       j += gridDim.x * kThreads) {
-    const int c = j % C;
-    const float m = __ldg(mb + c);
-    const float rs = __ldg(rb + c);
-    const float sc = __ldg(scale + c);
-    const float xv = load_f(x + row + j);
-    float g = load_f(dy + row + j);
-    if (relu) {
-      const float a = gn::affine_a(rs, sc);
-      if (!(fmaf(xv, a, gn::affine_b(__ldg(bias + c), m, a)) > 0.f)) {
-        g = 0.f;
+    for (int g = g0 + threadIdx.x; g < g1; g += kThreads) {
+      float t1 = 0.f, t2 = 0.f;
+      for (int i = 0; i < cpg; ++i) {
+        const int j = (g - g0) * cpg + i;
+        t1 += recv[j];
+        t2 += recv[(int64_t)K * own + j];
+      }
+      for (int kk = 0; kk < K; ++kk) {
+        gn::push(cluster, gall, kk, 2 * g, t1 * inv);
+        gn::push(cluster, gall, kk, 2 * g + 1, t2 * inv);
       }
     }
-    const int gi = (c / cpg) * 2;
-    const float xhat = (xv - m) * rs;
-    const float v = rs * (g * sc - __ldg(gb + gi) - xhat * __ldg(gb + gi + 1));
-    dx[row + j] = from_f<T>(v);
+    cluster.sync();
+
+    // Pass 2: dx, a piece at a time; once every thread is done with a
+    // piece, the next row's copy into it starts.
+    auto coefficients = [&](int c0, float (&m)[V], float (&rs)[V],
+                            float (&sc)[V], float (&a)[V], float (&bb)[V],
+                            float (&k1)[V], float (&k2)[V]) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        const int c = c0 + v;
+        m[v] = mb[c];
+        rs[v] = rb[c];
+        sc[v] = scale[c];
+        a[v] = gn::affine_a(rs[v], sc[v]);
+        bb[v] = gn::affine_b(bias[c], m[v], a[v]);
+        k1[v] = gall[2 * (c / cpg)];
+        k2[v] = gall[2 * (c / cpg) + 1];
+      }
+    };
+    auto grad = [&](const float (&xv)[V], float (&gv)[V], const float (&m)[V],
+                    const float (&rs)[V], const float (&sc)[V],
+                    const float (&a)[V], const float (&bb)[V],
+                    const float (&k1)[V], const float (&k2)[V]) {
+#pragma unroll
+      for (int v = 0; v < V; ++v) {
+        float g = gv[v];
+        if (relu && !(fmaf(xv[v], a[v], bb[v]) > 0.f)) g = 0.f;
+        const float xhat = (xv[v] - m[v]) * rs[v];
+        gv[v] = rs[v] * (g * sc[v] - k1[v] - xhat * k2[v]);
+      }
+    };
+    // With one channel vector per thread its coefficients are loaded once
+    // for the row.
+    const bool once = nv <= kThreads;
+    float m[V], rs[V], sc[V], a[V], bb[V], k1[V], k2[V];
+    if (once && lane < lanes) coefficients(cv0 * V, m, rs, sc, a, bb, k1, k2);
+    if (next < B) {   // the next row's statistics, read by its pass 1
+      gn::prefetch_l2(mean + (int64_t)next * C, C);
+      gn::prefetch_l2(rstd + (int64_t)next * C, C);
+    }
+    for (int p = 0; p < used; ++p) {
+      const int end = min(nres, (p + 1) * per);
+      for (int cv = cv0; lane < lanes && cv < nv; cv += kThreads) {
+        const int c0 = cv * V;
+        if (!once) coefficients(c0, m, rs, sc, a, bb, k1, k2);
+#pragma unroll 2
+        for (int r = p * per + lane; r < end; r += lanes) {
+          float xv[V], gv[V];
+          gn::load_shared<T, V>(xs + (int64_t)r * C + c0, xv);
+          gn::load_shared<T, V>(dys + (int64_t)r * C + c0, gv);
+          grad(xv, gv, m, rs, sc, a, bb, k1, k2);
+          gn::store_global<T, V>(dxb + (int64_t)r * C + c0, gv);
+        }
+      }
+      __syncthreads();
+      if (threadIdx.x == 0 && next < B)
+        gn::bulk_load_piece<T>(xs, x + rows_of(next), dys, dy + rows_of(next),
+                               nres, per, p, C, &bars[p]);
+    }
+    for (int cv = cv0; lane < lanes && cv < nv; cv += kThreads) {
+      const int c0 = cv * V;
+      if (!once) coefficients(c0, m, rs, sc, a, bb, k1, k2);
+      for (int r = nres + lane; r < n; r += kUnroll<V> * lanes) {
+        float xv[kUnroll<V>][V], gv[kUnroll<V>][V];
+#pragma unroll
+        for (int u = 0; u < kUnroll<V>; ++u)
+          if (r + u * lanes < n) {
+            const int64_t o = (int64_t)(r + u * lanes) * C + c0;
+            gn::load_global<T, V>(xb + o, xv[u]);
+            gn::load_global<T, V>(dyb + o, gv[u]);
+          }
+#pragma unroll
+        for (int u = 0; u < kUnroll<V>; ++u)
+          if (r + u * lanes < n) {
+            grad(xv[u], gv[u], m, rs, sc, a, bb, k1, k2);
+            gn::store_global<T, V>(dxb + (int64_t)(r + u * lanes) * C + c0,
+                                   gv[u]);
+          }
+      }
+    }
+    __syncthreads();   // red1 and red2 are the next row's now
   }
 }
 
-template <typename T>
-void launch(const void* x, const void* dy, const float* scale,
-            const float* bias, const float* mean, const float* rstd,
-            void* dx, float* dscale, float* dbias, float* work, int B,
-            int HW, int C, int G, int rows, int relu, cudaStream_t stream) {
-  const int nchunks = (HW + rows - 1) / rows;
-  float* ps1 = work;
-  float* ps2 = ps1 + (int64_t)B * nchunks * C;
-  float* cs1 = ps2 + (int64_t)B * nchunks * C;
-  float* cs2 = cs1 + (int64_t)B * C;
-  float* gcoef = cs2 + (int64_t)B * C;
-  const T* xt = static_cast<const T*>(x);
-  const T* dyt = static_cast<const T*>(dy);
-  gn_bwd_partial<T><<<dim3(nchunks, B), kThreads, 0, stream>>>(
-      xt, dyt, scale, bias, mean, rstd, ps1, ps2, HW, C, rows, nchunks,
-      relu);
-  gn_bwd_merge<<<dim3(G, B), kThreads, 0, stream>>>(
-      ps1, ps2, scale, cs1, cs2, gcoef, HW, C, G, nchunks);
-  gn_bwd_affine<<<(C + kThreads - 1) / kThreads, kThreads, 0, stream>>>(
-      cs1, cs2, dscale, dbias, B, C);
-  const int hwc = HW * C;
-  const int blocks = std::min((hwc + kThreads - 1) / kThreads, 1024);
-  gn_bwd_dx<T><<<dim3(blocks, B), kThreads, 0, stream>>>(
-      xt, dyt, static_cast<T*>(dx), scale, bias, mean, rstd, gcoef, hwc, C,
-      G, relu);
+// dbias[c] = sum_b csum[b][c], dscale[c] = sum_b csum[B + b][c]: thread
+// (run, channel) adds its run of the batch in order, then run 0 adds the
+// runs in order.
+__global__ void __launch_bounds__(kThreads)
+gn_bwd_affine(const float* __restrict__ csum, float* __restrict__ dscale,
+              float* __restrict__ dbias, int B, int C) {
+  constexpr int kCh = kThreads / kAffineRuns;
+  __shared__ float p1[kAffineRuns][kCh];
+  __shared__ float p2[kAffineRuns][kCh];
+  gn::griddep_wait();
+  const int i = threadIdx.x % kCh;
+  const int run = threadIdx.x / kCh;
+  const int c = blockIdx.x * kCh + i;
+  float u1 = 0.f, u2 = 0.f;
+  if (c < C) {
+    const int b1 = (run + 1) * B / kAffineRuns;
+#pragma unroll 4
+    for (int b = run * B / kAffineRuns; b < b1; ++b) {
+      u1 += csum[(int64_t)b * C + c];
+      u2 += csum[((int64_t)B + b) * C + c];
+    }
+  }
+  p1[run][i] = u1;
+  p2[run][i] = u2;
+  __syncthreads();
+  if (run == 0 && c < C) {
+    float t1 = 0.f, t2 = 0.f;
+    for (int q = 0; q < kAffineRuns; ++q) {
+      t1 += p1[q][i];
+      t2 += p2[q][i];
+    }
+    dbias[c] = t1;
+    dscale[c] = t2;
+  }
+}
+
+template <typename T, int V>
+cudaError_t launch(const void* x, const void* dy, const float* scale,
+                   const float* bias, const float* mean, const float* rstd,
+                   void* dx, float* dscale, float* dbias, float* csum, int B,
+                   int HW, int C, int G, int R, int rr, int pieces, int smem,
+                   int relu, cudaStream_t stream) {
+  const int K = (HW + R - 1) / R;
+  cudaError_t err = gn::launch_persistent(
+      gn_bwd_cluster<T, V>, K, B, smem, stream, static_cast<const T*>(x),
+      static_cast<const T*>(dy), scale, bias, mean, rstd, static_cast<T*>(dx),
+      csum, B, HW, C, G, R, rr, pieces, relu);
+  if (err != cudaSuccess) return err;
+  constexpr int kCh = kThreads / kAffineRuns;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((C + kCh - 1) / kCh);
+  cfg.blockDim = dim3(kThreads);
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeProgrammaticStreamSerialization;
+  attr[0].val.programmaticStreamSerializationAllowed = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, gn_bwd_affine,
+                            static_cast<const float*>(csum), dscale, dbias,
+                            B, C);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Floats of workspace edl_group_norm_bwd needs.
-int64_t edl_group_norm_bwd_workspace(int B, int HW, int C, int G,
-                                     int rows) {
-  const int64_t nchunks = (HW + rows - 1) / rows;
-  return 2 * (int64_t)B * nchunks * C + 2 * (int64_t)B * C +
-         2 * (int64_t)B * G;
-}
-
-// dtype: 0 = float32, 1 = bfloat16 (x, dy and dx).  scale, bias, mean,
-// rstd, dscale, dbias and work are float32.  Returns 0, or the cudaError_t
-// of a bad argument or refused launch.
+// The plan as for edl_group_norm_fwd (group_norm.cu); its resident rows
+// hold x and dy.  dtype: 0 = float32, 1 = bfloat16 (x, dy and dx).
+// scale, bias, mean, rstd, dscale, dbias and work are float32.  Returns 0,
+// or the cudaError_t of a bad argument or refused launch.
 int edl_group_norm_bwd(const void* x, const void* dy, const void* scale,
                        const void* bias, const void* mean, const void* rstd,
                        void* dx, void* dscale, void* dbias, void* work,
-                       int B, int HW, int C, int G, int rows, int relu,
-                       int dtype, void* stream) {
-  if (B <= 0 || HW <= 0 || C <= 0 || G <= 0 || C % G != 0 || rows <= 0 ||
-      B > 65535 || G > 65535 || (int64_t)HW * C > INT32_MAX ||
-      (dtype != 0 && dtype != 1)) {
+                       int B, int HW, int C, int G, int R, int rr, int pieces,
+                       int vec, int smem, int relu, int dtype,
+                       void* stream) {
+  const int esize = dtype == 0 ? 4 : 2;
+  const void* ptrs[3] = {x, dy, dx};
+  const int V = vec ? 16 / esize : 1;
+  const int K = R > 0 ? (HW + R - 1) / R : 0;
+  if ((dtype != 0 && dtype != 1) ||
+      !gn::plan_ok(B, HW, C, G, R, rr, pieces, vec, esize, ptrs, 3) ||
+      smem > gn::kSmemMax ||
+      smem != gn::smem_bytes(C, G, K, rr, pieces, esize, V, true)) {
     return (int)cudaErrorInvalidValue;
   }
   // Clear an error left by an earlier launch, so that the code returned
@@ -267,14 +401,34 @@ int edl_group_norm_bwd(const void* x, const void* dy, const void* scale,
   float* db = static_cast<float*>(dbias);
   float* w = static_cast<float*>(work);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
   if (dtype == 0) {
-    launch<float>(x, dy, s, bi, m, r, dx, ds, db, w, B, HW, C, G, rows,
-                  relu, st);
+    err = vec ? launch<float, 4>(x, dy, s, bi, m, r, dx, ds, db, w, B, HW,
+                                 C, G, R, rr, pieces, smem, relu, st)
+              : launch<float, 1>(x, dy, s, bi, m, r, dx, ds, db, w, B, HW,
+                                 C, G, R, rr, pieces, smem, relu, st);
   } else {
-    launch<__nv_bfloat16>(x, dy, s, bi, m, r, dx, ds, db, w, B, HW, C, G,
-                          rows, relu, st);
+    err = vec ? launch<__nv_bfloat16, 8>(x, dy, s, bi, m, r, dx, ds, db, w,
+                                         B, HW, C, G, R, rr, pieces, smem,
+                                         relu, st)
+              : launch<__nv_bfloat16, 1>(x, dy, s, bi, m, r, dx, ds, db, w,
+                                         B, HW, C, G, R, rr, pieces, smem,
+                                         relu, st);
   }
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
+}
+
+// Clusters of K backward blocks of `smem` bytes the card holds at once
+// (-1 if unknown); for the sweep's report (scripts/sweep_group_norm.py).
+int edl_group_norm_bwd_max_clusters(int K, int smem, int dtype, int vec) {
+  if (dtype == 0)
+    return vec ? gn::max_active_clusters(gn_bwd_cluster<float, 4>, K, smem)
+               : gn::max_active_clusters(gn_bwd_cluster<float, 1>, K, smem);
+  return vec ? gn::max_active_clusters(gn_bwd_cluster<__nv_bfloat16, 8>, K,
+                                       smem)
+             : gn::max_active_clusters(gn_bwd_cluster<__nv_bfloat16, 1>, K,
+                                       smem);
 }
 
 }  // extern "C"

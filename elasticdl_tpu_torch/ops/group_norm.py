@@ -10,6 +10,13 @@ splits the work across the card):
  - backward, ``csrc/group_norm_bwd.cu``, replaces ``_bwd_kernel``
    (launched by ``_bwd_pallas``).
 
+Both hold a batch row in one thread-block cluster's shared memory where
+it fits.  ``plan`` chooses, per shape, the cluster size, the rows per
+block, how many of them stay resident in shared memory and the bytes
+that takes; it is a pure function of the shape, so the CPU tests hold
+its arithmetic, and the C entry points refuse a plan whose layout they
+compute differently.
+
 ``_FusedGroupNorm`` is the counterpart of the ``custom_vjp`` ``_fused``:
 its forward saves x, scale, bias and the f32 mean and rstd (never y) and
 its backward is the backward kernel.  ``fused_group_norm`` goes through
@@ -28,6 +35,7 @@ on the card.  ``LAUNCHES`` and ``BWD_LAUNCHES`` count kernel launches;
 contiguous channels-last and had to be copied.
 """
 
+import collections
 import ctypes
 import functools
 
@@ -40,9 +48,92 @@ BWD_LAUNCHES = 0
 DY_COPIES = 0
 
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-# Elements of x per statistics block: enough blocks to fill the card at
-# serving batch sizes, enough rows per block to amortize its merge.
-_ELEMS_PER_CHUNK = 8192
+# The kernels' limits (csrc/gn_common.cuh): threads per block, blocks per
+# cluster (above 8 a non-portable size), resident pieces (one mbarrier
+# each), and the shared memory one block may use on an H100 (227 KB).
+THREADS = 256
+MAX_CLUSTER = 16
+MAX_PIECES = 8
+SMEM_MAX = 232448
+# Bytes of resident rows per piece of the copy: a piece's first pass
+# starts while later pieces land, but each piece costs a barrier wait in
+# the first pass and a block-wide barrier in the second.
+PIECE_BYTES = 32768
+# Blocks a call aims for: about one per SM of the H100's 132, so small
+# rows are spread over the card in one wave.
+TARGET_BLOCKS = 128
+
+Plan = collections.namedtuple(
+    "Plan", "rows cluster resident pieces vec smem workspace")
+Plan.__doc__ = """One call's launch plan: ``rows`` per block, ``cluster``
+blocks per batch row (ceil(HW / rows)), ``resident`` of each block's rows
+held in shared memory (copied in ``pieces`` pieces), ``vec`` 1 for
+16-byte accesses, ``smem`` dynamic shared bytes per block, ``workspace``
+float32 elements of scratch (the backward's per-(batch, channel) sums)."""
+
+
+def _floats(C, G, K, lanes, backward):
+    """Float32 buffers of one block (``gn::floats_of``)."""
+    cpg = C // G
+    floats = 2 * lanes * C                      # per-lane channel sums
+    if backward:
+        own = -(-G // K) * cpg                  # channels a rank owns
+        return floats + 2 * K * own + 2 * G     # received sums, group means
+    # shifts, partials (two batch rows' worth), group statistics
+    return floats + G + 6 * K * G + 2 * G
+
+
+def _smem_bytes(C, G, K, rr, pieces, esize, vec_elems, backward):
+    """Dynamic shared bytes of one block (``gn::smem_bytes``): resident
+    rows of x (and dy), the float32 buffers, one mbarrier per piece."""
+    lanes = THREADS // min(C // vec_elems, THREADS)
+    data = rr * C * esize * (2 if backward else 1)
+    floats = _floats(C, G, K, lanes, backward) * 4
+    return data + -(-floats // 8) * 8 + 8 * pieces
+
+
+@functools.lru_cache(maxsize=4096)
+def plan(B, HW, C, G, esize, backward, aligned=True,
+         max_cluster=MAX_CLUSTER, target_blocks=TARGET_BLOCKS,
+         smem_budget=SMEM_MAX, piece_bytes=PIECE_BYTES):
+    """The launch plan for x [B, HW, C] of ``esize``-byte elements, G
+    groups.  ``aligned``: every tensor the kernel reads or writes in
+    vectors starts on 16 bytes.  The cluster size is a power of two (a
+    GPC of the H100 holds two 8-block or one 16-block cluster of blocks
+    that each fill an SM): the smallest that gives ``target_blocks``
+    blocks or, failing that, holds the whole row in ``smem_budget``
+    bytes per block, up to ``max_cluster``; rows that do not fit are
+    read from device memory by both passes.  The resident rows are
+    copied in pieces of about ``piece_bytes``, at most MAX_PIECES.
+    ``max_cluster``, ``target_blocks``, ``smem_budget`` (0: nothing
+    resident) and ``piece_bytes`` exist for the ablations of
+    ``scripts/sweep_group_norm.py``.  Remembered per argument tuple: it
+    runs on every call of the kernels."""
+    vec = aligned and (C * esize) % 16 == 0
+    vec_elems = 16 // esize if vec else 1
+    row_bytes = C * esize * (2 if backward else 1)
+    keep = vec and smem_budget > 0
+
+    def fits(K):
+        R = -(-HW // K)
+        return _smem_bytes(C, G, K, R, min(MAX_PIECES, R), esize, vec_elems,
+                           backward) <= smem_budget
+
+    K = 1
+    while 2 * K <= max_cluster and K < HW and (
+            K * B < target_blocks or (keep and not fits(K))):
+        K *= 2
+    R = -(-HW // K)
+    K = -(-HW // R)
+    rr = 0
+    if keep:
+        free = min(smem_budget, SMEM_MAX) - _smem_bytes(
+            C, G, K, 0, MAX_PIECES, esize, vec_elems, backward)
+        rr = max(0, min(R, free // row_bytes))
+    pieces = min(MAX_PIECES, rr, -(-rr * row_bytes // piece_bytes))
+    return Plan(R, K, rr, pieces, int(vec),
+                _smem_bytes(C, G, K, rr, pieces, esize, vec_elems, backward),
+                2 * B * C if backward else 0)
 
 
 def _fwd_ref(x3, scale, bias, num_groups, eps, relu):
@@ -108,32 +199,35 @@ def _bwd_ref(x3, dy3, scale, bias, mean, rstd, num_groups, eps, relu):
     return dx.to(x3.dtype), s2.sum(dim=(0, 1)), s1.sum(dim=(0, 1))
 
 
-def _chunk_rows(HW, C):
-    return max(1, min(HW, _ELEMS_PER_CHUNK // C))
+def bind_fwd(lib):
+    """Declares the forward library's C interface to ctypes."""
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.edl_group_norm_fwd.argtypes = [ptr] * 6 + [cint] * 9 + [
+        ctypes.c_float, cint, cint, ptr]
+    lib.edl_group_norm_fwd.restype = cint
+    lib.edl_group_norm_fwd_max_clusters.argtypes = [cint] * 4
+    lib.edl_group_norm_fwd_max_clusters.restype = cint
+    return lib
+
+
+def bind_bwd(lib):
+    """Declares the backward library's C interface to ctypes."""
+    ptr, cint = ctypes.c_void_p, ctypes.c_int
+    lib.edl_group_norm_bwd.argtypes = [ptr] * 10 + [cint] * 11 + [ptr]
+    lib.edl_group_norm_bwd.restype = cint
+    lib.edl_group_norm_bwd_max_clusters.argtypes = [cint] * 4
+    lib.edl_group_norm_bwd_max_clusters.restype = cint
+    return lib
 
 
 @functools.cache
 def _library():
-    lib = build.library("group_norm")
-    ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.edl_group_norm_fwd.argtypes = [
-        ptr, ptr, ptr, ptr, ptr, ptr, ptr,
-        cint, cint, cint, cint, cint, ctypes.c_float, cint, cint, ptr]
-    lib.edl_group_norm_fwd.restype = cint
-    lib.edl_group_norm_fwd_workspace.argtypes = [cint] * 4
-    lib.edl_group_norm_fwd_workspace.restype = ctypes.c_int64
-    return lib
+    return bind_fwd(build.library("group_norm"))
 
 
 @functools.cache
 def _bwd_library():
-    lib = build.library("group_norm_bwd")
-    ptr, cint = ctypes.c_void_p, ctypes.c_int
-    lib.edl_group_norm_bwd.argtypes = [ptr] * 10 + [cint] * 7 + [ptr]
-    lib.edl_group_norm_bwd.restype = cint
-    lib.edl_group_norm_bwd_workspace.argtypes = [cint] * 5
-    lib.edl_group_norm_bwd_workspace.restype = ctypes.c_int64
-    return lib
+    return bind_bwd(build.library("group_norm_bwd"))
 
 
 def _check_affine(x3, scale, bias):
@@ -169,25 +263,23 @@ def _fwd_cuda(x3, scale, bias, num_groups, eps, relu):
     _check_x3(x3)
     B, HW, C = x3.shape
     scale, bias = _check_affine(x3, scale, bias)
-    rows = _chunk_rows(HW, C)
+    p = plan(B, HW, C, num_groups, x3.element_size(), backward=False,
+             aligned=x3.data_ptr() % 16 == 0)
     lib = _library()
     y = torch.empty_like(x3)
     mean = torch.empty((B, 1, C), dtype=torch.float32, device=x3.device)
     rstd = torch.empty_like(mean)
-    work = torch.empty(
-        lib.edl_group_norm_fwd_workspace(B, HW, C, rows),
-        dtype=torch.float32, device=x3.device)
     with torch.cuda.device(x3.device):
         err = lib.edl_group_norm_fwd(
             x3.data_ptr(), scale.data_ptr(), bias.data_ptr(),
-            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
-            work.data_ptr(), B, HW, C, num_groups, rows, float(eps),
-            int(bool(relu)), _DTYPES[x3.dtype],
+            y.data_ptr(), mean.data_ptr(), rstd.data_ptr(), B, HW, C,
+            num_groups, p.rows, p.resident, p.pieces, p.vec, p.smem,
+            float(eps), int(bool(relu)), _DTYPES[x3.dtype],
             torch.cuda.current_stream(x3.device).cuda_stream)
     if err:
         raise RuntimeError(
             "group_norm kernel launch failed (cudaError_t %d) for "
-            "B=%d HW=%d C=%d G=%d" % (err, B, HW, C, num_groups))
+            "B=%d HW=%d C=%d G=%d, %s" % (err, B, HW, C, num_groups, p))
     LAUNCHES += 1
     return y, mean, rstd
 
@@ -208,26 +300,25 @@ def _bwd_cuda(x3, dy3, scale, bias, mean, rstd, num_groups, relu):
                 "%s must be contiguous float32 [%d, 1, %d] on %s, got %s "
                 "%s on %s" % (name, B, C, x3.device, tuple(t.shape),
                               t.dtype, t.device))
-    rows = _chunk_rows(HW, C)
+    p = plan(B, HW, C, num_groups, x3.element_size(), backward=True,
+             aligned=x3.data_ptr() % 16 == 0 and dy3.data_ptr() % 16 == 0)
     lib = _bwd_library()
     dx = torch.empty_like(x3)
     dscale = torch.empty(C, dtype=torch.float32, device=x3.device)
     dbias = torch.empty_like(dscale)
-    work = torch.empty(
-        lib.edl_group_norm_bwd_workspace(B, HW, C, num_groups, rows),
-        dtype=torch.float32, device=x3.device)
+    work = torch.empty(p.workspace, dtype=torch.float32, device=x3.device)
     with torch.cuda.device(x3.device):
         err = lib.edl_group_norm_bwd(
             x3.data_ptr(), dy3.data_ptr(), scale.data_ptr(),
             bias.data_ptr(), mean.data_ptr(), rstd.data_ptr(),
             dx.data_ptr(), dscale.data_ptr(), dbias.data_ptr(),
-            work.data_ptr(), B, HW, C, num_groups, rows, int(bool(relu)),
-            _DTYPES[x3.dtype],
+            work.data_ptr(), B, HW, C, num_groups, p.rows, p.resident,
+            p.pieces, p.vec, p.smem, int(bool(relu)), _DTYPES[x3.dtype],
             torch.cuda.current_stream(x3.device).cuda_stream)
     if err:
         raise RuntimeError(
             "group_norm backward kernel launch failed (cudaError_t %d) "
-            "for B=%d HW=%d C=%d G=%d" % (err, B, HW, C, num_groups))
+            "for B=%d HW=%d C=%d G=%d, %s" % (err, B, HW, C, num_groups, p))
     BWD_LAUNCHES += 1
     return dx, dscale, dbias
 

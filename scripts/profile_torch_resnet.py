@@ -38,9 +38,13 @@ from elasticdl_tpu_torch.worker.collective_trainer import (  # noqa: E402
     CollectiveTrainer)
 
 # Kernel-name fragments -> layer, first match wins.  cuDNN's own
-# NHWC <-> NCHW transposes around a conv count as "conv layout".
-GN_FWD = ("gn_partial_stats", "gn_merge", "gn_normalize")
-GN_BWD = ("gn_bwd_partial", "gn_bwd_merge", "gn_bwd_affine", "gn_bwd_dx")
+# NHWC <-> NCHW transposes around a conv count as "conv layout".  The
+# GroupNorm passes of both designs (the earlier three and four launches
+# per call, and the cluster kernels with the backward's batch sum), so
+# one script profiles either.
+GN_FWD = ("gn_partial_stats", "gn_merge", "gn_normalize", "gn_fwd_cluster")
+GN_BWD = ("gn_bwd_partial", "gn_bwd_merge", "gn_bwd_affine", "gn_bwd_dx",
+          "gn_bwd_cluster")
 GROUPS = [
     ("group_norm backward", GN_BWD),
     ("group_norm", GN_FWD),
