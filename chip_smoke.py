@@ -86,7 +86,9 @@ Phases, in order; any failure exits non-zero:
     batch 2: step-1 gradients with the kernels against the plain
     Function (``flash_attention_ref``), and remat=False and
     xent_chunk=512 against remat=True; the same kernels-vs-plain check at
-    the main path's settings (bf16 compute, batch 8).  Then one step
+    the main path's settings (bf16 compute, batch 8), to whose limits
+    remat=False, "dots" and "attn" are then held against remat=True
+    (launches B3 24, 48, 48; B4, B5 24).  Then one step
     whose launches are counted (B3 48 times, forward and remat
     recompute; B4 and B5 24 times each) and after which every parameter
     must hold a finite gradient; LM_TRAIN_STEPS timed steps on the same batch (the loss
@@ -94,7 +96,38 @@ Phases, in order; any failure exits non-zero:
     LM_PLAIN_STEPS with the plain Function; a checkpoint (parameters and
     AdamW moments in the JAX names and layouts) restored into a fresh
     trainer bit for bit, with the same next loss;
-12. one JSON line of kernels, then the card's name and power limit, then
+12. MoE serving: Flagship-MoE (the flagship widths with 8 experts, top-2
+    gating, capacity factor 2, aux weight 0.01; 2,550 M parameters,
+    seeded random weights, bf16 compute) exported with
+    ``export_generate`` in float32 (the temporary directory's free space
+    printed first; a shortfall fails), served over HTTP (MOE_REQUESTS
+    requests of 8 prompts, 128 + 128 tokens, 24 B3 launches each); the
+    first request's 24 prefill attention calls held against the plain
+    version on their own q, k, v (FLASH_TOL) and its served tokens
+    against in-process ``generate``; the tokens teacher-forced through
+    plain attention by prefill and decode steps (an MoE forward over the
+    whole sequence drops tokens past an expert's capacity, a decode step
+    never does), the share past LM_TF_TOL held against plain-vs-plain
+    (MOE_TF_SHARE), and the prefill logits held against plain attention's
+    as the dense LM's;
+13. MoE training at batch 8 x 2048, bf16 compute, AdamW, remat: step-1
+    gradients with the kernels against the plain Function, leaf by leaf
+    against their floors (router and expert leaves nonzero); one counted
+    step (B3 48, B4 24, B5 24) and MOE_TRAIN_STEPS timed steps through
+    the CollectiveTrainer (the loss must fall), the aux loss before and
+    after, ms per step, tokens/s and peak memory;
+14. remat policies: the dense LM through the trainer at batch 8 x 2048
+    under remat False, True, "dots" and "attn": launches per step, ms
+    per step over REMAT_STEPS steps, peak allocated memory;
+15. LoRA (rank 8, alpha 16, the attention projections) on the dense LM
+    exported by phase 9, through the trainer at batch 8 x 2048, bf16,
+    remat: step-0 logits bitwise the base's; one counted step and
+    LORA_STEPS timed steps (the loss must fall), then the base bitwise
+    unchanged and optimizer state for the adapters only; the merged
+    weights' forward against the LoRA forward (LM_TOL); the merged
+    weights exported with ``export_generate`` and served over HTTP give
+    the tokens in-process ``generate`` gives;
+16. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
@@ -319,6 +352,29 @@ LM_PLAIN_STEPS = 3
 # of a training step), each leaf within LM_FLOOR_X times its bf16 floor.
 LM_GRAD_BATCH = 2
 LM_GRAD_MIN = 1e-5
+# Flagship-MoE: the flagship widths with the zoo's MoE settings, top-2
+# gating over 8 experts (GShard, as Mixtral 8x7B), the JAX defaults of
+# capacity factor 2.0 and aux weight 0.01; 2,550 M parameters.  Served as
+# the dense LM (MOE_REQUESTS requests), trained at the dense LM's
+# training shape.
+MOE_PARAMS = LM_PARAMS + ";moe_experts=8;moe_top_k=2"
+MOE_REQUESTS = 2
+# MoE teacher forcing.  A routing choice that bf16 rounding flips moves a
+# token's logits by up to ~0.3 x max|logit|, between two plain paths as
+# between the kernel and plain (prefill floors ~0.35, PERF.md), so no
+# per-token limit separates them; the share of chosen tokens past
+# LM_TF_TOL is held instead: to MOE_TF_SHARE or LM_FLOOR_X x the plain-
+# vs-plain share (8.9 % against the kernel's 5.2 % on the H100),
+# whichever is larger.  A wrong kernel moves nearly every token.  The
+# kernel itself is held per call on the path's own q, k, v (FLASH_TOL).
+MOE_TF_SHARE = 0.01
+MOE_TRAIN_STEPS = 5
+# Timed steps per remat setting (remat_phase).
+REMAT_STEPS = 3
+# LoRA on the dense flagship: rank 8, alpha 16, the attention projections
+# (the JAX spec's defaults), remat, the JAX spec's learning rate 1e-4.
+LORA_PARAMS = LM_PARAMS + ";remat=true;rank=8;alpha=16"
+LORA_STEPS = 5
 
 
 def fail(msg):
@@ -1389,17 +1445,209 @@ def flash_bwd_phase(torch, fa):
     return worst, timed
 
 
-def transformer_phase(torch, fa):
+def serve_lm(torch, fa, export_dir, prompts, name="lm"):
+    """Serve the generation export at ``export_dir`` (a version under a
+    base) over HTTP on the card and send one :predict request per batch
+    of ``prompts``.  Returns (generated ids per request, latencies ms,
+    B3 launches per request, the endpoint)."""
+    from elasticdl_tpu_torch.serving.server import ModelEndpoint, build_server
+
+    endpoint = ModelEndpoint(os.path.dirname(export_dir), device="cuda")
+    server = build_server(endpoint, port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    prompt_len, new = prompts.shape[-1], endpoint._snapshot().generate[
+        "max_new_tokens"]
+    try:
+        code, meta = http_json(port, "GET", "/v1/models/" + name)
+        if code != 200 or meta["metadata"]["generate"] != {
+                "prompt_len": prompt_len, "max_new_tokens": new,
+                "temperature": 0.0}:
+            fail("%s metadata: %s %s" % (name, code, meta))
+        latencies, generated, launches = [], [], []
+        for batch in prompts:
+            body = json.dumps({"instances": batch.tolist()})
+            fa.LAUNCHES = 0
+            t0 = time.perf_counter()
+            code, resp = http_json(port, "POST",
+                                   "/v1/models/%s:predict" % name, body)
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            launches.append(fa.LAUNCHES)
+            if code != 200:
+                fail("%s predict: %s %s" % (name, code, resp))
+            generated.append(np.asarray(resp["predictions"], np.int64))
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    vocab = endpoint._snapshot().module.cfg.vocab_size
+    for batch, seq in zip(prompts, generated):
+        if seq.shape != (batch.shape[0], prompt_len + new):
+            fail("%s generated shape %s" % (name, seq.shape))
+        if not np.array_equal(seq[:, :prompt_len], batch):
+            fail("%s: the prompt did not come back unchanged" % name)
+        if seq.min() < 0 or seq.max() >= vocab:
+            fail("%s: generated ids outside the vocab" % name)
+    return generated, latencies, launches, endpoint
+
+
+def teacher_forced_logits(torch, served, cfg, seq, prompt_len):
+    """The logits that predict each generated token of ``seq`` [B, T]:
+    one forward over the whole sequence, or, for an MoE, prefill over the
+    prompt and one decode step per token, as ``generate`` computes them.
+    An MoE forward drops the tokens past an expert's capacity in the
+    sequence, and a decode step (one token, capacity 1) never does, so
+    only the stepwise path computes what was served."""
+    from elasticdl_tpu_torch.models import transformer as tfm
+
+    if not cfg.moe_experts:
+        return tfm.forward(served, seq, cfg)[:, prompt_len - 1:-1]
+    total = seq.shape[1]
+    last, caches = tfm.prefill(served, cfg, seq[:, :prompt_len], total)
+    rows = [last]
+    for t in range(prompt_len, total - 1):
+        last, caches = tfm.decode_step(served, cfg, caches, t, seq[:, t])
+        rows.append(last)
+    return torch.stack(rows, dim=1)
+
+
+def chosen_gap(rows, chosen):
+    """How far below its row's max the logit of each chosen token lies,
+    as a share of max|logit|: (the largest gap, the share of tokens whose
+    gap exceeds LM_TF_TOL)."""
+    gaps = (rows.max(dim=-1).values
+            - rows.gather(-1, chosen[..., None])[..., 0])
+    gaps = gaps / rows.abs().max()
+    return float(gaps.max()), float((gaps > LM_TF_TOL).float().mean())
+
+
+def check_lm_against_plain(torch, fa, served, cfg, prompts, generated,
+                           what):
+    """Teacher-force the served tokens through plain attention
+    (``teacher_forced_logits``): the logit of each token the kernel path
+    chose must lie within LM_TF_TOL of the plain row max; for an MoE,
+    the share of tokens past LM_TF_TOL is held to MOE_TF_SHARE or
+    LM_FLOOR_X x that share between two equally valid plain paths (the
+    plain path's own choices under plain attention with p unrounded),
+    whichever is larger.  Then hold the kernel path's prefill logits against plain
+    attention's, within the larger of LM_TOL and LM_FLOOR_X x the noise
+    floor (plain against unrounded).  Returns the worst readings, each as
+    a share of max|logit|."""
+    from elasticdl_tpu_torch.models import transformer as tfm
+
+    prompt_len = prompts.shape[-1]
+    total = generated[0].shape[1]
+    out = {"teacher_forced_worst_gap": 0.0, "teacher_forced_floor": 0.0,
+           "teacher_forced_share_over": 0.0, "floor_share_over": 0.0,
+           "prefill_rel_err_bf16": 0.0,
+           "prefill_rel_err_bf16_p_unrounded": 0.0}
+
+    def worst(key, value):
+        out[key] = max(out[key], value)
+
+    with torch.inference_mode():
+        for seq in generated:
+            seq_d = torch.from_numpy(seq).cuda()
+            prompt = seq_d[:, :prompt_len]
+            before = fa.LAUNCHES
+            with plain_attention(fa):
+                rows = teacher_forced_logits(torch, served, cfg, seq_d,
+                                             prompt_len)
+                plain_last, _ = tfm.prefill(served, cfg, prompt, total)
+            with plain_attention(fa, unrounded=True):
+                rows_u = teacher_forced_logits(torch, served, cfg, seq_d,
+                                               prompt_len)
+                unrounded_last, _ = tfm.prefill(served, cfg, prompt, total)
+            if fa.LAUNCHES != before:
+                fail("the plain-attention path launched the kernel")
+            gap, over = chosen_gap(rows, seq_d[:, prompt_len:])
+            floor_gap, floor_over = chosen_gap(rows_u, rows.argmax(dim=-1))
+            del rows, rows_u
+            if cfg.moe_experts:
+                limit = max(MOE_TF_SHARE, LM_FLOOR_X * floor_over)
+                if over > limit:
+                    fail("%s teacher forcing: %.2f %% of the chosen tokens' "
+                         "plain logits lie over %g x max|logit| below the "
+                         "plain row max (limit %.2f %%; plain vs plain %.2f "
+                         "%%)" % (what, 100 * over, LM_TF_TOL, 100 * limit,
+                                  100 * floor_over))
+            elif gap > LM_TF_TOL:
+                fail("%s teacher forcing: a chosen token's plain logit lies "
+                     "%.3g x max|logit| below the plain row max (limit %g)"
+                     % (what, gap, LM_TF_TOL))
+            worst("teacher_forced_worst_gap", gap)
+            worst("teacher_forced_floor", floor_gap)
+            worst("teacher_forced_share_over", over)
+            worst("floor_share_over", floor_over)
+            kernel_last, _ = tfm.prefill(served, cfg, prompt, total)
+            scale_p = float(plain_last.abs().max())
+            floor = float(
+                (unrounded_last - plain_last).abs().max()) / scale_p
+            limit = max(LM_TOL["bfloat16"], LM_FLOOR_X * floor)
+            err = check_close("%s prefill logits bf16, kernel vs plain"
+                              % what, kernel_last, plain_last,
+                              limit * scale_p, 0.0)
+            worst("prefill_rel_err_bf16", err / scale_p)
+            worst("prefill_rel_err_bf16_p_unrounded", floor)
+    print("%s check: teacher-forced over %d x %d generated tokens, worst "
+          "chosen-token gap to the plain row max %.3g x max|logit| (%s; "
+          "plain vs plain %.3g), tokens over %g: %.2f %% (plain vs plain: "
+          "%.2f %%); prefill logits, "
+          "kernel vs plain, bf16: max err %.3g x max|logit| (limit the "
+          "larger of %g and %g x the noise floor: plain vs plain with p "
+          "unrounded, %.3g)"
+          % (what, sum(g.shape[0] for g in generated), total - prompt_len,
+             out["teacher_forced_worst_gap"],
+             "the share over %g held to the larger of %g %% and %g x plain "
+             "vs plain" % (LM_TF_TOL, 100 * MOE_TF_SHARE, LM_FLOOR_X)
+             if cfg.moe_experts else "limit %g" % LM_TF_TOL,
+             out["teacher_forced_floor"], LM_TF_TOL,
+             100 * out["teacher_forced_share_over"],
+             100 * out["floor_share_over"], out["prefill_rel_err_bf16"],
+             LM_TOL["bfloat16"], LM_FLOOR_X,
+             out["prefill_rel_err_bf16_p_unrounded"]))
+    return out
+
+
+@contextlib.contextmanager
+def checked_attention(fa, errs):
+    """Hold every flash attention call of the transformer against its
+    plain version (``flash_attention_ref``) on the same q, k, v, within
+    FLASH_TOL; appends each call's max abs error to ``errs``."""
+    from elasticdl_tpu_torch.parallel import ring_attention as ra
+
+    kernel = ra.flash_attention
+
+    def checked(q, k, v, causal=True, scale=None, window=0):
+        out = kernel(q, k, v, causal=causal, scale=scale, window=window)
+        ref = fa.flash_attention_ref(q, k, v, causal=causal, scale=scale,
+                                     window=window)
+        name = str(q.dtype).replace("torch.", "")
+        errs.append(check_close(
+            "attention call %d on the path's tensors %s" % (len(errs),
+                                                            tuple(q.shape)),
+            out, ref, *FLASH_TOL[name]))
+        return out
+
+    ra.flash_attention = checked
+    try:
+        yield
+    finally:
+        ra.flash_attention = kernel
+
+
+def transformer_phase(torch, fa, tmp):
     """The flagship transformer LM (436 M parameters, seeded random
-    weights, bf16 compute) exported with the port's ``export_generate``,
-    served by the port's HTTP server on the card and queried with
-    REQUESTS :predict requests of LM_BATCH prompts; then checked against
-    the same module on plain attention and timed."""
+    weights, bf16 compute) exported with the port's ``export_generate``
+    under ``tmp`` (kept: the LoRA phase adapts it), served by the port's
+    HTTP server on the card and queried with REQUESTS :predict requests
+    of LM_BATCH prompts; then checked against the same module on plain
+    attention and timed."""
     import dataclasses
 
     from elasticdl_tpu_torch.models import transformer as tfm
     from elasticdl_tpu_torch.models.spec import load_model_spec
-    from elasticdl_tpu_torch.serving.server import ModelEndpoint, build_server
     from elasticdl_tpu_torch.utils.device import use_float32_numerics
 
     use_float32_numerics()   # as the serving entry point: TF32 off
@@ -1411,115 +1659,38 @@ def transformer_phase(torch, fa):
     prompts = np.random.RandomState(4).randint(
         0, cfg.vocab_size, size=(REQUESTS, LM_BATCH, LM_PROMPT)).astype(
             np.int32)
-    with tempfile.TemporaryDirectory() as tmp:
-        export_dir = os.path.join(tmp, "lm", "1")
-        t0 = time.perf_counter()
-        tfm.export_generate(export_dir, module, cfg, max_new_tokens=LM_NEW,
-                            prompt_len=LM_PROMPT, model_name="lm",
-                            version=1)
-        out["export_s"] = time.perf_counter() - t0
-        del module
-        torch.cuda.empty_cache()
-        t0 = time.perf_counter()
-        endpoint = ModelEndpoint(os.path.dirname(export_dir), device="cuda")
-        out["load_s"] = time.perf_counter() - t0
-        server = build_server(endpoint, port=0)
-        port = server.server_address[1]
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        try:
-            code, meta = http_json(port, "GET", "/v1/models/lm")
-            if code != 200 or meta["metadata"]["generate"] != {
-                    "prompt_len": LM_PROMPT, "max_new_tokens": LM_NEW,
-                    "temperature": 0.0}:
-                fail("lm metadata: %s %s" % (code, meta))
-            bodies = [json.dumps({"instances": p.tolist()}) for p in prompts]
-            fa.LAUNCHES = 0
-            latencies, generated = [], []
-            for body in bodies:
-                t0 = time.perf_counter()
-                code, resp = http_json(port, "POST", "/v1/models/lm:predict",
-                                       body)
-                latencies.append((time.perf_counter() - t0) * 1e3)
-                if code != 200:
-                    fail("lm predict: %s %s" % (code, resp))
-                generated.append(np.asarray(resp["predictions"], np.int64))
-            launches = fa.LAUNCHES
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=60)
-    if launches != cfg.num_layers * len(bodies):
-        fail("flash kernel launched %d times over %d requests, want %d "
-             "each (one per layer of prefill)" % (
-                 launches, len(bodies), cfg.num_layers))
-    for prompt, seq in zip(prompts, generated):
-        if seq.shape != (LM_BATCH, LM_PROMPT + LM_NEW):
-            fail("generated shape %s" % (seq.shape,))
-        if not np.array_equal(seq[:, :LM_PROMPT], prompt):
-            fail("the prompt did not come back unchanged")
-        if seq.min() < 0 or seq.max() >= cfg.vocab_size:
-            fail("generated ids outside the vocab")
+    export_dir = os.path.join(tmp, "lm", "1")
+    t0 = time.perf_counter()
+    tfm.export_generate(export_dir, module, cfg, max_new_tokens=LM_NEW,
+                        prompt_len=LM_PROMPT, model_name="lm", version=1)
+    out["export_s"] = time.perf_counter() - t0
+    out["export_dir"] = export_dir
+    del module
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    generated, latencies, per_request, endpoint = serve_lm(
+        torch, fa, export_dir, prompts)
+    out["serve_s"] = time.perf_counter() - t0
+    launches = sum(per_request)
+    if per_request != [cfg.num_layers] * REQUESTS:
+        fail("flash kernel launched %s times per request, want %d each "
+             "(one per layer of prefill)" % (per_request, cfg.num_layers))
     out.update({"launches": launches, "latency_ms": latencies,
                 "generated_tokens_per_s": LM_BATCH * LM_NEW / float(
                     np.median(latencies)) * 1e3})
-    print("lm serve: %s M parameters, export %.1f s, load %.1f s; %d "
-          "requests x %d prompts x (%d + %d) tokens, latency ms %s, "
+    print("lm serve: %s M parameters, export %.1f s, load and serve %.1f "
+          "s; %d requests x %d prompts x (%d + %d) tokens, latency ms %s, "
           "%.1f generated tokens/s (median request); flash launches %d "
           "(%d per request)" % (
               "%.1f" % (out["parameters"] / 1e6), out["export_s"],
-              out["load_s"], len(bodies), LM_BATCH, LM_PROMPT, LM_NEW,
+              out["serve_s"], REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW,
               ["%.1f" % t for t in latencies],
-              out["generated_tokens_per_s"], launches,
-              launches // len(bodies)))
+              out["generated_tokens_per_s"], launches, cfg.num_layers))
 
     served = endpoint._snapshot().module
+    out.update(check_lm_against_plain(torch, fa, served, cfg, prompts,
+                                      generated, "lm"))
     with torch.inference_mode():
-        # Teacher forcing: the plain path's forward over each generated
-        # sequence; the logit of each token the kernel path chose must
-        # lie near the plain row max.
-        worst_gap, prefill_err, floor_err = 0.0, 0.0, 0.0
-        for prompt, seq in zip(prompts, generated):
-            seq_d = torch.from_numpy(seq).cuda()
-            before = fa.LAUNCHES
-            with plain_attention(fa):
-                logits = tfm.forward(served, seq_d, cfg)
-                plain_last, _ = tfm.prefill(served, cfg,
-                                            seq_d[:, :LM_PROMPT],
-                                            LM_PROMPT + LM_NEW)
-            if fa.LAUNCHES != before:
-                fail("the plain-attention path launched the kernel")
-            rows = logits[:, LM_PROMPT - 1:-1]
-            chosen = rows.gather(-1, seq_d[:, LM_PROMPT:, None])[..., 0]
-            scale_l = float(rows.abs().max())
-            gap = float((rows.max(dim=-1).values - chosen).max()) / scale_l
-            worst_gap = max(worst_gap, gap)
-            if gap > LM_TF_TOL:
-                fail("teacher forcing: a chosen token's plain logit lies "
-                     "%.3g x max|logit| below the plain row max (limit %g)"
-                     % (gap, LM_TF_TOL))
-            with plain_attention(fa, unrounded=True):
-                unrounded_last, _ = tfm.prefill(
-                    served, cfg, seq_d[:, :LM_PROMPT], LM_PROMPT + LM_NEW)
-            kernel_last, _ = tfm.prefill(served, cfg, seq_d[:, :LM_PROMPT],
-                                         LM_PROMPT + LM_NEW)
-            scale_p = float(plain_last.abs().max())
-            floor = float(
-                (unrounded_last - plain_last).abs().max()) / scale_p
-            limit = max(LM_TOL["bfloat16"], LM_FLOOR_X * floor)
-            err = check_close("lm prefill logits bf16, kernel vs plain",
-                              kernel_last, plain_last, limit * scale_p, 0.0)
-            prefill_err = max(prefill_err, err / scale_p)
-            floor_err = max(floor_err, floor)
-            del logits, rows
-        print("lm check: teacher-forced over %d x %d generated tokens, "
-              "worst chosen-token gap to the plain row max %.3g x "
-              "max|logit| (limit %g); prefill logits, kernel vs plain, "
-              "bf16: max err %.3g x max|logit| (limit the larger of %g and "
-              "%g x the noise floor: plain vs plain with p unrounded, %.3g)"
-              % (REQUESTS * LM_BATCH, LM_NEW, worst_gap, LM_TF_TOL,
-                 prefill_err, LM_TOL["bfloat16"], LM_FLOOR_X, floor_err))
-
         # float32 with TF32 off, prompt 2048, batch 2: the same weights.
         cfg32 = dataclasses.replace(cfg, dtype="float32")
         long_prompt = torch.from_numpy(np.random.RandomState(6).randint(
@@ -1536,10 +1707,7 @@ def transformer_phase(torch, fa):
         print("lm check: prefill logits f32 (TF32 off), batch 2, T=%d, "
               "kernel vs plain: max err %.3g x max|logit| (limit %g)"
               % (cfg.max_seq_len, err32, LM_TOL["float32"]))
-        out.update({"teacher_forced_worst_gap": worst_gap,
-                    "prefill_rel_err_bf16": prefill_err,
-                    "prefill_rel_err_bf16_p_unrounded": floor_err,
-                    "prefill_rel_err_f32_t2048": err32})
+        out["prefill_rel_err_f32_t2048"] = err32
         del kernel_last, plain_last
 
         # Prefill time at batch 8, kernel and plain attention in turns.
@@ -1694,8 +1862,34 @@ def lm_grad_phase(torch, fa, rng):
     module = spec.init_fn(DEVICE, seed=0)
     toks = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, size=(LM_TRAIN_BATCH, cfg.max_seq_len))).to(DEVICE)
-    bf16, grads_k, _ = lm_grads_vs_plain(torch, fa, spec, module, toks,
-                                         "bf16 compute")
+    bf16, grads_k, limit = lm_grads_vs_plain(torch, fa, spec, module, toks,
+                                             "bf16 compute")
+    loss_k = bf16["loss_kernels"]
+    gaps = {}
+    for remat in ("false", "dots", "attn"):
+        spec_r = load_model_spec("transformer", LM_PARAMS + ";remat=" + remat)
+        loss, grads, counts = lm_step1(torch, fa, spec_r, module, toks)
+        fwd = cfg.num_layers * (1 if remat == "false" else 2)
+        if counts != (fwd, cfg.num_layers, cfg.num_layers):
+            fail("bf16 step remat=%s launched (B3, B4, B5) %s" % (remat,
+                                                                  counts))
+        rel = {n: norm_rel(g, grads_k[n]) for n, g in grads.items()}
+        bad = [n for n in rel if not rel[n] <= limit[n]]
+        if bad or not abs(loss - loss_k) <= LM_GRAD_MIN * abs(loss_k):
+            fail("remat=%s vs remat=True (bf16): loss %r vs %r, leaves over "
+                 "the limit %s" % (remat, loss, loss_k, bad[:5]))
+        gaps[remat] = {"loss_rel": abs(loss - loss_k) / abs(loss_k),
+                       "grad_rel_max": max(rel.values()),
+                       "launches": counts}
+        del grads
+        print("lm train check: remat=%s vs remat=True (kernels, bf16, batch "
+              "%d): loss gap %.3g relative, worst leaf gradient gap %.3g "
+              "norm-relative (limit the larger of %g and %g x its floor); "
+              "launches B3 %d, B4 %d, B5 %d" % (
+                  remat, LM_TRAIN_BATCH, gaps[remat]["loss_rel"],
+                  gaps[remat]["grad_rel_max"], LM_GRAD_MIN, LM_FLOOR_X,
+                  *counts))
+    bf16["remat_gaps"] = gaps
     del grads_k, module
     torch.cuda.empty_cache()
     return {"f32": out, "bf16": bf16}
@@ -1723,23 +1917,8 @@ def lm_training_phase(torch, fa):
                                     checkpoint_saver=CheckpointSaver(
                                         tmp.name))
         n_params = sum(p.numel() for p in trainer.module.parameters())
-        # The main path's count: one training step, counters zeroed just
-        # before it and read just after.
-        torch.cuda.synchronize()
-        zero_flash_counts(fa)
-        first = float(trainer.train_minibatch(tokens, tokens)[0])
-        torch.cuda.synchronize()
-        counts = flash_counts(fa)
-        want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
-        if counts != want:
-            fail("a training step launched (B3, B4, B5) %s, want %s "
-                 "(remat runs each layer's forward twice)" % (counts, want))
-        bad = [n for n, p in trainer.module.named_parameters()
-               if p.grad is None or not bool(p.grad.isfinite().all())
-               or float(p.grad.abs().max()) == 0.0]
-        if bad or not math.isfinite(first):
-            fail("step 1: loss %r; parameters without a finite nonzero "
-                 "gradient: %s" % (first, bad[:5]))
+        first, counts = counted_step(torch, fa, trainer, tokens, "LM",
+                                     nonzero=True)
         print("lm train: %.1f M parameters, batch %d x %d, bf16 compute, "
               "AdamW, remat: step 1 loss %.4f, launches B3 %d, B4 %d, B5 %d; "
               "every one of %d parameters got a finite gradient"
@@ -1747,16 +1926,10 @@ def lm_training_phase(torch, fa):
                  counts[2], len(list(trainer.module.parameters()))))
 
         # Timed steps on the same batch: the loss must fall.
-        torch.cuda.synchronize()
-        zero_flash_counts(fa)
-        t0 = time.perf_counter()
-        losses = [trainer.train_minibatch(tokens, tokens)[0]
-                  for _ in range(LM_TRAIN_STEPS)]
-        torch.cuda.synchronize()
-        ms = (time.perf_counter() - t0) * 1e3 / LM_TRAIN_STEPS
-        losses = [float(x) for x in losses]
-        if flash_counts(fa) != tuple(LM_TRAIN_STEPS * c for c in counts):
-            fail("timed steps launched %s" % (flash_counts(fa),))
+        losses, ms, timed = timed_steps(torch, fa, trainer, tokens,
+                                        LM_TRAIN_STEPS)
+        if timed != tuple(LM_TRAIN_STEPS * c for c in counts):
+            fail("timed steps launched %s" % (timed,))
         if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
             fail("loss did not fall over %d steps on one batch: %s"
                  % (LM_TRAIN_STEPS, losses))
@@ -1837,6 +2010,348 @@ def lm_training_phase(torch, fa):
     return out
 
 
+def timed_steps(torch, fa, trainer, tokens, steps):
+    """``steps`` training steps on one batch, host clock around them
+    ending in a synchronise: (losses, ms per step, launches)."""
+    torch.cuda.synchronize()
+    zero_flash_counts(fa)
+    t0 = time.perf_counter()
+    losses = [trainer.train_minibatch(tokens, tokens)[0]
+              for _ in range(steps)]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / steps
+    return [float(x) for x in losses], ms, flash_counts(fa)
+
+
+def counted_step(torch, fa, trainer, tokens, what, nonzero=False):
+    """The main path's count: one training step, counters zeroed just
+    before it and read just after; the step must launch B3 twice per
+    layer (forward and remat recompute), B4 and B5 once, and give every
+    trainable parameter a finite gradient (and a nonzero one with
+    ``nonzero``).  Returns (loss, counts)."""
+    cfg = trainer._spec.config
+    torch.cuda.synchronize()
+    zero_flash_counts(fa)
+    loss = float(trainer.train_minibatch(tokens, tokens)[0])
+    torch.cuda.synchronize()
+    counts = flash_counts(fa)
+    want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    if counts != want:
+        fail("%s: a training step launched (B3, B4, B5) %s, want %s"
+             % (what, counts, want))
+    bad = [n for n, p in trainer.module.named_parameters()
+           if p.requires_grad and (
+               p.grad is None or not bool(p.grad.isfinite().all())
+               or nonzero and float(p.grad.abs().max()) == 0.0)]
+    if bad or not math.isfinite(loss):
+        fail("%s step 1: loss %r; parameters without a finite%s gradient: "
+             "%s" % (what, loss, " nonzero" if nonzero else "", bad[:5]))
+    return loss, counts
+
+
+def moe_serving_phase(torch, fa, tmp):
+    """Flagship-MoE (MOE_PARAMS, seeded random weights, bf16 compute)
+    exported with ``export_generate`` (float32 weights, ~10 GB, into
+    ``tmp``; the free space is printed first and a shortfall fails),
+    served over HTTP with MOE_REQUESTS requests of LM_BATCH prompts (24 B3
+    launches each), and held against plain attention as the dense LM."""
+    import shutil
+
+    from elasticdl_tpu_torch.models import transformer as tfm
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+
+    spec = load_model_spec("transformer", MOE_PARAMS)
+    cfg = spec.config
+    module = spec.init_fn(DEVICE, seed=0)
+    n_params = sum(p.numel() for p in module.parameters())
+    need = 4 * n_params
+    free = shutil.disk_usage(tmp).free
+    print("moe serve: %.1f M parameters, a float32 export of %.2f GB; %.2f "
+          "GB free in %s" % (n_params / 1e6, need / 1e9, free / 1e9, tmp))
+    if free < 1.1 * need:
+        fail("no room for the MoE export: %.2f GB free in %s, it needs "
+             "%.2f GB" % (free / 1e9, tmp, need / 1e9))
+    export_dir = os.path.join(tmp, "moe", "1")
+    t0 = time.perf_counter()
+    tfm.export_generate(export_dir, module, cfg, max_new_tokens=LM_NEW,
+                        prompt_len=LM_PROMPT, model_name="moe", version=1)
+    export_s = time.perf_counter() - t0
+    del module
+    torch.cuda.empty_cache()
+    prompts = np.random.RandomState(14).randint(
+        0, cfg.vocab_size, size=(MOE_REQUESTS, LM_BATCH, LM_PROMPT)).astype(
+            np.int32)
+    t0 = time.perf_counter()
+    generated, latencies, per_request, endpoint = serve_lm(
+        torch, fa, export_dir, prompts, name="moe")
+    serve_s = time.perf_counter() - t0
+    shutil.rmtree(os.path.dirname(export_dir))
+    if per_request != [cfg.num_layers] * MOE_REQUESTS:
+        fail("MoE: flash kernel launched %s times per request, want %d "
+             "each" % (per_request, cfg.num_layers))
+    out = {"parameters": n_params, "export_s": export_s, "serve_s": serve_s,
+           "latency_ms": latencies, "launches_per_request": per_request,
+           "generated_tokens_per_s": LM_BATCH * LM_NEW / float(
+               np.median(latencies)) * 1e3}
+    print("moe serve: export %.1f s, load and serve %.1f s; %d requests x "
+          "%d prompts x (%d + %d) tokens, latency ms %s, %.1f generated "
+          "tokens/s (median request); flash launches per request %s" % (
+              export_s, serve_s, MOE_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW,
+              ["%.1f" % t for t in latencies],
+              out["generated_tokens_per_s"], per_request))
+    served = endpoint._snapshot().module
+    # The kernel on the served path's own tensors: each of the first
+    # request's prefill attention calls against its plain version; then
+    # the served tokens against generate in process.
+    errs = []
+    with torch.inference_mode(), checked_attention(fa, errs):
+        tfm.prefill(served, cfg, torch.from_numpy(prompts[0]).cuda(),
+                    LM_PROMPT + LM_NEW)
+    local = tfm.generate(served, cfg, prompts[0], LM_NEW).cpu().numpy()
+    if len(errs) != cfg.num_layers or not np.array_equal(local,
+                                                         generated[0]):
+        fail("MoE: %d attention calls checked; %d served tokens differ "
+             "from in-process generate" % (
+                 len(errs), int((local != generated[0]).sum())))
+    out["attention_call_max_abs_err"] = max(errs)
+    print("moe check: the first request's %d prefill attention calls, "
+          "kernel vs plain on the path's own q, k, v: max abs err %.3g "
+          "(bf16 limit %g + %g x |ref|); its served tokens equal in-process "
+          "generate" % (len(errs), max(errs), *FLASH_TOL["bfloat16"]))
+    out.update(check_lm_against_plain(torch, fa, served, cfg, prompts,
+                                      generated, "moe"))
+    del served, endpoint
+    torch.cuda.empty_cache()
+    return out
+
+
+def moe_training_phase(torch, fa):
+    """Flagship-MoE trained at batch LM_TRAIN_BATCH x 2048, bf16 compute,
+    AdamW, remat=True: step-1 gradients with the kernels against the plain
+    Function leaf by leaf (``lm_grads_vs_plain``), in float32 at batch
+    LM_GRAD_BATCH and at the main path's settings, the router and expert
+    leaves among them; then through the port's CollectiveTrainer one
+    counted step and MOE_TRAIN_STEPS timed steps on one batch (the loss
+    must fall), with the mean aux loss before and after."""
+    from elasticdl_tpu_torch.models import transformer as tfm
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    rng = np.random.RandomState(15)
+    out = {}
+    # float32 with TF32 off at batch LM_GRAD_BATCH: rounding too small to
+    # flip a routing choice, so the leaves are held near their floors.
+    use_float32_numerics()
+    spec = load_model_spec("transformer", MOE_PARAMS.replace(
+        "dtype=bfloat16", "dtype=float32") + ";remat=true")
+    cfg = spec.config
+    module = spec.init_fn(DEVICE, seed=0)
+    toks = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, size=(LM_GRAD_BATCH, cfg.max_seq_len))).to(DEVICE)
+    out["grad_check_f32"], grads_k, _ = lm_grads_vs_plain(
+        torch, fa, spec, module, toks, "MoE f32 (TF32 off)")
+    del grads_k, module
+    torch.cuda.empty_cache()
+
+    spec = load_model_spec("transformer", MOE_PARAMS + ";remat=true")
+    cfg = spec.config
+    B, T = LM_TRAIN_BATCH, cfg.max_seq_len
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(DEVICE)
+    module = spec.init_fn(DEVICE, seed=0)
+    out["grad_check"], grads_k, _ = lm_grads_vs_plain(
+        torch, fa, spec, module, tokens.long(), "MoE bf16 compute")
+    zero = [n for n in ("layers.w_router", "layers.w_gate", "layers.w_up",
+                        "layers.w_down", "layers.wq")
+            if not float(grads_k[n].abs().max()) > 0]
+    if zero:
+        fail("MoE step-1 gradients are zero for %s" % zero)
+    del grads_k, module
+    torch.cuda.empty_cache()
+
+    trainer = CollectiveTrainer(spec, batch_size=B, device=DEVICE)
+    with torch.no_grad():
+        aux0 = float(tfm.forward(trainer.module, tokens, cfg,
+                                 return_aux=True)[1])
+    torch.cuda.reset_peak_memory_stats()
+    first, counts = counted_step(torch, fa, trainer, tokens, "MoE",
+                                 nonzero=True)
+    losses, ms, timed = timed_steps(torch, fa, trainer, tokens,
+                                    MOE_TRAIN_STEPS)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    if timed != tuple(MOE_TRAIN_STEPS * c for c in counts):
+        fail("MoE timed steps launched %s" % (timed,))
+    if not all(map(math.isfinite, losses)) or not losses[-1] < first:
+        fail("MoE loss did not fall over %d steps on one batch: %s"
+             % (MOE_TRAIN_STEPS + 1, [first] + losses))
+    with torch.no_grad():
+        aux1 = float(tfm.forward(trainer.module, tokens, cfg,
+                                 return_aux=True)[1])
+    n_params = sum(p.numel() for p in trainer.module.parameters())
+    out.update({"parameters": n_params, "launches_per_step": counts,
+                "losses": [first] + losses, "ms_per_step": ms,
+                "tokens_per_s": B * T / ms * 1e3, "peak_gb": peak,
+                "aux_before": aux0, "aux_after": aux1})
+    print("moe train: %.1f M parameters, batch %d x %d, bf16 compute, AdamW, "
+          "remat: launches B3 %d, B4 %d, B5 %d per step; loss %.4f -> %.4f "
+          "over %d steps on one batch; %.2f ms per step, %.0f tokens/s, peak "
+          "%.2f GB; mean aux loss %.4f before, %.4f after (1 = balanced, %d "
+          "= collapsed)" % (n_params / 1e6, B, T, counts[0], counts[1],
+                            counts[2], first, losses[-1], MOE_TRAIN_STEPS + 1,
+                            ms, out["tokens_per_s"], peak, aux0, aux1,
+                            cfg.moe_experts))
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def remat_phase(torch, fa):
+    """The dense flagship LM trained through the port's CollectiveTrainer
+    at batch LM_TRAIN_BATCH x 2048, bf16 compute, AdamW, under each remat
+    setting: the launches of one counted step, REMAT_STEPS timed steps and
+    the peak of allocated memory over them.  (Their step-1 gradients are
+    held against remat=True in ``lm_grad_phase``.)"""
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    rng = np.random.RandomState(16)
+    out = {}
+    for remat in ("false", "true", "dots", "attn"):
+        spec = load_model_spec("transformer", LM_PARAMS + ";remat=" + remat)
+        cfg = spec.config
+        tokens = torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, size=(LM_TRAIN_BATCH, cfg.max_seq_len)
+        ).astype(np.int32)).to(DEVICE)
+        trainer = CollectiveTrainer(spec, batch_size=LM_TRAIN_BATCH,
+                                    device=DEVICE)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        zero_flash_counts(fa)
+        trainer.train_minibatch(tokens, tokens)
+        torch.cuda.synchronize()
+        counts = flash_counts(fa)
+        fwd = cfg.num_layers * (1 if remat == "false" else 2)
+        if counts != (fwd, cfg.num_layers, cfg.num_layers):
+            fail("remat=%s: a training step launched (B3, B4, B5) %s"
+                 % (remat, counts))
+        losses, ms, _ = timed_steps(torch, fa, trainer, tokens, REMAT_STEPS)
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        if not all(map(math.isfinite, losses)):
+            fail("remat=%s: losses %s" % (remat, losses))
+        out[remat] = {"launches_per_step": counts, "ms_per_step": ms,
+                      "tokens_per_s": LM_TRAIN_BATCH * cfg.max_seq_len
+                      / ms * 1e3, "peak_gb": peak}
+        print("lm remat=%s: launches B3 %d, B4 %d, B5 %d per step; %.2f ms "
+              "per step (%d steps), %.0f tokens/s, peak allocated %.2f GB"
+              % (remat, *counts, ms, REMAT_STEPS, out[remat]["tokens_per_s"],
+                 peak))
+        del trainer
+        torch.cuda.empty_cache()
+    return out
+
+
+def lora_phase(torch, fa, base_export):
+    """LoRA on the dense flagship LM (LORA_PARAMS), its base loaded from
+    the transformer serving phase's export: at step 0 its logits equal
+    the base's; through the port's CollectiveTrainer at batch
+    LM_TRAIN_BATCH x 2048, bf16 compute, remat, one counted step and
+    LORA_STEPS timed steps (the loss must fall), after which the base is
+    bitwise unchanged and only the adapters hold optimizer state; the
+    merged weights' forward within bf16 tolerance of the LoRA forward;
+    the merged weights exported with ``export_generate`` and served over
+    HTTP answer what ``generate`` gives in process."""
+    from elasticdl_tpu_torch.models import lora
+    from elasticdl_tpu_torch.models import transformer as tfm
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    rng = np.random.RandomState(17)
+    spec = load_model_spec("lora", LORA_PARAMS + ";base_export="
+                           + base_export)
+    cfg = spec.config
+    B, T = LM_TRAIN_BATCH, cfg.max_seq_len
+    tokens = torch.from_numpy(rng.randint(
+        0, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(DEVICE)
+    probe = tokens[:2]
+    trainer = CollectiveTrainer(spec, batch_size=B, device=DEVICE)
+    module = trainer.module
+    base = {n: p.detach().clone() for n, p in module.base.named_parameters()}
+    adapters = [p for n, p in module.named_parameters()
+                if n.startswith("lora.")]
+    with torch.no_grad():
+        lora_logits = spec.apply_fn(module, probe, False)
+        if not torch.equal(lora_logits, tfm.forward(module.base, probe, cfg)):
+            fail("LoRA at step 0: logits differ from the base's")
+    del lora_logits
+
+    first, counts = counted_step(torch, fa, trainer, tokens, "LoRA")
+    no_b = [n for n, p in module.named_parameters()
+            if n.endswith(".B") and not float(p.grad.abs().max()) > 0]
+    if no_b:
+        fail("LoRA step 1: zero gradient for %s" % no_b)
+    losses, ms, _ = timed_steps(torch, fa, trainer, tokens, LORA_STEPS)
+    if not all(map(math.isfinite, losses)) or not losses[-1] < first:
+        fail("LoRA loss did not fall over %d steps on one batch: %s"
+             % (LORA_STEPS + 1, [first] + losses))
+    moved = [n for n, p in module.base.named_parameters()
+             if not torch.equal(p, base[n])]
+    held = {id(p) for p in trainer._optimizer.state}
+    if moved or held != {id(p) for p in adapters}:
+        fail("LoRA: base parameters moved %s; optimizer state for %d "
+             "tensors, %d adapters" % (moved[:5], len(held), len(adapters)))
+    del base
+
+    merged = lora.merged_params(module, spec.lora["scaling"])
+    with torch.no_grad():
+        want = spec.apply_fn(module, probe, False)
+        got = tfm.forward(merged, probe, cfg)
+    scale = float(want.abs().max())
+    merge_err = check_close("LoRA merged forward vs LoRA forward (bf16)",
+                            got, want, LM_TOL["bfloat16"] * scale,
+                            0.0) / scale
+    del want, got, trainer, module
+    torch.cuda.empty_cache()
+    export_dir = os.path.join(os.path.dirname(os.path.dirname(base_export)),
+                              "lora", "1")
+    tfm.export_generate(export_dir, merged, cfg, max_new_tokens=LM_NEW,
+                        prompt_len=LM_PROMPT, model_name="lora", version=1)
+    prompts = np.random.RandomState(18).randint(
+        0, cfg.vocab_size, size=(1, LM_BATCH, LM_PROMPT)).astype(np.int32)
+    generated, latencies, per_request, endpoint = serve_lm(
+        torch, fa, export_dir, prompts, name="lora")
+    del endpoint
+    local = tfm.generate(merged, cfg, prompts[0], LM_NEW).cpu().numpy()
+    if not np.array_equal(generated[0], local):
+        fail("the merged export served %d tokens that in-process generate "
+             "on the merged weights does not give"
+             % int((generated[0] != local).sum()))
+    n_adapter = sum(p.numel() for p in adapters)
+    out = {"adapter_parameters": n_adapter, "launches_per_step": counts,
+           "losses": [first] + losses, "ms_per_step": ms,
+           "tokens_per_s": B * T / ms * 1e3, "merge_rel_err": merge_err,
+           "served_launches": per_request, "latency_ms": latencies}
+    print("lora: rank %d, alpha %g, targets %s, %d adapter parameters, base "
+          "from %s: step 0 logits equal the base's; batch %d x %d, bf16, "
+          "remat: launches B3 %d, B4 %d, B5 %d per step; loss %.4f -> %.4f "
+          "over %d steps; %.2f ms per step, %.0f tokens/s; base bitwise "
+          "unchanged, optimizer state for the %d adapter tensors only; "
+          "merged vs LoRA forward %.3g x max|logit| (limit %g); merged "
+          "export served %d prompts (%d B3 launches, %.1f ms), tokens equal "
+          "in-process generate" % (
+              spec.lora["rank"], spec.lora["scaling"] * spec.lora["rank"],
+              ",".join(spec.lora["targets"]), n_adapter, base_export, B, T,
+              *counts, first, losses[-1], LORA_STEPS + 1, ms,
+              out["tokens_per_s"], len(adapters), merge_err,
+              LM_TOL["bfloat16"], LM_BATCH, per_request[0], latencies[0]))
+    del merged
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -1900,15 +2415,32 @@ def main():
     t0 = time.perf_counter()
     flash_err, flash_timed = flash_phase(torch, fa)
     phase_s["flash kernel"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    lm = transformer_phase(torch, fa)
-    phase_s["transformer serving"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    flash_bwd_err, bwd_timed = flash_bwd_phase(torch, fa)
-    phase_s["flash backward kernels"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    lm_train = lm_training_phase(torch, fa)
-    phase_s["transformer training"] = time.perf_counter() - t0
+    # Exports of the LM phases: the dense LM's stays for the LoRA phase.
+    exports = tempfile.TemporaryDirectory()
+    try:
+        t0 = time.perf_counter()
+        lm = transformer_phase(torch, fa, exports.name)
+        phase_s["transformer serving"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        flash_bwd_err, bwd_timed = flash_bwd_phase(torch, fa)
+        phase_s["flash backward kernels"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lm_train = lm_training_phase(torch, fa)
+        phase_s["transformer training"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe = moe_serving_phase(torch, fa, exports.name)
+        phase_s["moe serving"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        moe_train = moe_training_phase(torch, fa)
+        phase_s["moe training"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        remat = remat_phase(torch, fa)
+        phase_s["remat policies"] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        lora_out = lora_phase(torch, fa, lm["export_dir"])
+        phase_s["lora"] = time.perf_counter() - t0
+    finally:
+        exports.cleanup()
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -1963,6 +2495,12 @@ def main():
                      "[8, 16, 2048, 64] bfloat16, causal; launches over "
                      "%d served :predict requests" % REQUESTS,
         "launches_training_step": lm_train["launches_per_step"][0],
+        "launches_moe_request": moe["launches_per_request"][0],
+        "launches_moe_training_step": moe_train["launches_per_step"][0],
+        "launches_lora_training_step": lora_out["launches_per_step"][0],
+        "launches_lora_request": lora_out["served_launches"][0],
+        "launches_remat_step": {k: v["launches_per_step"][0]
+                                for k, v in remat.items()},
         "d128": {key: flash_timed["bfloat16 d128"][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }]
@@ -1974,6 +2512,12 @@ def main():
             "source": "elasticdl_tpu_torch/ops/csrc/flash_attention_bwd.cu",
             "replaces": "elasticdl_tpu/ops/flash_attention.py:%d" % line,
             "launches": lm_train["launches_per_step"][1 + i],
+            "launches_moe_training_step":
+                moe_train["launches_per_step"][1 + i],
+            "launches_lora_training_step":
+                lora_out["launches_per_step"][1 + i],
+            "launches_remat_step": {k: v["launches_per_step"][1 + i]
+                                    for k, v in remat.items()},
             "max_abs_err": flash_bwd_err["bfloat16"][0],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -2005,7 +2549,9 @@ def main():
                        "flash_bwd_errors": flash_bwd_err,
                        "flash_bwd_timed": {"%s %s" % k: v for k, v in
                                            bwd_timed.items()},
-                       "lm_train": lm_train,
+                       "lm_train": lm_train, "moe": moe,
+                       "moe_train": moe_train, "remat": remat,
+                       "lora": lora_out,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -11,8 +11,10 @@ In the port:
  - ``apply_fn(module, inputs, train)`` runs it;
  - ``loss_fn(outputs, labels)`` returns a per-example float32 loss
    vector; the trainer masks padding and reduces;
- - ``optimizer(parameters)`` returns a ``torch.optim.Optimizer`` (a
-   factory, where the JAX package holds an optax transformation);
+ - ``optimizer(named_parameters)`` returns a ``torch.optim.Optimizer``
+   (a factory, where the JAX package holds an optax transformation); it
+   is given the module's ``named_parameters()``, which torch optimizers
+   take as they take parameters, so a spec may group them by name;
  - ``feed(records)`` still returns numpy ``(inputs, labels)``;
  - ``eval_metrics_fn()`` returns ``{name: utils.metrics.Metric}``;
  - ``params_from_jax(named)`` maps the JAX package's flat parameter
@@ -82,7 +84,7 @@ class ModelSpec:
     params_to_jax: typing.Callable    # nn.Module -> {jax name: ndarray}
     input_shape: tuple = None         # one example's shape, no batch dim
     loss_fn: typing.Callable = None   # (outputs, labels) -> [batch] f32
-    optimizer: typing.Callable = None  # parameters -> torch Optimizer
+    optimizer: typing.Callable = None  # named parameters -> Optimizer
     eval_metrics_fn: typing.Callable = None  # () -> {name: Metric}
     # (module, prompt, max_new_tokens, temperature, seed) -> tokens;
     # set by zoo entries that serve generation exports

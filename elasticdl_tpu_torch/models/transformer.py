@@ -3,33 +3,45 @@
 
 Pre-norm RMSNorm, RoPE positions, SwiGLU MLP, tied embeddings by default,
 grouped-query attention (``num_kv_heads``) and sliding-window causal
-attention (``window``).  Prompt attention (``forward``, ``prefill``) runs
+attention (``window``), and a top-k mixture-of-experts FFN
+(``moe_experts``).  Prompt attention (``forward``, ``prefill``) runs
 on the flash attention kernels through ``parallel.ring_attention``, and
 their backward kernels when training; decode attends one query against
-the KV cache in plain PyTorch, as the JAX package does in jnp.
+the KV cache in plain PyTorch, as the JAX package does in jnp.  The MoE
+dispatch, experts and combine are einsums in plain PyTorch, as the JAX
+package computes them outside any Pallas kernel.
 
 Parameters are stacked on a leading [num_layers] axis exactly as the JAX
 pytree holds them (``layers.wq`` is [L, E, H*D]) and stay float32; every
 use casts them to ``cfg.dtype``, as the JAX code does (``generate``
 casts them once per call: the same values), so the gradients reach the
 float32 master weights through those casts.  The JAX ``lax.scan`` over
-layers is a Python loop; ``remat=True`` wraps each layer in
+layers is a Python loop; ``remat`` wraps each layer in
 ``torch.utils.checkpoint`` where the JAX code wraps it in
-``jax.checkpoint``, and the chunked cross-entropy checkpoints each chunk
-the same way.
+``jax.checkpoint``: ``True`` keeps only the layer's input, and the two
+policies keep what the JAX policies keep, through selective
+checkpointing (``_REMAT_POLICIES``).  The chunked cross-entropy
+checkpoints each chunk the same way.  Both policies, as remat=True,
+recompute the layer's attention forward in the backward, as the JAX
+package does: the flash Function's (l, m) are not kept.
 
-Not ported yet: MoE, the "dots" and "attn" remat policies, meshes and
-pipelining, the ulysses attention; each raises ``NotImplementedError``
-naming its ROADMAP item.
+Not ported yet: meshes and ``forward_pipelined`` (ROADMAP A18) and the
+ulysses attention (A17); each raises ``NotImplementedError`` naming its
+ROADMAP item.
 """
 
 import dataclasses
+import functools
 import math
 
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (
+    CheckpointPolicy,
+    checkpoint,
+    create_selective_checkpoint_contexts,
+)
 
 from elasticdl_tpu_torch.models.spec import ModelSpec
 from elasticdl_tpu_torch.parallel.ring_attention import ring_attention
@@ -66,15 +78,7 @@ class TransformerConfig:
         if self.dtype not in _DTYPES:
             raise ValueError("dtype must be one of %s, got %r"
                              % (sorted(_DTYPES), self.dtype))
-        if self.moe_experts:
-            raise NotImplementedError(
-                "mixture-of-experts layers are not ported yet (ROADMAP "
-                "A16)")
-        if self.remat in ("dots", "attn"):
-            raise NotImplementedError(
-                "remat policy %r is not ported yet (ROADMAP A16); remat=True "
-                "recomputes whole layers" % (self.remat,))
-        if self.remat not in (False, True):
+        if self.remat not in (False, True, "dots", "attn"):
             raise ValueError("remat must be one of False, True, 'dots', "
                              "'attn'; got %r" % (self.remat,))
         if self.attention_impl != "ring":
@@ -133,11 +137,17 @@ class TransformerLM(torch.nn.Module):
 
         self.embed = empty(cfg.vocab_size, E)
         self.layers = torch.nn.Module()
-        for name, shape in (("ln1", (L, E)), ("wq", (L, E, H * D)),
-                            ("wk", (L, E, G * D)), ("wv", (L, E, G * D)),
-                            ("wo", (L, H * D, E)), ("ln2", (L, E)),
-                            ("w_gate", (L, E, F_)), ("w_up", (L, E, F_)),
-                            ("w_down", (L, F_, E))):
+        shapes = [("ln1", (L, E)), ("wq", (L, E, H * D)),
+                  ("wk", (L, E, G * D)), ("wv", (L, E, G * D)),
+                  ("wo", (L, H * D, E)), ("ln2", (L, E))]
+        X = cfg.moe_experts
+        if X:
+            shapes += [("w_router", (L, E, X)), ("w_gate", (L, X, E, F_)),
+                       ("w_up", (L, X, E, F_)), ("w_down", (L, X, F_, E))]
+        else:
+            shapes += [("w_gate", (L, E, F_)), ("w_up", (L, E, F_)),
+                       ("w_down", (L, F_, E))]
+        for name, shape in shapes:
             setattr(self.layers, name, empty(*shape))
         self.ln_f = empty(E)
         if not cfg.tied_embeddings:
@@ -151,17 +161,24 @@ def init_params(generator, cfg, device=None):
     """A :class:`TransformerLM` with the JAX ``init_params`` families drawn
     from ``generator`` (a ``torch.Generator`` on ``device``): norms 1,
     dense kernels N(0, 1/fan_in) with fan_in the second-to-last axis,
-    ``embed`` (and ``lm_head``) N(0, 0.02^2)."""
+    ``embed`` (and ``lm_head``, ``w_router``) N(0, 0.02^2)."""
     module = TransformerLM(cfg, device=device)
     with torch.no_grad():
         for name, p in module.named_parameters():
             if name in ("ln_f", "layers.ln1", "layers.ln2"):
                 p.fill_(1.0)
                 continue
-            std = (0.02 if name in ("embed", "lm_head")
+            std = (0.02 if name in ("embed", "lm_head", "layers.w_router")
                    else 1.0 / math.sqrt(p.shape[-2]))
             p.normal_(0.0, std, generator=generator)
     return module
+
+
+def _named(params):
+    """(name, tensor) pairs of a :class:`TransformerLM` or of a dict in
+    its names (``models.lora`` hands its merged weights in as one)."""
+    return (params.items() if isinstance(params, dict)
+            else params.named_parameters())
 
 
 def _cast(params, cfg, names=None):
@@ -169,7 +186,7 @@ def _cast(params, cfg, names=None):
     code casts (``w["wq"].astype(compute_dtype)``); only ``names`` when
     given."""
     dtype = cfg.compute_dtype
-    return {name: p.to(dtype) for name, p in params.named_parameters()
+    return {name: p.to(dtype) for name, p in _named(params)
             if names is None or name in names}
 
 
@@ -205,10 +222,98 @@ def _ffn(h, w):
     return (gate * (h @ w["w_up"])) @ w["w_down"]
 
 
+def _top_k(probs, k):
+    """``jax.lax.top_k`` over the last axis: the k largest, ties broken
+    toward the lower index (a stable sort; ``torch.topk`` promises no
+    order among equal values)."""
+    values, indices = torch.sort(probs, dim=-1, descending=True,
+                                 stable=True)
+    return values[..., :k], indices[..., :k]
+
+
+def _moe_ffn(h, w, cfg):
+    """Top-k mixture-of-experts FFN (the JAX ``_moe_ffn`` with no mesh).
+
+    Dense dispatch and combine over one-hot capacity slots per sequence:
+    choice 0 has priority, and choice j's slots start after the tokens
+    every earlier choice sent to that expert; a token past an expert's
+    capacity falls to its other choices or to the residual.  Dispatch
+    and combine run in float32, the experts in the compute dtype.
+    Returns (out [B, T, E] in h's dtype, aux, stats): aux is the Switch
+    load-balance loss X * sum_x frac_top1(x) * mean_prob(x), taken from
+    the top-1 assignment before capacity, and stats the [2, X] stack of
+    those two statistics."""
+    B, T, _ = h.shape
+    X = cfg.moe_experts
+    K = min(cfg.moe_top_k, X)
+    capacity = max(1, min(T, int(T * K * cfg.moe_capacity_factor / X) + 1))
+    probs = torch.softmax((h @ w["w_router"]).float(), dim=-1)   # [B,T,X]
+
+    top1 = F.one_hot(probs.argmax(dim=-1), X).float()
+    frac_tokens = top1.mean(dim=(0, 1))
+    mean_probs = probs.mean(dim=(0, 1))
+    stats = torch.stack([frac_tokens, mean_probs])
+    aux = X * (frac_tokens * mean_probs).sum()
+
+    gate_vals, experts = _top_k(probs, K)                        # [B,T,K]
+    if K > 1:
+        # GShard renormalisation over the chosen experts; top-1 keeps the
+        # raw gate (Switch), which keeps the router in the task loss.
+        gate_vals = gate_vals / gate_vals.sum(
+            dim=-1, keepdim=True).clamp_min(1e-9)
+
+    disp = combine = 0.0                                        # [B,T,X,C]
+    offset = h.new_zeros((B, 1, X), dtype=torch.float32)
+    for j in range(K):
+        onehot = F.one_hot(experts[..., j], X).float()          # [B,T,X]
+        pos = torch.cumsum(onehot, dim=1) - 1.0 + offset
+        keep = onehot * (pos < capacity)
+        # keep x one_hot(slot), without a [B, T, X, C] int64 one-hot
+        slot = torch.zeros((B, T, X, capacity), dtype=torch.float32,
+                           device=h.device).scatter(
+            -1, pos.clamp(0, capacity - 1).long()[..., None],
+            keep[..., None])
+        disp = disp + slot
+        combine = combine + gate_vals[..., j, None, None] * slot
+        offset = offset + onehot.sum(dim=1, keepdim=True)
+    xin = torch.einsum("btxc,bte->xbce", disp, h.float()).to(h.dtype)
+    g = F.silu(torch.einsum("xbce,xef->xbcf", xin, w["w_gate"]))
+    u = torch.einsum("xbce,xef->xbcf", xin, w["w_up"])
+    y = torch.einsum("xbcf,xfe->xbce", g * u, w["w_down"])
+    out = torch.einsum("btxc,xbce->bte", combine, y.float())
+    return out.to(h.dtype), aux, stats
+
+
+def _mlp(h, w, cfg):
+    """The layer's FFN: (out, MoE aux or None)."""
+    if cfg.moe_experts:
+        out, aux, _ = _moe_ffn(h, w, cfg)
+        return out, aux
+    return _ffn(h, w), None
+
+
+@torch.library.custom_op("elasticdl_tpu_torch::checkpoint_name",
+                         mutates_args=())
+def checkpoint_name(x: torch.Tensor, name: str) -> torch.Tensor:
+    """``jax.ad_checkpoint.checkpoint_name``: x, as one op that a remat
+    policy can keep by ``name``.  A custom op returns no alias of its
+    input, so this is a copy."""
+    return x.clone()
+
+
+@checkpoint_name.register_fake
+def _(x, name):
+    return torch.empty_like(x)
+
+
+checkpoint_name.register_autograd(lambda ctx, g: (g, None))
+
+
 def _layer_body(x, w, cfg, positions, return_kv=False):
     """One block over a whole sequence (weights ``w`` of one layer, in the
-    compute dtype).  ``return_kv`` also returns this layer's post-RoPE,
-    pre-GQA-expand (k, v) [B, T, G, D] for the KV cache."""
+    compute dtype) -> (x, MoE aux or None).  ``return_kv`` also returns
+    this layer's post-RoPE, pre-GQA-expand (k, v) [B, T, G, D] for the KV
+    cache, as (x, aux, (k, v))."""
     B, T = x.shape[0], x.shape[1]
     H, D, G = cfg.num_heads, cfg.head_dim, cfg.kv_heads
     h = _rmsnorm(x, w["ln1"])
@@ -221,9 +326,46 @@ def _layer_body(x, w, cfg, positions, return_kv=False):
         k = k.repeat_interleave(H // G, dim=2)
         v = v.repeat_interleave(H // G, dim=2)
     attn = ring_attention(q, k, v, None, causal=True, window=cfg.window)
-    x = x + attn.reshape(B, T, H * D) @ w["wo"]
-    x = x + _ffn(_rmsnorm(x, w["ln2"]), w)
-    return (x, kv) if return_kv else x
+    attn = attn.reshape(B, T, H * D)
+    if cfg.remat == "attn" and torch.is_grad_enabled():
+        attn = checkpoint_name(attn, "attn_out")
+    x = x + attn @ w["wo"]
+    out, aux = _mlp(_rmsnorm(x, w["ln2"]), w, cfg)
+    x = x + out
+    return (x, aux, kv) if return_kv else (x, aux)
+
+
+def _save_matmuls(ctx, op, *args, **kwargs):
+    """``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``: keep
+    the products with no batch dimension, the weight products ``h @ W``
+    that PyTorch runs as ``mm`` (``addmm`` with a bias); recompute the
+    rest, the batched MoE einsums (``bmm``) among them."""
+    if op in (torch.ops.aten.mm.default, torch.ops.aten.addmm.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _save_attn_out(ctx, op, *args, **kwargs):
+    """``save_only_these_names("attn_out")``: keep the attention output
+    that ``_layer_body`` names, recompute everything else."""
+    if (op is torch.ops.elasticdl_tpu_torch.checkpoint_name.default
+            and args[1] == "attn_out"):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+_REMAT_POLICIES = {"dots": _save_matmuls, "attn": _save_attn_out}
+
+
+def _checkpointed_layer(x, w, cfg, positions):
+    """``_layer_body`` under ``torch.utils.checkpoint``: remat=True keeps
+    only the layer's input, a policy also what it names."""
+    policy = _REMAT_POLICIES.get(cfg.remat)
+    context_fn = (functools.partial(create_selective_checkpoint_contexts,
+                                    policy) if policy is not None
+                  else torch.utils.checkpoint.noop_context_fn)
+    return checkpoint(_layer_body, x, w, cfg, positions,
+                      use_reentrant=False, context_fn=context_fn)
 
 
 def _head(w, x, cfg):
@@ -233,17 +375,18 @@ def _head(w, x, cfg):
 
 
 def _forward_hidden(w, tokens, cfg):
+    """(final hidden, mean per-layer MoE aux; 0 for the dense FFN)."""
     x = w["embed"][tokens]
     positions = torch.arange(tokens.shape[1], device=x.device)
+    remat = cfg.remat and torch.is_grad_enabled()
+    auxes = []
     for i in range(cfg.num_layers):
-        if cfg.remat and torch.is_grad_enabled():
-            # jax.checkpoint(layer): keep only the layer's input and
-            # recompute the rest in the backward.
-            x = checkpoint(_layer_body, x, _layer(w, i), cfg, positions,
-                           use_reentrant=False)
-        else:
-            x = _layer_body(x, _layer(w, i), cfg, positions)
-    return x
+        layer = _checkpointed_layer if remat else _layer_body
+        x, aux = layer(x, _layer(w, i), cfg, positions)
+        auxes.append(aux)
+    if cfg.moe_experts:
+        return x, torch.stack(auxes).mean()
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
 def forward_hidden(params, tokens, cfg, mesh=None):
@@ -251,16 +394,17 @@ def forward_hidden(params, tokens, cfg, mesh=None):
     and the head, mean per-layer MoE aux loss), as the JAX function
     returns them; the dense FFN's aux is 0."""
     _check_mesh(mesh)
-    hidden = _forward_hidden(_cast(params, cfg), tokens, cfg)
-    return hidden, torch.zeros((), dtype=torch.float32,
-                               device=hidden.device)
+    return _forward_hidden(_cast(params, cfg), tokens, cfg)
 
 
-def forward(params, tokens, cfg, mesh=None):
-    """tokens: [B, T] int -> logits [B, T, V] float32."""
+def forward(params, tokens, cfg, mesh=None, return_aux=False):
+    """tokens: [B, T] int -> logits [B, T, V] float32; with
+    ``return_aux`` (training an MoE), (logits, mean per-layer aux)."""
     _check_mesh(mesh)
     w = _cast(params, cfg)
-    return _head(w, _forward_hidden(w, tokens, cfg), cfg)
+    hidden, aux = _forward_hidden(w, tokens, cfg)
+    logits = _head(w, hidden, cfg)
+    return (logits, aux) if return_aux else logits
 
 
 # -- autoregressive decoding --------------------------------------------------
@@ -300,7 +444,7 @@ def _decode_layer(x, w, cfg, ck, cv, pos):
     attn = torch.einsum("bgrt,btgd->bgrd", p, values).reshape(
         B, 1, H * D).to(x.dtype)
     x = x + attn @ w["wo"]
-    return x + _ffn(_rmsnorm(x, w["ln2"]), w)
+    return x + _mlp(_rmsnorm(x, w["ln2"]), w, cfg)[0]
 
 
 def _prefill(w, cfg, prompt, max_len):
@@ -309,8 +453,8 @@ def _prefill(w, cfg, prompt, max_len):
     positions = torch.arange(tp, device=x.device)
     ck, cv = init_kv_cache(cfg, b, max_len, device=x.device)
     for i in range(cfg.num_layers):
-        x, (k, v) = _layer_body(x, _layer(w, i), cfg, positions,
-                                return_kv=True)
+        x, _, (k, v) = _layer_body(x, _layer(w, i), cfg, positions,
+                                   return_kv=True)
         ck[i, :, :tp] = k
         cv[i, :, :tp] = v
     # The head of the last position only: rows are independent, so this
@@ -465,12 +609,14 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
                window=0, xent_chunk=0, num_kv_heads=0):
     """Zoo entry for the flagship LM, with the JAX entry's arguments.
 
-    ``remat`` (False | True; "dots" and "attn" raise) and ``xent_chunk``
-    (> 0: the loss through :func:`next_token_loss_chunked`, no [B, T, V]
-    logits) as in the JAX entry; the optimizer is AdamW at
-    ``learning_rate`` with weight decay 0.01 (``optax.adamw``'s).  A mesh,
-    pipelining, MoE and ``attention_impl="ulysses"`` raise
-    ``NotImplementedError`` naming their ROADMAP item.
+    ``remat`` (False | True | "dots" | "attn"), ``xent_chunk`` (> 0: the
+    loss through :func:`next_token_loss_chunked`, no [B, T, V] logits)
+    and ``moe_experts`` (> 0: top-``moe_top_k`` experts; training adds
+    ``moe_aux_weight`` x the mean per-layer aux loss to the loss) as in
+    the JAX entry; the optimizer is AdamW at ``learning_rate`` with weight
+    decay 0.01 (``optax.adamw``'s).  A mesh, pipelining and
+    ``attention_impl="ulysses"`` raise ``NotImplementedError`` naming
+    their ROADMAP item.
     ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
     serves generation exports.
     """
@@ -509,14 +655,22 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
             # instead of materialising [B, T, V] logits.
             hidden, aux = forward_hidden(module, tokens, cfg)
             return ("hidden", hidden, aux, module)
-        return forward(module, tokens, cfg)
+        return forward(module, tokens, cfg,
+                       return_aux=bool(cfg.moe_experts and train))
 
     def loss_fn(outputs, tokens):
         if isinstance(outputs, tuple) and outputs[0] == "hidden":
-            _, hidden, _, module = outputs
-            return next_token_loss_chunked(module, hidden, tokens, cfg,
+            _, hidden, aux, module = outputs
+            loss = next_token_loss_chunked(module, hidden, tokens, cfg,
                                            chunk=xent_chunk)
-        return next_token_loss(outputs, tokens)
+        elif isinstance(outputs, tuple):      # MoE training: (logits, aux)
+            logits, aux = outputs
+            loss = next_token_loss(logits, tokens)
+        else:
+            return next_token_loss(outputs, tokens)
+        if cfg.moe_experts:
+            loss = loss + cfg.moe_aux_weight * aux
+        return loss
 
     def feed(records):
         toks = np.stack([np.asarray(r[0], dtype=np.int32) for r in records])
@@ -546,15 +700,20 @@ def zoo_params(cfg):
     """The ``model_params`` string that rebuilds ``cfg`` through
     :func:`model_spec` (and the JAX package's)."""
     default = TransformerConfig()
-    if (cfg.mlp_ratio, cfg.tied_embeddings) != (default.mlp_ratio,
-                                                default.tied_embeddings):
+    fixed = ("mlp_ratio", "tied_embeddings", "moe_capacity_factor")
+    if any(getattr(cfg, f) != getattr(default, f) for f in fixed):
         raise ValueError(
-            "the zoo entry takes mlp_ratio=%d and tied embeddings only"
-            % default.mlp_ratio)
-    return ("vocab_size=%d;dim=%d;num_heads=%d;num_layers=%d;seq_len=%d;"
-            "dtype=%s;window=%d;num_kv_heads=%d" % (
-                cfg.vocab_size, cfg.dim, cfg.num_heads, cfg.num_layers,
-                cfg.max_seq_len, cfg.dtype, cfg.window, cfg.num_kv_heads))
+            "the zoo entry takes mlp_ratio=%d, tied embeddings and "
+            "moe_capacity_factor=%g only" % (default.mlp_ratio,
+                                             default.moe_capacity_factor))
+    params = ("vocab_size=%d;dim=%d;num_heads=%d;num_layers=%d;seq_len=%d;"
+              "dtype=%s;window=%d;num_kv_heads=%d" % (
+                  cfg.vocab_size, cfg.dim, cfg.num_heads, cfg.num_layers,
+                  cfg.max_seq_len, cfg.dtype, cfg.window, cfg.num_kv_heads))
+    if cfg.moe_experts:
+        params += ";moe_experts=%d;moe_top_k=%d;moe_aux_weight=%r" % (
+            cfg.moe_experts, cfg.moe_top_k, cfg.moe_aux_weight)
+    return params
 
 
 def export_generate(export_dir, params, cfg, max_new_tokens, prompt_len,

@@ -131,3 +131,24 @@ def export_servable(export_dir, spec_name, model_params, module,
     })
     logger.info("servable export at %s (%d tensors)", export_dir, len(flat))
     return manifest
+
+
+def load_export(export_dir):
+    """An export's weights as ({name: ndarray}, {table: (ids, values)})
+    (counterpart of ``models/callbacks.load_export``): the ``model.npz``
+    that this package's exporter writes, or the JAX package's, in the JAX
+    package's flat names; embedding tables as its ``emb_ids/<table>`` and
+    ``emb_vals/<table>`` pairs.  int8-quantized exports raise."""
+    with np.load(os.path.join(export_dir, "model.npz")) as z:
+        payload = {key: z[key] for key in z.files}
+    if any(key.startswith(("q8/", "q8emb/")) for key in payload):
+        raise NotImplementedError(
+            "int8-quantized exports are not ported yet (ROADMAP A11)")
+    dense, embeddings = {}, {}
+    for key, value in payload.items():
+        if key.startswith("emb_ids/"):
+            name = key[len("emb_ids/"):]
+            embeddings[name] = (value, payload["emb_vals/" + name])
+        elif not key.startswith("emb_vals/"):
+            dense[key] = value
+    return dense, embeddings

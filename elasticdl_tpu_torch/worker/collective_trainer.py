@@ -22,7 +22,13 @@ JAX trainer:
    ``flatten_with_names`` gives optax's states), written on one
    background thread, so a checkpoint moves between the packages in both
    directions.  Each slot takes its parameter's layout map from the
-   spec (``to_jax_layout``, ``from_jax_layout``).
+   spec (``to_jax_layout``, ``from_jax_layout``).  A parameter group
+   with a ``"jax_prefix"`` stands for one inner state of an optax
+   ``multi_transform`` (``models/lora.py``): its names take that prefix
+   (``inner_states/train/inner_state/``) and it has a count of its own;
+   parameters in no group (a frozen base) have no state;
+ - the spec's ``optimizer`` is called with the module's named
+   parameters, so it can group them by name.
 
 Where it differs:
 
@@ -97,6 +103,14 @@ def _pad_batch(tree, batch_size):
 _ADAM = (torch.optim.Adam, torch.optim.AdamW)
 
 
+def _grouped(optimizer, named_params):
+    """(name prefix, JAX name, parameter) of each parameter the optimizer
+    updates, group by group (``_opt_state_to_jax``)."""
+    names = {p: name for name, p in named_params}
+    return [(group.get("jax_prefix", ""), names[p], p)
+            for group in optimizer.param_groups for p in group["params"]]
+
+
 def _opt_state_to_jax(optimizer, named_params, to_jax_layout):
     """A torch optimizer's state -> ``{name: ndarray}`` as
     ``flatten_with_names`` names the optax state it stands for, each slot
@@ -111,19 +125,21 @@ def _opt_state_to_jax(optimizer, named_params, to_jax_layout):
     if isinstance(optimizer, torch.optim.SGD):
         if not optimizer.defaults["momentum"]:
             return out
-        for name, p in named_params:
-            out["0/trace/" + name] = slot(optimizer.state.get(p, {}),
-                                          "momentum_buffer", p)
+        for prefix, name, p in _grouped(optimizer, named_params):
+            out[prefix + "0/trace/" + name] = slot(
+                optimizer.state.get(p, {}), "momentum_buffer", p)
         return out
     if isinstance(optimizer, _ADAM):
-        count = 0
-        for name, p in named_params:
+        # Every group steps together, so each optax count is the step.
+        count = max((int(s["step"]) for s in optimizer.state.values()
+                     if "step" in s), default=0)
+        for group in optimizer.param_groups:
+            out[group.get("jax_prefix", "") + "0/count"] = np.asarray(
+                count, np.int32)
+        for prefix, name, p in _grouped(optimizer, named_params):
             state = optimizer.state.get(p, {})
-            if "step" in state:
-                count = int(state["step"])
-            out["0/mu/" + name] = slot(state, "exp_avg", p)
-            out["0/nu/" + name] = slot(state, "exp_avg_sq", p)
-        out["0/count"] = np.asarray(count, np.int32)
+            out[prefix + "0/mu/" + name] = slot(state, "exp_avg", p)
+            out[prefix + "0/nu/" + name] = slot(state, "exp_avg_sq", p)
         return out
     raise NotImplementedError(
         "no checkpoint mapping for optimizer %s" % type(optimizer).__name__)
@@ -143,17 +159,17 @@ def _opt_state_from_jax(optimizer, named_params, named, from_jax_layout):
 
     if isinstance(optimizer, torch.optim.SGD):
         if optimizer.defaults["momentum"]:
-            for name, p in named_params:
+            for prefix, name, p in _grouped(optimizer, named_params):
                 optimizer.state[p]["momentum_buffer"] = slot(
-                    "0/trace/" + name, p)
+                    prefix + "0/trace/" + name, p)
         return
     if isinstance(optimizer, _ADAM):
-        count = float(np.asarray(named["0/count"]))
-        for name, p in named_params:
+        for prefix, name, p in _grouped(optimizer, named_params):
+            count = float(np.asarray(named[prefix + "0/count"]))
             optimizer.state[p] = {
                 "step": torch.tensor(count, dtype=torch.float32),
-                "exp_avg": slot("0/mu/" + name, p),
-                "exp_avg_sq": slot("0/nu/" + name, p),
+                "exp_avg": slot(prefix + "0/mu/" + name, p),
+                "exp_avg_sq": slot(prefix + "0/nu/" + name, p),
             }
         return
     raise NotImplementedError(
@@ -184,7 +200,10 @@ class CollectiveTrainer(Trainer):
         self._ckpt_executor = None
         self._ckpt_future = None
         self._module = spec.init_fn(self._device, rng_seed)
-        self._optimizer = spec.optimizer(self._module.parameters())
+        self._optimizer = self._new_optimizer()
+
+    def _new_optimizer(self):
+        return self._spec.optimizer(self._module.named_parameters())
 
     def set_accum_steps(self, accum_steps):
         self._accum_steps = accum_steps
@@ -305,7 +324,7 @@ class CollectiveTrainer(Trainer):
         JAX names) and start the optimizer afresh, as the JAX trainer
         re-inits its optimizer state."""
         self._module.load_state_dict(state_dict)
-        self._optimizer = self._spec.optimizer(self._module.parameters())
+        self._optimizer = self._new_optimizer()
 
     def export_parameters(self):
         """``{JAX name: ndarray}`` in the JAX layouts (host copies)."""
@@ -387,8 +406,7 @@ class CollectiveTrainer(Trainer):
                     "checkpoint optimizer state incompatible (%s); "
                     "re-initializing optimizer", e,
                 )
-                self._optimizer = self._spec.optimizer(
-                    self._module.parameters())
+                self._optimizer = self._new_optimizer()
         self._version = version
         logger.info("restored checkpoint version %d", version)
         return True

@@ -7,6 +7,9 @@ one NVIDIA card.  Run from the root of a checkout:
 
     python3 scripts/profile_torch_transformer.py [--steps 5]
     python3 scripts/profile_torch_transformer.py --train [--steps 3]
+    python3 scripts/profile_torch_transformer.py [--train] \
+        --model_params "moe_experts=8;moe_top_k=2"
+    python3 scripts/profile_torch_transformer.py --train --zoo lora
 
 The model is the flagship config (vocab 32768, dim 1024, 24 layers, 16
 heads, 436 M parameters, seeded random weights, bf16 compute) with
@@ -20,8 +23,19 @@ same calls is measured apart, since tracing adds host cost.  With
 ``--train`` it profiles one training step through the port's
 CollectiveTrainer at bench_transformer.py's shape instead: batch 8 x
 2048, bf16 compute, AdamW, remat=True, dense cross entropy, one batch
-repeated.  Prints the card's name and power limit, then one JSON object
-per call as its last lines.
+repeated.  ``--model_params`` adds zoo settings to the flagship's
+(Flagship-MoE: ``moe_experts=8;moe_top_k=2``); ``--zoo lora`` trains
+LoRA adapters (rank 8, alpha 16, the attention projections) on a frozen
+flagship base.  The weight products are also summed by the op that
+launched them (``aten::mm``/``addmm``: the dense projections and the
+head; ``aten::bmm`` on a float32 GEMM kernel: an MoE's dispatch and
+combine einsums, LoRA's A @ B; on a bf16 one: an MoE's experts), from
+the trace's links
+from op to kernel (``device_ms_by_matmul_op``).  ``--model_params
+"remat=dots"`` (or ``attn``, ``false``) trains under that remat policy
+instead of remat=True.
+Prints the card's name and power limit, then one JSON object per call
+as its last lines.
 """
 
 import argparse
@@ -44,12 +58,23 @@ from elasticdl_tpu_torch.ops import flash_attention as fa  # noqa: E402
 
 LM_PARAMS = ("vocab_size=32768;dim=1024;num_heads=16;num_layers=24;"
              "seq_len=2048;dtype=bfloat16")
+LORA_PARAMS = "rank=8;alpha=16"
+# The weight products' groups by launching op and dtype (``profile``).
+MATMUL_OPS = {("aten::mm", False): "dense projections and head (mm)",
+              ("aten::addmm", False): "dense projections and head (mm)",
+              ("aten::bmm", True): "f32 bmm (MoE dispatch, combine; LoRA)",
+              ("aten::bmm", False): "MoE experts (bf16 bmm)"}
+F32_GEMM = ("sgemm", "f32f32_f32f32")    # float32 GEMM kernel names
 BATCH, PROMPT, NEW = 8, 128, 128
 # Kernel-name fragments -> group, first match wins.
 GROUPS = [
     ("flash attention (B3)", ("flash_fwd",)),
     ("flash attention dq (B4)", ("bwd_dq_",)),
     ("flash attention dk, dv (B5)", ("bwd_dkv_",)),
+    # float32 GEMMs: in the LM, an MoE's dispatch and combine einsums and
+    # LoRA's A @ B
+    ("matmul, float32 (MoE dispatch, combine; LoRA A @ B)",
+     ("sgemm", "f32f32_f32f32")),
     ("matmul", ("gemm", "xmma", "nvjet", "cutlass", "gemv", "splitK")),
     ("optimizer (AdamW)", ("multi_tensor_apply", "foreach", "adam")),
     ("softmax (decode attention, cross entropy)", ("softmax", "nll_loss")),
@@ -95,7 +120,7 @@ def profile(fn, steps):
     fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
-    with torch.profiler.profile(activities=acts) as prof:
+    with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
         t0 = time.perf_counter()
         for _ in range(steps):
             fn()
@@ -125,6 +150,8 @@ def profile(fn, steps):
         "flash_launches_per_call": fa.LAUNCHES / steps,
         "flash_bwd_launches_per_call": [fa.BWD_DQ_LAUNCHES / steps,
                                         fa.BWD_DKV_LAUNCHES / steps],
+        # the kernels each mm/addmm/bmm op launched, gemm or not
+        "device_ms_by_matmul_op": matmuls_by_op(prof, steps),
         "device_ms_by_group": dict(sorted(by_group.items(),
                                           key=lambda kv: -kv[1])),
         "top_kernels_ms": {k[:90]: v / steps / 1e3 for k, v in sorted(
@@ -132,13 +159,30 @@ def profile(fn, steps):
     }
 
 
-def profile_training(steps):
-    """One training step of the flagship LM through the port's trainer at
-    bench_transformer.py's shape."""
+def matmuls_by_op(prof, steps):
+    """{MATMUL_OPS group: device ms per call}: the kernels the trace links
+    to each ``aten::mm``, ``addmm`` or ``bmm`` op, float32 or not by the
+    kernel's name."""
+    out = {}
+    for evt in prof.events():
+        for kernel in evt.kernels:
+            f32 = any(k in kernel.name for k in F32_GEMM)
+            group = MATMUL_OPS.get((evt.name, f32))
+            if group is not None:
+                out[group] = (out.get(group, 0.0)
+                              + kernel.duration / steps / 1e3)
+    return out
+
+
+def profile_training(steps, zoo, params):
+    """One training step of the flagship LM (``zoo`` entry, ``params``)
+    through the port's trainer at bench_transformer.py's shape."""
     from elasticdl_tpu_torch.worker.collective_trainer import (
         CollectiveTrainer)
 
-    spec = load_model_spec("transformer", LM_PARAMS + ";remat=true")
+    if "remat=" not in params:
+        params += ";remat=true"
+    spec = load_model_spec(zoo, params)
     cfg = spec.config
     trainer = CollectiveTrainer(spec, batch_size=BATCH, device="cuda")
     tokens = torch.from_numpy(np.random.RandomState(0).randint(
@@ -146,8 +190,8 @@ def profile_training(steps):
             np.int32)).cuda()
     result = profile(lambda: trainer.train_minibatch(tokens, tokens),
                      steps)
-    result["call"] = ("training step batch %d x %d, bf16 compute, AdamW, "
-                      "remat" % (BATCH, cfg.max_seq_len))
+    result["call"] = ("%s training step batch %d x %d, bf16 compute, AdamW; "
+                      "%s" % (zoo, BATCH, cfg.max_seq_len, params))
     return result
 
 
@@ -156,7 +200,19 @@ def main():
     parser.add_argument("--steps", type=int, default=5)
     parser.add_argument("--train", action="store_true",
                         help="profile a training step instead of serving")
+    parser.add_argument("--model_params", default="",
+                        help="zoo settings added to the flagship's")
+    parser.add_argument("--zoo", default="transformer",
+                        choices=("transformer", "lora"),
+                        help="lora: LoRA adapters on a frozen base "
+                             "(with --train)")
     args = parser.parse_args()
+    params = ";".join(p for p in (LM_PARAMS, args.model_params) if p)
+    if args.zoo == "lora":
+        if not args.train:
+            raise SystemExit("--zoo lora profiles training (--train): its "
+                             "servable is a merged plain transformer")
+        params += ";" + LORA_PARAMS
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
     print(subprocess.run(
@@ -165,9 +221,9 @@ def main():
         check=True).stdout.strip())
     build.build_all()
     if args.train:
-        print(json.dumps(profile_training(args.steps)))
+        print(json.dumps(profile_training(args.steps, args.zoo, params)))
         return
-    spec = load_model_spec("transformer", LM_PARAMS)
+    spec = load_model_spec("transformer", params)
     cfg = spec.config
     module = spec.init_fn("cuda", seed=0)
     rng = np.random.RandomState(0)
@@ -180,7 +236,8 @@ def main():
                 0, cfg.vocab_size, size=(BATCH, T))).cuda()
             result = profile(lambda: tfm._prefill(w, cfg, x, max_len),
                              args.steps)
-            result["call"] = "prefill batch %d, T=%d, bf16" % (BATCH, T)
+            result["call"] = "prefill batch %d, T=%d, bf16; %s" % (
+                BATCH, T, params)
             results.append(result)
         prompt = torch.from_numpy(rng.randint(
             0, cfg.vocab_size, size=(BATCH, PROMPT))).cuda()
@@ -189,8 +246,8 @@ def main():
         result = profile(
             lambda: tfm._decode_step(w, cfg, caches, PROMPT, tok),
             args.steps)
-        result["call"] = ("decode step batch %d at position %d, bf16"
-                          % (BATCH, PROMPT))
+        result["call"] = ("decode step batch %d at position %d, bf16; %s"
+                          % (BATCH, PROMPT, params))
         results.append(result)
     for result in results:
         print(json.dumps(result))

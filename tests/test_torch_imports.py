@@ -35,7 +35,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("serving.server", "ops.group_norm", "ops.build",
                  "ops.flash_attention", "parallel.ring_attention",
-                 "models.transformer",
+                 "models.transformer", "models.lora",
                  "models.mnist", "models.resnet", "models.spec",
                  "utils.checkpoint", "utils.metrics",
                  "utils.timing", "worker.trainer",

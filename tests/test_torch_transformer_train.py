@@ -171,9 +171,8 @@ def test_remat_and_xent_chunk_options_validate():
     assert spec(remat="True").config.remat is True
     assert spec(remat=" false ").config.remat is False
     assert spec(remat=True).config.remat is True
-    for policy in ("dots", "attn", "DOTS"):
-        with pytest.raises(NotImplementedError, match="A16"):
-            spec(remat=policy)
+    for policy in ("dots", "attn", "DOTS", " Attn"):
+        assert spec(remat=policy).config.remat == policy.strip().lower()
     with pytest.raises(ValueError, match="remat must be one of"):
         spec(remat="yes")
     with pytest.raises(ValueError, match="remat must be one of"):
