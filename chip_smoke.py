@@ -127,7 +127,28 @@ Phases, in order; any failure exits non-zero:
     weights' forward against the LoRA forward (LM_TOL); the merged
     weights exported with ``export_generate`` and served over HTTP give
     the tokens in-process ``generate`` gives;
-16. one JSON line of kernels, then the card's name and power limit, then
+16. sequence parallelism: the unnormalised flash forward (B3p, ring
+    attention's block step) against its plain version (``_partial_ref``:
+    acc, l and m) at the sp=2 ring's blocks ([8, 16, 1024, 64], causal
+    and not, both dtypes), head_dim 128, windows of 64 and 128 keys and
+    T = 1, 127, 129, 257 (PARTIAL_CHECKS), bitwise across two runs, and
+    timed against its bound and ``_partial_ref``; then ranks spawned on
+    the card (``parallel/launch.py``: one process each, gloo groups whose
+    transport stages tensors through the host, joins under a time limit):
+    at sp=2, ring attention at the flagship's attention shape in bf16
+    (and f32 at batch 2) against attention_local on one rank and the dense
+    f32 softmax; the flagship LM (24 layers, full width, batch 8 x 2048,
+    bf16, AdamW, remat) through the port's SPMDTrainer: step-1 loss and
+    gradients against the sp=1 path (f32 at batch 2, bf16 at batch 8),
+    one counted step (B3p 48 launches on rank 0, 96 on rank 1; B3, B4 and
+    B5 none), SP_TIMED_STEPS timed steps (the loss must fall; ms per step,
+    tokens/s and peak memory per rank) and a checkpoint saved at sp=2,
+    restored at sp=1 in this process (the same loss before and after one
+    more step); at sp=4 (ring distances 2 and 3), ring attention causal
+    and with a window that bands two blocks and skips the third, and a
+    4-layer full-width LM's step-1 gradients (rank r launches B3p 8 (r +
+    1) times);
+17. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
@@ -156,7 +177,9 @@ Tolerances (|got - ref| <= atol + rtol * |ref|):
    activations and gradients of a real step are not of unit size;
  - flash attention, the served and the trained transformer: FLASH_TOL,
    LM_TOL, LM_TF_TOL, FLASH_BWD_TOL and LM_GRAD_MIN below, each with its
-   reason.
+   reason;
+ - sequence parallelism: PARTIAL_TOL, SP2_ATTENTION's comment,
+   ``sp1_reference`` and SP_LOSS_RTOL below.
 """
 
 import argparse
@@ -1140,11 +1163,14 @@ def flash_bound(B, H, T, D, esize, causal, window, part="fwd"):
     fwd (B3): q, k, v read, out written, l, m written; 4 D (q k^T, p v).
     dq (B4): q, k, v, out, dO read, dq written, l, m read, delta written;
     6 D (q k^T, dO v^T, ds k).  dkv (B5): q, k, v, dO read, dk, dv
-    written, l, m, delta read; 8 D (q k^T, dO v^T, p^T dO, ds^T q)."""
+    written, l, m, delta read; 8 D (q k^T, dO v^T, p^T dO, ds^T q).
+    partial (B3p): q, k, v read, the f32 acc written, l, m written; 4 D."""
     pairs = live_pairs(T, causal, window)
     tensors, stats, per_pair = {"fwd": (4, 2, 4), "dq": (6, 3, 6),
-                                "dkv": (6, 3, 8)}[part]
+                                "dkv": (6, 3, 8), "partial": (3, 2, 4)}[part]
     nbytes = tensors * B * H * T * D * esize + stats * B * H * T * 4
+    if part == "partial":
+        nbytes += B * H * T * D * 4       # the f32 acc written
     flops = per_pair * D * pairs * B * H
     bytes_ms = nbytes / HBM_BYTES_PER_S * 1e3
     ops_ms = flops / (BF16_FLOPS_PER_S if esize == 2
@@ -1757,12 +1783,13 @@ def lm_step1(torch, fa, spec, module, toks, attention=None):
                                   module.named_parameters()}, flash_counts(fa)
 
 
-def lm_grads_vs_plain(torch, fa, spec, module, toks, what):
+def lm_grads_vs_plain(torch, fa, spec, module, toks, what, unrounded=None):
     """Step-1 gradients with the kernels (remat: B3 48, B4 24, B5 24
     launches) against the plain Function, each leaf within the larger of
     LM_GRAD_MIN and LM_FLOOR_X x its floor (the plain Function against
     autograd through the dense f32 softmax).  Returns (readings, kernel
-    gradients, limits by leaf)."""
+    gradients, limits by leaf); ``unrounded``, a dict, receives host
+    copies of the dense f32 softmax path's gradients."""
     cfg = spec.config
     loss_k, grads_k, counts = lm_step1(torch, fa, spec, module, toks)
     want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
@@ -1777,6 +1804,9 @@ def lm_grads_vs_plain(torch, fa, spec, module, toks, what):
                                   plain_attention(fa, True))
     floor = {n: norm_rel(grads_p[n], grads_u[n]) for n in grads_p}
     limit = {n: max(LM_GRAD_MIN, LM_FLOOR_X * f) for n, f in floor.items()}
+    floor_kernels = {n: norm_rel(grads_k[n], grads_u[n]) for n in grads_k}
+    if unrounded is not None:
+        unrounded.update({n: g.cpu() for n, g in grads_u.items()})
     del grads_u
     errs = {}
     for n, g in grads_k.items():
@@ -1793,7 +1823,7 @@ def lm_grads_vs_plain(torch, fa, spec, module, toks, what):
     ratio = {n: errs[n] / floor[n] if floor[n] else float("inf")
              for n in errs}
     out = {"loss_kernels": loss_k, "loss_plain": loss_p,
-           "loss_unrounded": loss_u,
+           "loss_unrounded": loss_u, "floor_kernels": floor_kernels,
            "grad_rel_err_max": errs[worst], "grad_rel_err_leaf": worst,
            "floor_max": max(floor.values()),
            "floor_leaf": max(floor, key=floor.get),
@@ -1832,8 +1862,9 @@ def lm_grad_phase(torch, fa, rng):
     module = specs["remat"].init_fn(DEVICE, seed=0)
     toks = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, size=(LM_GRAD_BATCH, cfg.max_seq_len))).to(DEVICE)
+    unrounded = {}
     out, grads_k, limit = lm_grads_vs_plain(
-        torch, fa, specs["remat"], module, toks, "f32 (TF32 off)")
+        torch, fa, specs["remat"], module, toks, "f32 (TF32 off)", unrounded)
     loss_k = out["loss_kernels"]
 
     gaps = {}
@@ -1855,6 +1886,7 @@ def lm_grad_phase(torch, fa, rng):
               "%.3g relative, worst leaf gradient gap %.3g norm-relative"
               % (name, gaps[name]["loss_rel"], gaps[name]["grad_rel_max"]))
     out["settings_gaps"] = gaps
+    refs = {"f32": sp1_reference(toks, out, unrounded, params)}
     del grads_k, module
     torch.cuda.empty_cache()
 
@@ -1862,8 +1894,9 @@ def lm_grad_phase(torch, fa, rng):
     module = spec.init_fn(DEVICE, seed=0)
     toks = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, size=(LM_TRAIN_BATCH, cfg.max_seq_len))).to(DEVICE)
+    unrounded = {}
     bf16, grads_k, limit = lm_grads_vs_plain(torch, fa, spec, module, toks,
-                                             "bf16 compute")
+                                             "bf16 compute", unrounded)
     loss_k = bf16["loss_kernels"]
     gaps = {}
     for remat in ("false", "dots", "attn"):
@@ -1890,9 +1923,22 @@ def lm_grad_phase(torch, fa, rng):
                   gaps[remat]["grad_rel_max"], LM_GRAD_MIN, LM_FLOOR_X,
                   *counts))
     bf16["remat_gaps"] = gaps
+    refs["bf16"] = sp1_reference(toks, bf16, unrounded, LM_PARAMS)
     del grads_k, module
     torch.cuda.empty_cache()
-    return {"f32": out, "bf16": bf16}
+    return {"f32": out, "bf16": bf16}, refs
+
+
+def sp1_reference(toks, check, unrounded, params):
+    """What the sp phase holds the ring path to, on the host, for the model
+    ``params`` at sp=1 (``lm_grads_vs_plain``'s ``check`` and
+    ``unrounded``): the tokens, the kernel path's step-1 loss, the dense
+    f32 softmax path's gradients, and each leaf's limit, the larger of
+    LM_GRAD_MIN and LM_FLOOR_X x the kernel path's distance from those."""
+    return {"tokens": toks.cpu().numpy(), "loss": check["loss_kernels"],
+            "params": params + ";remat=true", "grads": unrounded,
+            "limit": {n: max(LM_GRAD_MIN, LM_FLOOR_X * f)
+                      for n, f in check["floor_kernels"].items()}}
 
 
 def lm_training_phase(torch, fa):
@@ -1904,7 +1950,8 @@ def lm_training_phase(torch, fa):
         CollectiveTrainer)
 
     rng = np.random.RandomState(9)
-    out = {"grad_check": lm_grad_phase(torch, fa, rng)}
+    grad_check, refs = lm_grad_phase(torch, fa, rng)
+    out = {"grad_check": grad_check}
 
     spec = load_model_spec("transformer", LM_PARAMS + ";remat=true")
     cfg = spec.config
@@ -2007,7 +2054,7 @@ def lm_training_phase(torch, fa):
     finally:
         tmp.cleanup()
     torch.cuda.empty_cache()
-    return out
+    return out, refs
 
 
 def timed_steps(torch, fa, trainer, tokens, steps):
@@ -2352,6 +2399,494 @@ def lora_phase(torch, fa, base_export):
     return out
 
 
+# -- sequence parallelism: B3p, ring attention, the SPMD trainer -------------
+
+# B3p (the unnormalised forward, ring attention's block step) against its
+# plain version ``_partial_ref``: (B, H, T, D, dtype, causal, window).  The
+# sp=2 ring's blocks at the flagship training shape (T/sp = 1024: the
+# diagonal block causal, the lower one non-causal) in both dtypes, head_dim
+# 128, windows of one and two 64-key tiles, and T at the edges of the
+# kernels' 128-row blocks.
+PARTIAL_CHECKS = [
+    (8, 16, 1024, 64, "bfloat16", True, 0),
+    (8, 16, 1024, 64, "bfloat16", False, 0),
+    (8, 16, 1024, 64, "float32", True, 0),
+    (8, 16, 1024, 64, "float32", False, 0),
+    (4, 8, 1024, 128, "bfloat16", True, 0),
+    (4, 8, 1024, 128, "float32", False, 0),
+    (2, 16, 1024, 64, "bfloat16", True, 64),
+    (2, 16, 1024, 64, "bfloat16", True, 128),
+    (2, 16, 1, 64, "bfloat16", True, 0),
+    (2, 16, 127, 64, "bfloat16", True, 0),
+    (2, 16, 129, 64, "bfloat16", False, 0),
+    (2, 16, 257, 64, "bfloat16", True, 0),
+]
+PARTIAL_TIMED = (8, 16, 1024, 64)
+# acc is held per row against the row's l: |acc - acc_ref| <= tol x (l_ref
+# + |acc_ref|), FLASH_TOL's out tolerance carried to the unnormalised sum:
+# float32 2e-5, the JAX oracle's (sums in other orders; 5.9e-7 at most on
+# the H100); bfloat16 1e-2, about 3x the largest reading over
+# PARTIAL_CHECKS on the H100 (3.2e-3: the kernel rounds p to bf16 against
+# its running row max before p v, ``_partial_ref`` keeps p in f32, and acc
+# itself is not rounded, so this is one bf16 rounding of p where B3's
+# FLASH_TOL allows two).  m within 1e-5 x max|s|, l within 2e-5 relative,
+# as for B3.
+PARTIAL_TOL = {"float32": 2e-5, "bfloat16": 1e-2}
+# Ring attention against attention_local on one rank (B3, B4, B5), at the
+# flagship's attention [B, T, H, D] in bf16 and, at batch 2, in f32: the
+# output within FLASH_TOL of attention_local's; dq, dk, dv held by
+# ``bwd_errors`` against autograd through the dense f32 softmax on the
+# same inputs, within the larger of SP_BWD_TOL and LM_FLOOR_X x
+# attention_local's own distance from it (the ring's backward keeps p and
+# ds in f32 where the kernels round both to bf16, so ring and
+# attention_local sit apart by about that distance; their gap is printed).
+# SP_BWD_TOL is FLASH_BWD_TOL but for float32's norm limit: the ring's
+# backward sums over 128-key blocks and ranks in another order than the
+# dense reference, 8.9e-7 norm-relative from it at most on the H100 where
+# attention_local sits 3e-7 away; 3e-6 is about 3x that reading.
+SP_BWD_TOL = {"float32": (4e-5, 3e-6), "bfloat16": FLASH_BWD_TOL["bfloat16"]}
+# (seed, dtype, batch, window):
+SP_ATTENTION_T, SP_HEADS, SP_HEAD_DIM = 2048, 16, 64
+SP2_ATTENTION = [(21, "bfloat16", 8, 0), (22, "float32", 2, 0)]
+# At sp=4 (shards of 512) a window of 768 keys bands the blocks at ring
+# distances 1 and 2 (``_partial_banded``) and skips distance 3.
+SP4_ATTENTION = [(23, "bfloat16", 8, 0), (24, "bfloat16", 8, 768)]
+SP_TIMED_STEPS = 3
+SP4_LAYERS = 4
+# A checkpoint saved at sp=2 and restored at sp=1: the loss, and the loss
+# after one more step, within SP_LOSS_RTOL of the sp=2 trainer's.  The two
+# paths' attention rounds differently in bf16: their step-1 losses on the
+# same parameters sit 4.0e-6 apart on the H100, the restored ones 4.1e-7
+# and 2.1e-6; 2e-5 is about 5x the largest.  A lost optimizer state or a
+# wrong parameter moves the loss after the step by far more.
+SP_LOSS_RTOL = 2e-5
+SP_RANKS_TIMEOUT_S = 900
+
+
+def partial_phase(torch, fa):
+    """B3p against ``_partial_ref`` at every PARTIAL_CHECKS shape (acc, l,
+    m), bitwise across two runs at the ring's shapes; then, at
+    PARTIAL_TIMED causal and non-causal in both dtypes, the kernel's time,
+    the plain version's and the bound.  No PyTorch call returns the
+    unnormalised acc (scaled_dot_product_attention normalises), so there
+    is no library time."""
+    dev = torch.device(DEVICE)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    worst = {"float32": 0.0, "bfloat16": 0.0}    # of |err| / (l + |ref|)
+    max_err = {"float32": 0.0, "bfloat16": 0.0}
+    for B, H, T, D, name, causal, window in PARTIAL_CHECKS:
+        q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
+            getattr(torch, name)) for _ in range(3))
+        scale = D ** -0.5
+        before = fa.LAUNCHES, fa.PARTIAL_LAUNCHES
+        acc, l, m = fa.flash_partial_forward(q, k, v, causal=causal,
+                                             window=window)
+        torch.cuda.synchronize()
+        what = "flash_partial B=%d H=%d T=%d D=%d %s causal=%s window=%d" % (
+            B, H, T, D, name, causal, window)
+        if (fa.LAUNCHES, fa.PARTIAL_LAUNCHES) != (before[0], before[1] + 1):
+            fail("%s: launches (B3, B3p) went from %s to %s" % (
+                what, before, (fa.LAUNCHES, fa.PARTIAL_LAUNCHES)))
+        if acc.dtype != torch.float32 or acc.shape != q.shape:
+            fail("%s: acc %s %s" % (what, acc.dtype, tuple(acc.shape)))
+        if not bool(acc.isfinite().all()):
+            fail("%s: non-finite acc" % what)
+        ref_acc, ref_l, ref_m = fa._partial_ref(q, k, v, causal, scale, 0,
+                                                window)
+        rel = float(((acc - ref_acc).abs()
+                     / (ref_l[..., None] + ref_acc.abs())).max())
+        if not rel <= PARTIAL_TOL[name]:
+            fail("%s: acc off by %.3g of (l + |acc|), limit %g"
+                 % (what, rel, PARTIAL_TOL[name]))
+        s_max = float((torch.matmul(q.float(), k.float().transpose(-1, -2))
+                       * scale).abs().max())
+        check_close(what + " m", m, ref_m, 1e-5 * s_max, 0.0)
+        check_close(what + " l", l, ref_l, 0.0, 2e-5)
+        err = float((acc - ref_acc).abs().max())
+        worst[name] = max(worst[name], rel)
+        max_err[name] = max(max_err[name], err)
+        print("check %-66s max_abs_err %.3g, |err| / (l + |acc|) %.3g"
+              % (what, err, rel))
+        del q, k, v, acc, l, m, ref_acc, ref_l, ref_m
+
+    flush = torch.empty(64 * 1024 * 1024, dtype=torch.float32, device=dev)
+    timed = {}
+    B, H, T, D = PARTIAL_TIMED
+    for name in ("bfloat16", "float32"):
+        q, k, v = (torch.randn(B, H, T, D, generator=gen, device=dev).to(
+            getattr(torch, name)) for _ in range(3))
+        for causal in (True, False):
+            if name == "bfloat16":
+                first = fa.flash_partial_forward(q, k, v, causal=causal)
+                again = fa.flash_partial_forward(q, k, v, causal=causal)
+                torch.cuda.synchronize()
+                if not all(torch.equal(a, b) for a, b in zip(first, again)):
+                    fail("flash_partial B=%d H=%d T=%d D=%d causal=%s: two "
+                         "runs are not bitwise equal" % (B, H, T, D, causal))
+                print("check flash_partial B=%d H=%d T=%d D=%d %s causal=%s: "
+                      "acc, l and m bitwise equal across two runs"
+                      % (B, H, T, D, name, causal))
+                del first, again
+            row = {"shape": [B, H, T, D], "dtype": name, "causal": causal,
+                   "ms": time_ms(torch, lambda: fa.flash_partial_forward(
+                       q, k, v, causal=causal), flush),
+                   "plain_ms": time_ms(torch, lambda: fa._partial_ref(
+                       q, k, v, causal, D ** -0.5, 0), flush, reps=5),
+                   "library_ms": None}
+            row.update(flash_bound(B, H, T, D, q.element_size(), causal, 0,
+                                   "partial"))
+            row["bound_share"] = row["bound_ms"] / row["ms"]
+            timed[(name, causal)] = row
+            print("time flash_partial B=%d H=%d T=%d D=%d %s causal=%s: "
+                  "kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s; %.2f "
+                  "GFLOP, %.1f MB), %.1f %% of the bound" % (
+                      B, H, T, D, name, causal, row["ms"], row["plain_ms"],
+                      row["bound_ms"], row["bound_by"], row["gflop"],
+                      row["bytes_ms"] * 1e-3 * HBM_BYTES_PER_S / 1e6,
+                      100 * row["bound_share"]))
+        del q, k, v
+    del flush
+    torch.cuda.empty_cache()
+    return worst, max_err, timed
+
+
+def sp_inputs(torch, seed, name, batch):
+    """The global q, k, v and output gradient g [B, T, H, D] of one ring
+    attention case, the same in every process (a seeded generator on the
+    card)."""
+    gen = torch.Generator(device=DEVICE).manual_seed(seed)
+    return [torch.randn(batch, SP_ATTENTION_T, SP_HEADS, SP_HEAD_DIM,
+                        generator=gen, device=DEVICE).to(getattr(torch, name))
+            for _ in range(4)]
+
+
+def sp_attention_reference(torch, fa, case):
+    """On the host: attention_local's output and (dq, dk, dv) on one rank
+    (B3, B4, B5), and the gradients of autograd through the dense f32
+    softmax on the same inputs."""
+    from elasticdl_tpu_torch.parallel import ring_attention as ra
+
+    seed, name, batch, window = case
+    q, k, v, g = sp_inputs(torch, seed, name, batch)
+    leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+    o = ra.attention_local(*leaves, causal=True, window=window)
+    o.backward(g)
+    local = [o.detach().cpu()] + [t.grad.cpu() for t in leaves]
+    dense = [t.detach().float().requires_grad_() for t in (q, k, v)]
+    od = fa._attention_ref(*(t.transpose(1, 2) for t in dense), True,
+                           SP_HEAD_DIM ** -0.5, window).transpose(1, 2)
+    od.backward(g.float())
+    dense = [t.grad.cpu() for t in dense]
+    del q, k, v, g, leaves, o, od
+    torch.cuda.empty_cache()
+    return local, dense
+
+
+def sp_check_attention(case, local, dense, shards, sp):
+    """Each rank's ring output against attention_local's block, and its
+    gradients against the dense f32 softmax's, as far from them as
+    attention_local is at most LM_FLOOR_X times (SP2_ATTENTION's comment);
+    returns the readings: (worst row, norm-relative) per gradient, for the
+    ring and attention_local against dense f32 and for the ring against
+    attention_local."""
+    seed, name, batch, window = case
+    row_tol, norm_tol = SP_BWD_TOL[name]
+    atol, rtol = FLASH_TOL[name]
+    what = "ring attention sp=%d [%d, %d, %d, %d] %s window=%d" % (
+        sp, batch, SP_ATTENTION_T, SP_HEADS, SP_HEAD_DIM, name, window)
+    tl = SP_ATTENTION_T // sp
+    floor = [bwd_errors(a.float(), d)[1:] for a, d in zip(local[1:], dense)]
+    out = {"out_max_abs_err": 0.0, "ring_vs_dense": [[0.0, 0.0]] * 3,
+           "ring_vs_local": [[0.0, 0.0]] * 3, "local_vs_dense": floor}
+    for rank, got in enumerate(shards):
+        block = slice(rank * tl, (rank + 1) * tl)
+        err = check_close("%s rank %d out" % (what, rank), got[0],
+                          local[0][:, block], atol, rtol)
+        out["out_max_abs_err"] = max(out["out_max_abs_err"], err)
+        for i, part in enumerate(("dq", "dk", "dv")):
+            if not bool(got[1 + i].isfinite().all()):
+                fail("%s rank %d %s: non-finite" % (what, rank, part))
+            row, rel = bwd_errors(got[1 + i].float(),
+                                  dense[i][:, block])[1:]
+            row_lim = max(row_tol, LM_FLOOR_X * floor[i][0])
+            norm_lim = max(norm_tol, LM_FLOOR_X * floor[i][1])
+            if not (row <= row_lim and rel <= norm_lim):
+                fail("%s rank %d %s against dense f32: worst row %.3g "
+                     "(limit %.3g), norm-relative %.3g (limit %.3g)" % (
+                         what, rank, part, row, row_lim, rel, norm_lim))
+            gap = bwd_errors(got[1 + i], local[1 + i][:, block])[1:]
+            out["ring_vs_dense"][i] = [
+                max(a, b) for a, b in zip(out["ring_vs_dense"][i], (row, rel))]
+            out["ring_vs_local"][i] = [
+                max(a, b) for a, b in zip(out["ring_vs_local"][i], gap)]
+    print("check %s: out vs attention_local (B3/B4/B5) max abs err %.3g; "
+          "dq, dk, dv (worst row, norm-relative) against dense f32: ring %s, "
+          "attention_local %s; ring against attention_local %s" % (
+              what, out["out_max_abs_err"],
+              *("; ".join("%.3g, %.3g" % tuple(x) for x in out[key])
+                for key in ("ring_vs_dense", "local_vs_dense",
+                            "ring_vs_local"))))
+    return out
+
+
+def sp_counts(fa):
+    return (fa.LAUNCHES, fa.PARTIAL_LAUNCHES, fa.BWD_DQ_LAUNCHES,
+            fa.BWD_DKV_LAUNCHES)
+
+
+def sp_zero_counts(fa):
+    zero_flash_counts(fa)
+    fa.PARTIAL_LAUNCHES = 0
+
+
+def sp_model_leg(torch, fa, mesh, leg):
+    """One model leg in a rank: the SPMD trainer over ``mesh`` from the
+    zoo entry's seeded init, its step-1 loss and gradients (summed over the
+    ranks), which rank 0 holds leaf by leaf to the sp=1 dense f32 softmax
+    path's within the leaf's limit (``sp1_reference``), and with
+    ``leg["train"]`` one counted step, timed steps and a checkpoint."""
+    from elasticdl_tpu_torch.models import transformer as tfm
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.parallel.spmd_trainer import SPMDTrainer
+    from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
+
+    spec = load_model_spec("transformer", leg["params"])
+    cfg = spec.config
+    rank, sp = mesh.coords["sp"], mesh.shape["sp"]
+
+    def loss_fn(module, batch):
+        toks, targets = batch
+        logits = tfm.forward(module, toks, cfg, mesh=mesh)
+        return tfm.next_token_loss_sum(logits, targets), (targets >= 0).sum()
+
+    trainer = SPMDTrainer(mesh, spec.init_fn, loss_fn, spec.optimizer,
+                          param_specs=tfm.param_specs(cfg))
+    toks = torch.from_numpy(leg["tokens"]).long()
+    batch = (toks, tfm.next_token_targets(toks))
+    want = (0, 2 * cfg.num_layers * (rank + 1), 0, 0)
+    torch.cuda.synchronize()
+    sp_zero_counts(fa)
+    loss = float(trainer.compute_gradients(batch))
+    torch.cuda.synchronize()
+    out = {"name": leg["name"], "rank": rank, "step1_loss": loss,
+           "step1_launches": sp_counts(fa)}
+    if out["step1_launches"] != want:
+        raise RuntimeError("%s rank %d: step 1 launched (B3, B3p, B4, B5) "
+                           "%s, want %s" % (leg["name"], rank,
+                                            out["step1_launches"], want))
+    if rank == 0:
+        grads = torch.load(leg["grads_path"])
+        errs = {}
+        for n, p in trainer.module.named_parameters():
+            if p.grad is None or not bool(p.grad.isfinite().all()):
+                raise RuntimeError("%s: gradient of %s missing or not "
+                                   "finite" % (leg["name"], n))
+            errs[n] = norm_rel(p.grad, grads[n].to(p.device))
+        del grads
+        bad = [n for n in errs if not errs[n] <= leg["limit"][n]]
+        if bad:
+            raise RuntimeError(
+                "%s: step-1 gradients of %s off the sp=1 dense f32 softmax "
+                "path's: %s (limits %s)" % (
+                    leg["name"], bad[:5], [errs[n] for n in bad[:5]],
+                    [leg["limit"][n] for n in bad[:5]]))
+        worst = max(errs, key=errs.get)
+        out.update({"grad_rel_err_max": errs[worst],
+                    "grad_rel_err_leaf": worst,
+                    "err_over_limit_max": max(errs[n] / leg["limit"][n]
+                                              for n in errs)})
+    if leg["train"]:
+        torch.cuda.synchronize()
+        sp_zero_counts(fa)
+        counted = float(trainer.train_step(batch))
+        torch.cuda.synchronize()
+        counts = sp_counts(fa)
+        if counts != want:
+            raise RuntimeError("%s rank %d: a training step launched (B3, "
+                               "B3p, B4, B5) %s, want %s"
+                               % (leg["name"], rank, counts, want))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        losses = [trainer.train_step(batch) for _ in range(SP_TIMED_STEPS)]
+        losses = [float(x) for x in losses]
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / SP_TIMED_STEPS
+        if not all(map(math.isfinite, losses)) or not losses[-1] < counted:
+            raise RuntimeError("%s: the loss did not fall: %s" % (
+                leg["name"], [counted] + losses))
+        out.update({"launches_per_step": counts, "losses": [counted] + losses,
+                    "ms_per_step": ms,
+                    "tokens_per_s": toks.numel() / sp / ms * 1e3,
+                    "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+        trainer.save_checkpoint(CheckpointSaver(leg["ckpt_dir"]))
+        version, loss = trainer.version, float(trainer.eval_loss(batch))
+        trainer.train_step(batch)
+        out["saved"] = (version, loss, float(trainer.eval_loss(batch)))
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+def sp_rank(sp, attention, legs):
+    """One rank of an ``sp`` world on the card (gloo groups, host-staged
+    transport): the ring attention cases, then the model legs."""
+    import torch
+
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel.mesh import build_mesh
+    from elasticdl_tpu_torch.parallel.ring_attention import ring_attention
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+
+    use_float32_numerics()
+    mesh = build_mesh(sp=sp, backend="gloo")
+    rank, tl = mesh.coords["sp"], SP_ATTENTION_T // sp
+    out = {"rank": rank, "device": str(mesh.device), "attention": []}
+    for seed, name, batch, window in attention:
+        q, k, v, g = (t[:, rank * tl:(rank + 1) * tl]
+                      for t in sp_inputs(torch, seed, name, batch))
+        leaves = [t.contiguous().requires_grad_() for t in (q, k, v)]
+        o = ring_attention(*leaves, mesh, causal=True, window=window)
+        o.backward(g)
+        out["attention"].append([o.detach().cpu()]
+                                + [t.grad.cpu() for t in leaves])
+        del q, k, v, g, leaves, o
+    out["legs"] = [sp_model_leg(torch, fa, mesh, leg) for leg in legs]
+    return out
+
+
+def sp_spawn(sp, attention, legs):
+    from elasticdl_tpu_torch.parallel import launch
+
+    try:
+        return launch.spawn(sp_rank, sp, (sp, attention, legs),
+                            timeout=SP_RANKS_TIMEOUT_S)
+    except RuntimeError as e:
+        fail("sp=%d ranks: %s" % (sp, e))
+
+
+def sp_leg(name, ref, tmp, train, ckpt_dir):
+    """A model leg's arguments, the sp=1 gradients saved for rank 0."""
+    import torch
+
+    path = os.path.join(tmp, name + ".pt")
+    torch.save(ref["grads"], path)
+    return {"name": name, "params": ref["params"], "tokens": ref["tokens"],
+            "limit": ref["limit"], "grads_path": path, "train": train,
+            "ckpt_dir": ckpt_dir}
+
+
+def sp_phase(torch, fa, lm_refs):
+    """Sequence parallelism on the card (module docstring, phase 16)."""
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    out = {}
+    t0 = time.perf_counter()
+    out["partial_worst"], out["partial_max_abs_err"], out["partial_timed"] = (
+        partial_phase(torch, fa))
+    out["partial_s"] = time.perf_counter() - t0
+
+    # The 4-layer model's sp=1 reference, as the flagship's (lm_grad_phase).
+    params4 = LM_PARAMS.replace("num_layers=24", "num_layers=%d" % SP4_LAYERS)
+    spec4 = load_model_spec("transformer", params4 + ";remat=true")
+    module = spec4.init_fn(DEVICE, seed=0)
+    toks = torch.from_numpy(lm_refs["bf16"]["tokens"]).to(DEVICE)
+    unrounded = {}
+    check, grads_k, _ = lm_grads_vs_plain(torch, fa, spec4, module, toks,
+                                          "%d-layer bf16" % SP4_LAYERS,
+                                          unrounded)
+    ref4 = sp1_reference(toks, check, unrounded, params4)
+    del module, grads_k, unrounded
+    torch.cuda.empty_cache()
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        ckpt_dir = os.path.join(tmp.name, "ckpt")
+        worlds = {}
+        for sp, cases, leg_refs in (
+                (2, SP2_ATTENTION, [("f32 batch 2", lm_refs["f32"], False),
+                                    ("bf16 batch 8", lm_refs["bf16"], True)]),
+                (4, SP4_ATTENTION, [("%d-layer bf16 batch 8" % SP4_LAYERS,
+                                     ref4, False)])):
+            legs = [sp_leg(name, ref, tmp.name, train, ckpt_dir)
+                    for name, ref, train in leg_refs]
+            refs = [sp_attention_reference(torch, fa, c) for c in cases]
+            t0 = time.perf_counter()
+            ranks = sp_spawn(sp, cases, legs)
+            out["sp%d_s" % sp] = time.perf_counter() - t0
+            out["sp%d_attention" % sp] = [
+                sp_check_attention(c, local, dense,
+                                   [r["attention"][i] for r in ranks], sp)
+                for i, (c, (local, dense)) in enumerate(zip(cases, refs))]
+            del refs
+            for i, (leg, (_, ref, _)) in enumerate(zip(legs, leg_refs)):
+                got = [r["legs"][i] for r in ranks]
+                for r in got:
+                    r["step1_loss_rel_gap"] = abs(
+                        r["step1_loss"] - ref["loss"]) / abs(ref["loss"])
+                print("sp=%d %s: step-1 loss %.6f (sp=1 kernels %.6f, gap "
+                      "%.3g relative), launches per rank (B3, B3p, B4, B5) "
+                      "%s; gradients summed over the ranks against sp=1's "
+                      "dense f32 softmax path: worst leaf %s %.3g "
+                      "norm-relative, %.3g of its limit" % (
+                          sp, leg["name"], got[0]["step1_loss"], ref["loss"],
+                          got[0]["step1_loss_rel_gap"],
+                          [r["step1_launches"] for r in got],
+                          got[0]["grad_rel_err_leaf"],
+                          got[0]["grad_rel_err_max"],
+                          got[0]["err_over_limit_max"]))
+            worlds[sp] = ranks
+            out["sp%d_legs" % sp] = [[r["legs"][i] for r in ranks]
+                                     for i in range(len(legs))]
+
+        train = [r["legs"][1] for r in worlds[2]]
+        for r in train:
+            print("sp=2 train rank %d (%s): %d steps on one batch, loss %s; "
+                  "%.2f ms per step, %.0f tokens/s on the rank, peak "
+                  "allocated %.2f GB; launches (B3, B3p, B4, B5) %s" % (
+                      r["rank"], worlds[2][r["rank"]]["device"],
+                      SP_TIMED_STEPS + 1,
+                      " -> ".join("%.4f" % x for x in r["losses"]),
+                      r["ms_per_step"], r["tokens_per_s"], r["peak_gb"],
+                      r["launches_per_step"]))
+        # The checkpoint saved at sp=2, restored at sp=1 in this process.
+        spec = load_model_spec("transformer", lm_refs["bf16"]["params"])
+        version, loss2, next2 = train[0]["saved"]
+        restored = CollectiveTrainer(spec, batch_size=toks.shape[0],
+                                     device=DEVICE,
+                                     checkpoint_saver=CheckpointSaver(
+                                         ckpt_dir))
+        if not restored.init_from_checkpoint() or restored.version != version:
+            fail("the sp=2 checkpoint did not restore at sp=1")
+        def loss_now():
+            with torch.no_grad():
+                return float(spec.loss_fn(spec.apply_fn(
+                    restored.module, toks, True), toks).mean())
+
+        loss1 = loss_now()
+        restored.train_minibatch(toks, toks)
+        next1 = loss_now()
+        gaps = (abs(loss1 - loss2) / abs(loss2),
+                abs(next1 - next2) / abs(next2))
+        if not max(gaps) <= SP_LOSS_RTOL:
+            fail("checkpoint saved at sp=2 (version %d), restored at sp=1: "
+                 "loss %r vs %r, next step %r vs %r (limit %g relative)"
+                 % (version, loss1, loss2, next1, next2, SP_LOSS_RTOL))
+        out["checkpoint"] = {"version": version, "sp2": [loss2, next2],
+                             "sp1": [loss1, next1], "rel_gaps": gaps}
+        print("checkpoint saved at sp=2 (version %d) restored at sp=1: loss "
+              "%.6f vs %.6f, next step %.6f vs %.6f (gaps %.3g, %.3g "
+              "relative, limit %g)" % (version, loss1, loss2, next1, next2,
+                                       gaps[0], gaps[1], SP_LOSS_RTOL))
+        del restored
+    finally:
+        tmp.cleanup()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -2425,7 +2960,7 @@ def main():
         flash_bwd_err, bwd_timed = flash_bwd_phase(torch, fa)
         phase_s["flash backward kernels"] = time.perf_counter() - t0
         t0 = time.perf_counter()
-        lm_train = lm_training_phase(torch, fa)
+        lm_train, lm_refs = lm_training_phase(torch, fa)
         phase_s["transformer training"] = time.perf_counter() - t0
         t0 = time.perf_counter()
         moe = moe_serving_phase(torch, fa, exports.name)
@@ -2441,6 +2976,10 @@ def main():
         phase_s["lora"] = time.perf_counter() - t0
     finally:
         exports.cleanup()
+    t0 = time.perf_counter()
+    sp = sp_phase(torch, fa, lm_refs)
+    del lm_refs
+    phase_s["sequence parallelism"] = time.perf_counter() - t0
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -2533,6 +3072,33 @@ def main():
             "d128": {key: bwd_timed[(part, "bfloat16 d128")][key] for key in (
                 "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
         })
+    part = sp["partial_timed"]
+    sp2_train = sp["sp2_legs"][1]          # the bf16 training leg, by rank
+    kernels.append({
+        "name": "flash_attention_partial_fwd",
+        "route": "cuda",
+        "source": "elasticdl_tpu_torch/ops/csrc/flash_attention.cu",
+        "replaces": "elasticdl_tpu/ops/flash_attention.py:87",
+        "launches": sum(r["launches_per_step"][1] for r in sp2_train),
+        "launches_per_rank": [r["launches_per_step"][1] for r in sp2_train],
+        "launches_sp4_step1_per_rank": [
+            r["step1_launches"][1] for r in sp["sp4_legs"][0]],
+        "max_abs_err": sp["partial_max_abs_err"]["bfloat16"],
+        "ms": part[("bfloat16", True)]["ms"],
+        "plain_ms": part[("bfloat16", True)]["plain_ms"],
+        "bound_ms": part[("bfloat16", True)]["bound_ms"],
+        "bound_by": part[("bfloat16", True)]["bound_by"],
+        "library_ms": None,
+        "times_are": "one call at the sp=2 ring's diagonal block, q, k, v "
+                     "[8, 16, 1024, 64] bfloat16, causal (the launch "
+                     "elasticdl_tpu/ops/flash_attention.py:225 with "
+                     "normalize=False); launches in one training step of "
+                     "the flagship LM at sp=2, summed over the two ranks",
+        "noncausal": {key: part[("bfloat16", False)][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+        "float32": {key: part[("float32", True)][key] for key in (
+            "ms", "plain_ms", "bound_ms", "bound_by")},
+    })
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "device": kind,
@@ -2552,6 +3118,10 @@ def main():
                        "lm_train": lm_train, "moe": moe,
                        "moe_train": moe_train, "remat": remat,
                        "lora": lora_out,
+                       "sp": {k: v for k, v in sp.items()
+                              if k != "partial_timed"},
+                       "partial_timed": {"%s causal=%s" % k: v for k, v in
+                                         part.items()},
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

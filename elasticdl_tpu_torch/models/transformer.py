@@ -25,9 +25,16 @@ checkpoints each chunk the same way.  Both policies, as remat=True,
 recompute the layer's attention forward in the backward, as the JAX
 package does: the flash Function's (l, m) are not kept.
 
-Not ported yet: meshes and ``forward_pipelined`` (ROADMAP A18) and the
-ulysses attention (A17); each raises ``NotImplementedError`` naming its
-ROADMAP item.
+With a mesh (``parallel/mesh.py``: ``dp`` and ``sp``), ``forward`` and
+``forward_hidden`` run one rank's shard of the batch: tokens [B/dp, T/sp]
+at RoPE positions offset by the rank's place along ``sp``, attention as
+ring attention (B3p; ``attention_impl="ring"``) or Ulysses (B3/B4/B5 on
+the gathered sequence; ``"ulysses"``) over the ``sp`` group.  Parameters
+are replicated; ``parallel/spmd_trainer.py`` reduces their gradients.
+Not ported yet: ``tp``/``pp``/``ep`` sharding, MoE under ``sp`` > 1 and
+``forward_pipelined`` (ROADMAP A18), and the zoo entry's mesh, which is
+the collective trainer's (A4); each raises ``NotImplementedError``
+naming its ROADMAP item.
 """
 
 import dataclasses
@@ -45,10 +52,13 @@ from torch.utils.checkpoint import (
 
 from elasticdl_tpu_torch.models.spec import ModelSpec
 from elasticdl_tpu_torch.parallel.ring_attention import ring_attention
+from elasticdl_tpu_torch.parallel.ulysses import ulysses_attention
 from elasticdl_tpu_torch.utils import metrics
 
 NEG_INF_DECODE = -1e30
 _DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# Sequence-parallel strategies over the mesh's ``sp`` axis.
+_ATTENTION = {"ring": ring_attention, "ulysses": ulysses_attention}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -81,9 +91,9 @@ class TransformerConfig:
         if self.remat not in (False, True, "dots", "attn"):
             raise ValueError("remat must be one of False, True, 'dots', "
                              "'attn'; got %r" % (self.remat,))
-        if self.attention_impl != "ring":
-            raise NotImplementedError(
-                "attention_impl %r is not ported yet (ROADMAP A17)"
+        if self.attention_impl not in _ATTENTION:
+            raise ValueError(
+                "unknown attention_impl %r (want 'ring' or 'ulysses')"
                 % (self.attention_impl,))
 
     @property
@@ -109,11 +119,21 @@ class TransformerConfig:
         return _DTYPES[self.dtype]
 
 
-def _check_mesh(mesh):
-    if mesh is not None:
+def _check_mesh(mesh, cfg):
+    """A mesh of ``dp`` and ``sp`` only; MoE only without ``sp``."""
+    if mesh is None:
+        return
+    unported = {a: mesh.shape[a] for a in ("pp", "ep", "tp")
+                if mesh.shape[a] > 1}
+    if unported:
         raise NotImplementedError(
-            "meshes (dp/tp/sp/pp sharding) are not ported yet (ROADMAP "
-            "A18)")
+            "mesh axes %s are not ported yet (ROADMAP A18)" % unported)
+    if cfg.moe_experts and mesh.shape["sp"] > 1:
+        # The JAX _moe_ffn sizes each expert's capacity over the whole
+        # sequence, which one shard of it cannot reproduce.
+        raise NotImplementedError(
+            "MoE under sequence parallelism (sp > 1) is not ported yet "
+            "(ROADMAP A18)")
 
 
 # -- parameters ---------------------------------------------------------------
@@ -309,11 +329,12 @@ def _(x, name):
 checkpoint_name.register_autograd(lambda ctx, g: (g, None))
 
 
-def _layer_body(x, w, cfg, positions, return_kv=False):
-    """One block over a whole sequence (weights ``w`` of one layer, in the
-    compute dtype) -> (x, MoE aux or None).  ``return_kv`` also returns
-    this layer's post-RoPE, pre-GQA-expand (k, v) [B, T, G, D] for the KV
-    cache, as (x, aux, (k, v))."""
+def _layer_body(x, w, cfg, positions, mesh=None, return_kv=False):
+    """One block over a sequence, or this rank's shard of it with a mesh
+    (weights ``w`` of one layer, in the compute dtype) -> (x, MoE aux or
+    None).  ``return_kv`` also returns this layer's post-RoPE,
+    pre-GQA-expand (k, v) [B, T, G, D] for the KV cache, as (x, aux,
+    (k, v))."""
     B, T = x.shape[0], x.shape[1]
     H, D, G = cfg.num_heads, cfg.head_dim, cfg.kv_heads
     h = _rmsnorm(x, w["ln1"])
@@ -325,7 +346,8 @@ def _layer_body(x, w, cfg, positions, return_kv=False):
         # jnp.repeat order: head i attends kv head i // (H/G).
         k = k.repeat_interleave(H // G, dim=2)
         v = v.repeat_interleave(H // G, dim=2)
-    attn = ring_attention(q, k, v, None, causal=True, window=cfg.window)
+    attn = _ATTENTION[cfg.attention_impl](q, k, v, mesh, causal=True,
+                                          window=cfg.window)
     attn = attn.reshape(B, T, H * D)
     if cfg.remat == "attn" and torch.is_grad_enabled():
         attn = checkpoint_name(attn, "attn_out")
@@ -357,14 +379,16 @@ def _save_attn_out(ctx, op, *args, **kwargs):
 _REMAT_POLICIES = {"dots": _save_matmuls, "attn": _save_attn_out}
 
 
-def _checkpointed_layer(x, w, cfg, positions):
+def _checkpointed_layer(x, w, cfg, positions, mesh):
     """``_layer_body`` under ``torch.utils.checkpoint``: remat=True keeps
-    only the layer's input, a policy also what it names."""
+    only the layer's input, a policy also what it names.  Under a mesh the
+    recompute repeats the layer's ring shifts or all-to-alls on every
+    rank, in the same order."""
     policy = _REMAT_POLICIES.get(cfg.remat)
     context_fn = (functools.partial(create_selective_checkpoint_contexts,
                                     policy) if policy is not None
                   else torch.utils.checkpoint.noop_context_fn)
-    return checkpoint(_layer_body, x, w, cfg, positions,
+    return checkpoint(_layer_body, x, w, cfg, positions, mesh,
                       use_reentrant=False, context_fn=context_fn)
 
 
@@ -374,15 +398,24 @@ def _head(w, x, cfg):
     return (x @ head).float()
 
 
-def _forward_hidden(w, tokens, cfg):
+def _positions(tokens, mesh):
+    """RoPE positions of this rank's tokens: the JAX code's arange(T) over
+    the global sequence, of which a rank holds the ``sp`` coordinate's
+    block."""
+    t = tokens.shape[1]
+    start = mesh.coords["sp"] * t if mesh is not None else 0
+    return torch.arange(start, start + t, device=tokens.device)
+
+
+def _forward_hidden(w, tokens, cfg, mesh=None):
     """(final hidden, mean per-layer MoE aux; 0 for the dense FFN)."""
     x = w["embed"][tokens]
-    positions = torch.arange(tokens.shape[1], device=x.device)
+    positions = _positions(tokens, mesh)
     remat = cfg.remat and torch.is_grad_enabled()
     auxes = []
     for i in range(cfg.num_layers):
         layer = _checkpointed_layer if remat else _layer_body
-        x, aux = layer(x, _layer(w, i), cfg, positions)
+        x, aux = layer(x, _layer(w, i), cfg, positions, mesh)
         auxes.append(aux)
     if cfg.moe_experts:
         return x, torch.stack(auxes).mean()
@@ -392,17 +425,19 @@ def _forward_hidden(w, tokens, cfg):
 def forward_hidden(params, tokens, cfg, mesh=None):
     """tokens: [B, T] int -> (final hidden [B, T, dim] before ``ln_f``
     and the head, mean per-layer MoE aux loss), as the JAX function
-    returns them; the dense FFN's aux is 0."""
-    _check_mesh(mesh)
-    return _forward_hidden(_cast(params, cfg), tokens, cfg)
+    returns them; the dense FFN's aux is 0.  With a mesh, tokens and
+    hidden are this rank's shards [B/dp, T/sp]."""
+    _check_mesh(mesh, cfg)
+    return _forward_hidden(_cast(params, cfg), tokens, cfg, mesh)
 
 
 def forward(params, tokens, cfg, mesh=None, return_aux=False):
     """tokens: [B, T] int -> logits [B, T, V] float32; with
-    ``return_aux`` (training an MoE), (logits, mean per-layer aux)."""
-    _check_mesh(mesh)
+    ``return_aux`` (training an MoE), (logits, mean per-layer aux).  With
+    a mesh, tokens and logits are this rank's shards [B/dp, T/sp]."""
+    _check_mesh(mesh, cfg)
     w = _cast(params, cfg)
-    hidden, aux = _forward_hidden(w, tokens, cfg)
+    hidden, aux = _forward_hidden(w, tokens, cfg, mesh)
     logits = _head(w, hidden, cfg)
     return (logits, aux) if return_aux else logits
 
@@ -590,6 +625,59 @@ def _from_jax_layout(value):
     return torch.from_numpy(np.array(value))
 
 
+def param_specs(cfg):
+    """The JAX ``param_specs`` as a name tree: {parameter name: the mesh
+    axis each of its dims is sharded over, or None}.  Only the replicated
+    layout (no ``tp``, ``pp`` or ``ep``) is ported (``shard_params``)."""
+    layers = {"ln1": ("pp", None), "wq": ("pp", None, "tp"),
+              "wk": ("pp", None, "tp"), "wv": ("pp", None, "tp"),
+              "wo": ("pp", "tp", None), "ln2": ("pp", None)}
+    if cfg.moe_experts:
+        layers.update({"w_router": ("pp", None, None),
+                       "w_gate": ("pp", "ep", None, "tp"),
+                       "w_up": ("pp", "ep", None, "tp"),
+                       "w_down": ("pp", "ep", "tp", None)})
+    else:
+        layers.update({"w_gate": ("pp", None, "tp"),
+                       "w_up": ("pp", None, "tp"),
+                       "w_down": ("pp", "tp", None)})
+    specs = {"embed": (None, "tp"), "ln_f": (None,)}
+    specs.update({"layers." + name: spec for name, spec in layers.items()})
+    if not cfg.tied_embeddings:
+        specs["lm_head"] = (None, "tp")
+    return specs
+
+
+def shard_params(params, mesh, cfg):
+    """Place ``params`` (a :class:`TransformerLM`) on ``mesh`` by
+    ``param_specs``: replicated over ``dp`` and ``sp``, which is every
+    parameter on every rank, moved to the rank's device.  A mesh whose
+    ``tp``, ``pp`` or ``ep`` would shard a dimension raises (A18)."""
+    from elasticdl_tpu_torch.parallel.spmd_trainer import replicate
+
+    _check_mesh(mesh, cfg)
+    return replicate(params, param_specs(cfg), mesh)
+
+
+def next_token_targets(tokens):
+    """``next_token_loss``'s shift on the global [B, T] tokens: targets
+    [B, T] int64 with targets[:, t] = tokens[:, t + 1] and -1 (no target)
+    at the last position.  Sharded along T with the inputs, it gives each
+    rank's last position the next shard's first token."""
+    tokens = torch.as_tensor(tokens).long()
+    return torch.cat([tokens[:, 1:], tokens.new_full((tokens.shape[0], 1),
+                                                      -1)], dim=1)
+
+
+def next_token_loss_sum(logits, targets):
+    """The cross entropy of ``logits`` [B, T, V] against ``targets`` [B, T]
+    (``next_token_targets``' shard), summed over the positions that have a
+    target."""
+    return F.cross_entropy(logits.reshape(-1, logits.shape[-1]).float(),
+                           targets.reshape(-1), ignore_index=-1,
+                           reduction="sum")
+
+
 def params_from_jax(named):
     """``{"embed": ..., "layers/wq": ...}`` -> ``state_dict``.  No
     transposes: the stacked kernels keep the JAX layout."""
@@ -614,13 +702,17 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
     and ``moe_experts`` (> 0: top-``moe_top_k`` experts; training adds
     ``moe_aux_weight`` x the mean per-layer aux loss to the loss) as in
     the JAX entry; the optimizer is AdamW at ``learning_rate`` with weight
-    decay 0.01 (``optax.adamw``'s).  A mesh, pipelining and
-    ``attention_impl="ulysses"`` raise ``NotImplementedError`` naming
-    their ROADMAP item.
+    decay 0.01 (``optax.adamw``'s).  A mesh (the collective trainer's,
+    A4) and pipelining (A18) raise ``NotImplementedError`` naming their
+    ROADMAP item.
     ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
     serves generation exports.
     """
-    _check_mesh(mesh)
+    if mesh is not None:
+        raise NotImplementedError(
+            "the zoo entry's mesh is the collective trainer's, not ported "
+            "yet (ROADMAP A4); train over a mesh with "
+            "parallel.spmd_trainer.SPMDTrainer")
     if pipeline_microbatches:
         raise NotImplementedError(
             "pipelining is not ported yet (ROADMAP A18)")

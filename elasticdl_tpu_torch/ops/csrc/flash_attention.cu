@@ -89,10 +89,18 @@
 // Every mbarrier wait traps after 2^24 polls (hopper.cuh): a deadlock
 // becomes a launch failure instead of a hung card.
 //
-// C interface (bound with ctypes): edl_flash_attention_fwd returns 0 or the
-// cudaError_t code of a refused launch (also when the CUDA driver refuses
-// a TMA map).  It allocates nothing: the caller passes out, l and m.  It
-// launches on the given stream.
+// B3p.  The ring attention's per-block step (the TPU kernel launched with
+// normalize=False) is the same kernels with another epilogue, a template
+// flag: each row's f32 acc is stored as it is, not divided by l, into a
+// float32 output whatever q's dtype; l and m are stored as in B3.  Nothing
+// else differs, so B3p is bound as B3 is; it writes twice B3's output bytes
+// in bf16 (an f32 acc), which the bound counts.
+//
+// C interface (bound with ctypes): edl_flash_attention_fwd (B3) and
+// edl_flash_attention_partial_fwd (B3p) return 0 or the cudaError_t code of
+// a refused launch (also when the CUDA driver refuses a TMA map).  They
+// allocate nothing: the caller passes out, l and m.  They launch on the
+// given stream.
 
 #include <string.h>
 
@@ -111,6 +119,7 @@ struct Params {
   float* l;
   float* m;
   int H, T, causal, window;
+  int normalize;  // 0: out is the f32 acc (B3p), not acc / l
   float scale;
   Strides sq, sk, sv, so;
 };
@@ -129,7 +138,7 @@ template <int D> struct Bf16Smem {
   static constexpr int bytes = v + kStages * kTile;
 };
 
-template <int D, int kMinBlocks>
+template <int D, int kMinBlocks, bool kNormalize = true>
 __global__ void __launch_bounds__(kThreads, kMinBlocks)
 flash_fwd_bf16(Params prm) {
   using L = Bf16Smem<D>;
@@ -272,17 +281,27 @@ flash_fwd_bf16(Params prm) {
     __syncthreads();   // the next fetch overwrites the buffer just read
   }
 
-  bf16* out = static_cast<bf16*>(prm.o) + b * prm.so.b + h * prm.so.h;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int qi = row0 + 8 * half;
     if (qi >= Tlen) continue;
-    const float l_safe = fmaxf(l_run[half], 1e-30f);
-    bf16* orow = out + (long long)qi * prm.so.t + 2 * t;
+    const long long at =
+        b * prm.so.b + h * prm.so.h + (long long)qi * prm.so.t + 2 * t;
+    if constexpr (kNormalize) {
+      const float l_safe = fmaxf(l_run[half], 1e-30f);
+      bf16* orow = static_cast<bf16*>(prm.o) + at;
 #pragma unroll
-    for (int n = 0; n < kDTiles; ++n) {
-      *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) = __floats2bfloat162_rn(
-          o[n][2 * half] / l_safe, o[n][2 * half + 1] / l_safe);
+      for (int n = 0; n < kDTiles; ++n) {
+        *reinterpret_cast<__nv_bfloat162*>(orow + n * 8) =
+            __floats2bfloat162_rn(o[n][2 * half] / l_safe,
+                                  o[n][2 * half + 1] / l_safe);
+      }
+    } else {
+      float* orow = static_cast<float*>(prm.o) + at;
+#pragma unroll
+      for (int n = 0; n < kDTiles; ++n)
+        *reinterpret_cast<float2*>(orow + n * 8) =
+            make_float2(o[n][2 * half], o[n][2 * half + 1]);
     }
     if (t == 0) {
       prm.l[(long long)bh * Tlen + qi] = l_run[half];
@@ -450,6 +469,7 @@ __device__ __forceinline__ void pass_tile(FwdRing& ring, int wg,
 // otherwise retires every wgmma at once (C7514).  Two blocks share an SM
 // (96 registers a thread, 81 KB of shared memory each): four consumer
 // chains per SM, which is what bounds this kernel (PERF.md).
+template <bool kNormalize = true>
 __global__ void __launch_bounds__(kFwdThreads, 2)
 flash_fwd_wgmma(const __grid_constant__ FwdHopParams hp) {
   using L = FwdHopSmem;
@@ -624,7 +644,6 @@ flash_fwd_wgmma(const __grid_constant__ FwdHopParams hp) {
   for (; j < n_tiles; ++j) pass_tile(ring, wg, full, empty, lane);
   if (wg == 0) pingpong_wait(wg);
 
-  bf16* out = static_cast<bf16*>(prm.o) + b * prm.so.b + h * prm.so.h;
 #pragma unroll
   for (int hh = 0; hh < 2; ++hh) {
     float l = l_part[hh];
@@ -632,12 +651,23 @@ flash_fwd_wgmma(const __grid_constant__ FwdHopParams hp) {
     l += __shfl_xor_sync(0xffffffffu, l, 2);
     const int qi = row + 8 * hh;
     if (qi >= Tlen) continue;
-    const float l_safe = fmaxf(l, 1e-30f);
-    bf16* orow = out + (long long)qi * prm.so.t + 2 * t;
+    const long long at =
+        b * prm.so.b + h * prm.so.h + (long long)qi * prm.so.t + 2 * t;
+    if constexpr (kNormalize) {
+      const float l_safe = fmaxf(l, 1e-30f);
+      bf16* orow = static_cast<bf16*>(prm.o) + at;
 #pragma unroll
-    for (int j8 = 0; j8 < 8; ++j8)
-      *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j8) = __floats2bfloat162_rn(
-          o[4 * j8 + 2 * hh] / l_safe, o[4 * j8 + 2 * hh + 1] / l_safe);
+      for (int j8 = 0; j8 < 8; ++j8)
+        *reinterpret_cast<__nv_bfloat162*>(orow + 8 * j8) =
+            __floats2bfloat162_rn(o[4 * j8 + 2 * hh] / l_safe,
+                                  o[4 * j8 + 2 * hh + 1] / l_safe);
+    } else {
+      float* orow = static_cast<float*>(prm.o) + at;
+#pragma unroll
+      for (int j8 = 0; j8 < 8; ++j8)
+        *reinterpret_cast<float2*>(orow + 8 * j8) =
+            make_float2(o[4 * j8 + 2 * hh], o[4 * j8 + 2 * hh + 1]);
+    }
     if (t == 0) {
       prm.l[(long long)bh * Tlen + qi] = l;
       prm.m[(long long)bh * Tlen + qi] = m_run[hh] * kLn2;
@@ -659,11 +689,12 @@ int launch_wgmma(const Params& prm, int B, cudaStream_t stream) {
       return (int)cudaErrorInvalidValue;
   hp.prm = prm;
   const int bytes = FwdHopSmem::bytes;
+  auto kernel = prm.normalize ? flash_fwd_wgmma<true> : flash_fwd_wgmma<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_fwd_wgmma, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
   if (err != cudaSuccess) return (int)err;
   const dim3 grid(B * prm.H, (prm.T + kOwned - 1) / kOwned);
-  flash_fwd_wgmma<<<grid, kFwdThreads, bytes, stream>>>(hp);
+  kernel<<<grid, kFwdThreads, bytes, stream>>>(hp);
   return (int)cudaGetLastError();
 }
 
@@ -683,7 +714,7 @@ template <int D> struct F32Smem {
   static constexpr int bytes = o + align128(kBQ * kOPitch * 4);
 };
 
-template <int D>
+template <int D, bool kNormalize = true>
 __global__ void __launch_bounds__(kThreads)
 flash_fwd_f32(Params prm) {
   using L = F32Smem<D>;
@@ -818,9 +849,10 @@ flash_fwd_f32(Params prm) {
   for (int r = 0; r < kRows; ++r) {
     const int qi = row0 + r;
     if (qi >= Tlen) break;
-    const float l_safe = fmaxf(l_row[r], 1e-30f);
+    const float l_safe = kNormalize ? fmaxf(l_row[r], 1e-30f) : 1.f;
     for (int c = lane; c < D; c += 32) {
-      out[(long long)qi * prm.so.t + c] = o_w[r * kOPitch + c] / l_safe;
+      out[(long long)qi * prm.so.t + c] =
+          kNormalize ? o_w[r * kOPitch + c] / l_safe : o_w[r * kOPitch + c];
     }
     if (lane == 0) {
       prm.l[(long long)bh * Tlen + qi] = l_row[r];
@@ -829,21 +861,30 @@ flash_fwd_f32(Params prm) {
   }
 }
 
-}  // namespace
+// The launch for dtype and D (a dispatch, not a fallback).
+int dispatch(const Params& prm, int B, int D, int dtype, cudaStream_t stream) {
+  const dim3 grid(B * prm.H, (prm.T + kBQ - 1) / kBQ);
+  const bool n = prm.normalize;
+  if (dtype == 1) {
+    if (D == 64) return launch_wgmma(prm, B, stream);
+    if (D == 128)
+      return launch(n ? flash_fwd_bf16<128, 1> : flash_fwd_bf16<128, 1, false>,
+                    Bf16Smem<128>::bytes, prm, grid, stream);
+  } else if (dtype == 0) {
+    if (D == 64)
+      return launch(n ? flash_fwd_f32<64> : flash_fwd_f32<64, false>,
+                    F32Smem<64>::bytes, prm, grid, stream);
+    if (D == 128)
+      return launch(n ? flash_fwd_f32<128> : flash_fwd_f32<128, false>,
+                    F32Smem<128>::bytes, prm, grid, stream);
+  }
+  return (int)cudaErrorInvalidValue;
+}
 
-extern "C" {
-
-// q, k, v, o: [B, H, T, D] with element strides (batch, head, seq) given and
-// the last dim contiguous, 16-byte aligned rows; l, m: contiguous [B, H, T]
-// float32.  dtype 0 = float32, 1 = bfloat16; D must be 64 or 128.
-int edl_flash_attention_fwd(const void* q, const void* k, const void* v,
-                            void* o, float* l, float* m, int B, int H, int T,
-                            int D, long long q_sb, long long q_sh,
-                            long long q_st, long long k_sb, long long k_sh,
-                            long long k_st, long long v_sb, long long v_sh,
-                            long long v_st, long long o_sb, long long o_sh,
-                            long long o_st, float scale, int causal,
-                            int window, int dtype, cudaStream_t stream) {
+int forward(const void* q, const void* k, const void* v, void* o, float* l,
+            float* m, int B, int H, int T, int D, const long long* s,
+            float scale, int causal, int window, int dtype, int normalize,
+            cudaStream_t stream) {
   if (B <= 0 || H <= 0 || T <= 0) return (int)cudaSuccess;
   Params prm;
   prm.q = q;
@@ -856,26 +897,51 @@ int edl_flash_attention_fwd(const void* q, const void* k, const void* v,
   prm.T = T;
   prm.causal = causal;
   prm.window = window;
+  prm.normalize = normalize;
   prm.scale = scale;
-  prm.sq = {q_sb, q_sh, q_st};
-  prm.sk = {k_sb, k_sh, k_st};
-  prm.sv = {v_sb, v_sh, v_st};
-  prm.so = {o_sb, o_sh, o_st};
-  const dim3 grid(B * H, (T + kBQ - 1) / kBQ);
-  if (dtype == 1) {
-    if (D == 64) return launch_wgmma(prm, B, stream);
-    if (D == 128)
-      return launch(flash_fwd_bf16<128, 1>, Bf16Smem<128>::bytes, prm, grid,
-                    stream);
-  } else if (dtype == 0) {
-    if (D == 64)
-      return launch(flash_fwd_f32<64>, F32Smem<64>::bytes, prm, grid,
-                    stream);
-    if (D == 128)
-      return launch(flash_fwd_f32<128>, F32Smem<128>::bytes, prm, grid,
-                    stream);
-  }
-  return (int)cudaErrorInvalidValue;
+  prm.sq = {s[0], s[1], s[2]};
+  prm.sk = {s[3], s[4], s[5]};
+  prm.sv = {s[6], s[7], s[8]};
+  prm.so = {s[9], s[10], s[11]};
+  return dispatch(prm, B, D, dtype, stream);
+}
+
+}  // namespace
+
+extern "C" {
+
+// q, k, v, o: [B, H, T, D] with element strides (batch, head, seq) given and
+// the last dim contiguous, 16-byte aligned rows; l, m: contiguous [B, H, T]
+// float32.  dtype 0 = float32, 1 = bfloat16; D must be 64 or 128.  o is in
+// q's dtype and holds acc / max(l, 1e-30) (B3).
+int edl_flash_attention_fwd(const void* q, const void* k, const void* v,
+                            void* o, float* l, float* m, int B, int H, int T,
+                            int D, long long q_sb, long long q_sh,
+                            long long q_st, long long k_sb, long long k_sh,
+                            long long k_st, long long v_sb, long long v_sh,
+                            long long v_st, long long o_sb, long long o_sh,
+                            long long o_st, float scale, int causal,
+                            int window, int dtype, cudaStream_t stream) {
+  const long long s[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
+                           v_sb, v_sh, v_st, o_sb, o_sh, o_st};
+  return forward(q, k, v, o, l, m, B, H, T, D, s, scale, causal, window,
+                 dtype, 1, stream);
+}
+
+// The same kernels with no final normalisation (B3p, the TPU kernel with
+// normalize=False): o is float32 [B, H, T, D] whatever q's dtype and holds
+// the unnormalised acc = sum_j exp(s_ij - m_i) v_j; l and m as above.
+int edl_flash_attention_partial_fwd(
+    const void* q, const void* k, const void* v, float* o, float* l, float* m,
+    int B, int H, int T, int D, long long q_sb, long long q_sh, long long q_st,
+    long long k_sb, long long k_sh, long long k_st, long long v_sb,
+    long long v_sh, long long v_st, long long o_sb, long long o_sh,
+    long long o_st, float scale, int causal, int window, int dtype,
+    cudaStream_t stream) {
+  const long long s[12] = {q_sb, q_sh, q_st, k_sb, k_sh, k_st,
+                           v_sb, v_sh, v_st, o_sb, o_sh, o_st};
+  return forward(q, k, v, o, l, m, B, H, T, D, s, scale, causal, window,
+                 dtype, 0, stream);
 }
 
 }  // extern "C"

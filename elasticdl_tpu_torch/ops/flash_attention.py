@@ -17,6 +17,13 @@ outputs with their inputs' strides, so the ring layout [B, T, H, D] goes
 in and comes out as a transposed view, without a copy
 (``parallel/ring_attention.py``).
 
+``flash_attention_partial`` is the same forward kernel without the final
+normalisation (B3p, the TPU kernel launched with ``normalize=False``):
+it returns one KV block's f32 (acc, l, m), the state ring attention folds
+(``parallel/ring_attention.py``).  Its backward is the JAX package's jnp
+pullback ``_partial_stats_bwd`` in plain PyTorch on both devices (the JAX
+package has no kernel for it either).
+
 ``flash_attention`` is one ``torch.autograd.Function`` on both devices
 (the JAX ``custom_vjp`` ``_flash``): its forward is ``flash_forward``, it
 saves the residuals (q, k, v, out, l, m) and its backward is
@@ -27,8 +34,8 @@ JAX wrapper's route of unfriendly shapes to jnp has no counterpart: a
 head_dim the kernels do not take raises.  ``flash_attention_ref`` runs
 the same Function on the plain versions whatever the device, so a check
 on the card can compare with them; no model path calls it.
-``LAUNCHES``, ``BWD_DQ_LAUNCHES`` and ``BWD_DKV_LAUNCHES`` count kernel
-launches.
+``LAUNCHES``, ``PARTIAL_LAUNCHES``, ``BWD_DQ_LAUNCHES`` and
+``BWD_DKV_LAUNCHES`` count kernel launches.
 """
 
 import ctypes
@@ -40,6 +47,7 @@ from elasticdl_tpu_torch.ops import build
 
 NEG_INF = -1e30
 LAUNCHES = 0            # forward (B3)
+PARTIAL_LAUNCHES = 0    # unnormalised forward (B3p)
 BWD_DQ_LAUNCHES = 0     # backward dq (B4)
 BWD_DKV_LAUNCHES = 0    # backward dk, dv (B5)
 
@@ -120,13 +128,15 @@ def _flash_bwd_ref(q, k, v, out, l, m, g, causal, scale, window=0):
 
 
 def _bind(lib):
-    """Declare ``edl_flash_attention_fwd``'s C signature on a loaded
-    library (also used by scripts/sweep_flash_attention.py)."""
+    """Declare the C signatures of ``edl_flash_attention_fwd`` (B3) and
+    ``edl_flash_attention_partial_fwd`` (B3p) on a loaded library (also
+    used by scripts/sweep_flash_attention.py)."""
     ptr, cint, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-    lib.edl_flash_attention_fwd.argtypes = (
-        [ptr] * 6 + [cint] * 4 + [i64] * 12
-        + [ctypes.c_float, cint, cint, cint, ptr])
-    lib.edl_flash_attention_fwd.restype = cint
+    for fn in (lib.edl_flash_attention_fwd,
+               lib.edl_flash_attention_partial_fwd):
+        fn.argtypes = ([ptr] * 6 + [cint] * 4 + [i64] * 12
+                       + [ctypes.c_float, cint, cint, cint, ptr])
+        fn.restype = cint
     return lib
 
 
@@ -186,25 +196,33 @@ def _check_cuda_inputs(q, k, v):
                 % (name, t.stride()))
 
 
-def _launch(q, k, v, o, causal, scale, window):
-    """Run the kernel on [B, H, T, D] views q, k, v, o; returns (l, m)."""
-    global LAUNCHES
+def _launch(q, k, v, o, causal, scale, window, normalize=True):
+    """Run the kernel on [B, H, T, D] views q, k, v, o; returns (l, m).
+    ``normalize=False`` runs B3p: o is float32 and receives acc."""
+    global LAUNCHES, PARTIAL_LAUNCHES
     B, H, T, D = q.shape
     l = torch.empty((B, H, T), dtype=torch.float32, device=q.device)
     m = torch.empty_like(l)
     strides = [s for t in (q, k, v, o) for s in t.stride()[:3]]
+    lib = _library()
+    fn = (lib.edl_flash_attention_fwd if normalize
+          else lib.edl_flash_attention_partial_fwd)
     with torch.cuda.device(q.device):
-        err = _library().edl_flash_attention_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-            l.data_ptr(), m.data_ptr(), B, H, T, D, *strides,
-            float(scale), int(bool(causal)), int(window),
-            _DTYPES[q.dtype],
-            torch.cuda.current_stream(q.device).cuda_stream)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+                 l.data_ptr(), m.data_ptr(), B, H, T, D, *strides,
+                 float(scale), int(bool(causal)), int(window),
+                 _DTYPES[q.dtype],
+                 torch.cuda.current_stream(q.device).cuda_stream)
     if err:
         raise RuntimeError(
-            "flash attention kernel launch failed (cudaError_t %d) for "
-            "B=%d H=%d T=%d D=%d %s" % (err, B, H, T, D, q.dtype))
-    LAUNCHES += 1
+            "flash attention %s kernel launch failed (cudaError_t %d) for "
+            "B=%d H=%d T=%d D=%d %s" % (
+                "forward" if normalize else "partial", err, B, H, T, D,
+                q.dtype))
+    if normalize:
+        LAUNCHES += 1
+    else:
+        PARTIAL_LAUNCHES += 1
     return l, m
 
 
@@ -375,3 +393,216 @@ def flash_attention_ref(q, k, v, causal=True, scale=None, window=0):
     card's checks compare the kernels with it.  No model path calls it."""
     return _apply(q, k, v, causal, scale, window, plain=True)
 
+
+# -- the unnormalised partial (B3p) and its pullback --------------------------
+
+PARTIAL_BLOCK_K = 128   # the JAX ``flash_attention_partial``'s block_k
+
+
+def _kv_blocks(k, v, block_k):
+    """Split [B, H, Tk, D] K/V into ``Tk / block_k`` f32 blocks [B, H,
+    block_k, D] (the JAX ``_kv_blocks``, as lists)."""
+    kb = k.float().split(block_k, dim=2)
+    vb = v.float().split(block_k, dim=2)
+    return len(kb), [b.contiguous() for b in kb], [b.contiguous() for b in vb]
+
+
+def _masked_block_scores(qf, kf, ki, block_k, causal, scale, k_offset, q_pos,
+                         window=0):
+    """One [B, H, T, block_k] f32 score tile, causally masked against k rows
+    offset by ``k_offset + ki * block_k``: (scores, mask), mask None when not
+    causal.  Both blockwise passes of ``_partial_stats_bwd`` recompute their
+    scores here, so they compare equal bits."""
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    if not causal:
+        return s, None
+    k_pos = k_offset + ki * block_k + torch.arange(kf.shape[2],
+                                                   device=qf.device)
+    diff = q_pos[:, None] - k_pos[None, :]
+    mask = diff >= 0
+    if window:
+        mask &= diff < window
+    return torch.where(mask, s, torch.full_like(s, NEG_INF)), mask
+
+
+def _partial_ref(q, k, v, causal, scale, k_offset, window=0):
+    """The JAX ``_partial_ref``: unnormalised block attention in f32, the
+    plain version of B3p and the route of a causal block with a k offset.
+    q rows are at local positions, k rows at ``k_offset`` + local ones;
+    ``window`` > 0 keeps q_pos - k_pos in [0, window).  Returns (acc
+    [B, H, T, D], l [B, H, T], m [B, H, T]), all f32."""
+    s = torch.matmul(q.float(), k.float().transpose(-1, -2)) * scale
+    if causal:
+        tq, tk = q.shape[2], k.shape[2]
+        diff = (torch.arange(tq, device=q.device)[:, None]
+                - (k_offset + torch.arange(tk, device=q.device))[None, :])
+        mask = diff >= 0
+        if window:
+            mask &= diff < window
+        s = torch.where(mask, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1)
+    p = torch.exp(s - m[..., None])
+    return torch.matmul(p, v.float()), p.sum(dim=-1), m
+
+
+def _fold(o, l, m, acc_i, l_i, m_i):
+    """Fold one block's (acc, l, m) into the running f32 (o, l, m)."""
+    m_new = torch.maximum(m, m_i)
+    alpha = torch.exp(m - m_new)
+    beta = torch.exp(m_i - m_new)
+    return (o * alpha[..., None] + acc_i * beta[..., None],
+            l * alpha + l_i * beta, m_new)
+
+
+def _empty_state(q):
+    """The fold's initial (o, l, m) for q [B, H, T, D]: (0, 0, NEG_INF)."""
+    shape = q.shape[:3]
+    return (q.new_zeros(q.shape, dtype=torch.float32),
+            q.new_zeros(shape, dtype=torch.float32),
+            q.new_full(shape, NEG_INF, dtype=torch.float32))
+
+
+def _banded_block(qf, kb, vb, ki, block_k, scale, k_offset, q_pos, window):
+    s, _ = _masked_block_scores(qf, kb, ki, block_k, True, scale, k_offset,
+                                q_pos, window=window)
+    m_i = s.amax(dim=-1)
+    p = torch.exp(s - m_i[..., None])
+    return torch.matmul(p, vb), p.sum(dim=-1), m_i
+
+
+def _partial_banded(q, k, v, scale, k_offset, window, block_k=PARTIAL_BLOCK_K):
+    """The JAX ``_partial_banded``: a causal banded partial for the ring's
+    window-straddling block, whose offset depends on the rank.  Walks K in
+    blocks with the online-softmax fold, each block's math under
+    ``torch.utils.checkpoint`` (the JAX ``jax.checkpoint``), so live memory
+    is O(T x block_k) in both directions.  ``_partial_ref`` when Tk does
+    not split into two or more blocks."""
+    tk = k.shape[2]
+    if tk % block_k or tk // block_k <= 1:
+        return _partial_ref(q, k, v, True, scale, k_offset, window=window)
+    qf = q.float()
+    q_pos = torch.arange(q.shape[2], device=q.device)
+    num_k, k_blocks, v_blocks = _kv_blocks(k, v, block_k)
+    state = _empty_state(q)
+    for ki in range(num_k):
+        state = _fold(*state, *torch.utils.checkpoint.checkpoint(
+            _banded_block, qf, k_blocks[ki], v_blocks[ki], ki, block_k,
+            scale, k_offset, q_pos, window, use_reentrant=False))
+    return state
+
+
+def _partial_stats_bwd(q, k, v, acc, l, ga, gl, gm, causal, scale, k_offset,
+                       block_k, window=0):
+    """The JAX ``_partial_stats_bwd``: the pullback of (acc, l, m) =
+    partial(q, k, v) walking K in blocks, each [T, block_k] score tile
+    recomputed; live memory O(T x block_k) plus the gradient accumulators.
+
+    With e_ij = exp(s_ij - m_i), the pullback of (ga, gl, gm) is
+        ds_ij = e_ij (ga_i . v_j + gl_i) + (ind_ij / cnt_i) c_i,
+        c_i   = gm_i - ga_i . acc_i - gl_i l_i,
+        dv_j  = sum_i e_ij ga_i,  dq = scale ds k,  dk = scale ds^T q,
+    where ind marks the row-max positions and cnt splits ties as the
+    gradient of a row max does.  m is recomputed (pass 1) from the scores
+    pass 3 uses, not taken from the kernel, so the ``s == m`` indicator
+    compares equal bits; the saved acc and l feed c only."""
+    qf = q.float()
+    q_pos = torch.arange(q.shape[2], device=q.device)
+    num_k, k_blocks, v_blocks = _kv_blocks(k, v, block_k)
+    gaf = ga.float()
+
+    def scores(ki):
+        return _masked_block_scores(qf, k_blocks[ki], ki, block_k, causal,
+                                    scale, k_offset, q_pos, window=window)
+
+    # Pass 1: the row max, recomputed so that pass 3's indicator is exact.
+    m_re = q.new_full(q.shape[:3], NEG_INF, dtype=torch.float32)
+    for ki in range(num_k):
+        m_re = torch.maximum(m_re, scores(ki)[0].amax(dim=-1))
+    # Pass 2: the ties at the max.
+    cnt = torch.zeros(q.shape[:3], dtype=torch.int64, device=q.device)
+    for ki in range(num_k):
+        cnt += (scores(ki)[0] == m_re[..., None]).sum(dim=-1)
+    c = ((gm.float() - (gaf * acc.float()).sum(dim=-1)
+          - gl.float() * l.float()) / cnt.clamp(min=1).float())
+    # Pass 3: the gradients, one K block at a time.
+    dq = torch.zeros(q.shape, dtype=torch.float32, device=q.device)
+    dks, dvs = [], []
+    for ki in range(num_k):
+        s, mask = scores(ki)
+        e = torch.exp(s - m_re[..., None])
+        ds = e * (torch.matmul(gaf, v_blocks[ki].transpose(-1, -2))
+                  + gl.float()[..., None])
+        ds = ds + torch.where(s == m_re[..., None], c[..., None],
+                              torch.zeros_like(s))
+        if mask is not None:
+            # the dense gradient is 0 where the forward masked
+            ds = torch.where(mask, ds, torch.zeros_like(ds))
+        dvs.append(torch.matmul(e.transpose(-1, -2), gaf))
+        dks.append(torch.matmul(ds.transpose(-1, -2), qf) * scale)
+        dq = dq + torch.matmul(ds, k_blocks[ki]) * scale
+    return (dq.to(q.dtype), torch.cat(dks, dim=2).to(k.dtype),
+            torch.cat(dvs, dim=2).to(v.dtype))
+
+
+def flash_partial_forward(q, k, v, causal=True, scale=None, window=0):
+    """B3p's contract (the JAX ``_flash_forward(normalize=False)``): q, k,
+    v [B, H, T, D] -> (acc [B, H, T, D], l [B, H, T], m [B, H, T]), all
+    f32, for keys at the same positions as the queries.  The kernel on a
+    CUDA tensor, ``_partial_ref`` on a CPU one."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _check_window(window, causal)
+    _check_device(q)
+    if q.device.type == "cpu":
+        return _partial_ref(q, k, v, causal, scale, 0, window)
+    _check_cuda_inputs(q, k, v)
+    acc = torch.empty_like(q, dtype=torch.float32)
+    l, m = _launch(q, k, v, acc, causal, scale, window, normalize=False)
+    return acc, l, m
+
+
+class _FlashPartial(torch.autograd.Function):
+    """The JAX ``custom_vjp`` ``_flash_partial``: B3p forward, saving
+    (q, k, v, acc, l) as ``_flash_partial_fwd`` does; the backward is
+    ``_partial_stats_bwd`` when K splits into two or more blocks, else
+    autograd through ``_partial_ref``, as ``_flash_partial_bwd`` routes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, scale, window):
+        acc, l, m = flash_partial_forward(q, k, v, causal=causal,
+                                          scale=scale, window=window)
+        ctx.save_for_backward(q, k, v, acc, l)
+        ctx.args = (causal, scale, window)
+        return acc, l, m
+
+    @staticmethod
+    def backward(ctx, ga, gl, gm):
+        q, k, v, acc, l = ctx.saved_tensors
+        causal, scale, window = ctx.args
+        tk, block_k = k.shape[2], min(PARTIAL_BLOCK_K, q.shape[2])
+        if tk % block_k == 0 and tk // block_k > 1:
+            grads = _partial_stats_bwd(q, k, v, acc, l, ga, gl, gm, causal,
+                                       scale, 0, block_k, window=window)
+        else:
+            with torch.enable_grad():
+                leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+                outs = _partial_ref(*leaves, causal, scale, 0, window)
+                grads = torch.autograd.grad(outs, leaves, (ga, gl, gm))
+        return grads + (None,) * 3
+
+
+def flash_attention_partial(q, k, v, causal=True, scale=None, k_offset=0,
+                            window=0):
+    """Unnormalised online-softmax attention of q against one KV block:
+    (acc [B, H, T, D], l [B, H, T], m [B, H, T]), all f32, ready to fold
+    into a running (o, l, m), differentiable; ring attention's per-block
+    step.  Causal masking compares local q rows against k rows shifted by
+    ``k_offset``.  B3p serves every block without an offset (the ring's
+    diagonal, and every non-causal block) on the card, its plain version
+    on the CPU; a causal block with an offset, whose mask the kernel does
+    not take, goes to ``_partial_ref`` as in the JAX package."""
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _check_window(window, causal)
+    _check_device(q)
+    if causal and k_offset != 0:
+        return _partial_ref(q, k, v, causal, scale, k_offset, window=window)
+    return _FlashPartial.apply(q, k, v, causal, scale, window)

@@ -10,6 +10,7 @@ one NVIDIA card.  Run from the root of a checkout:
     python3 scripts/profile_torch_transformer.py [--train] \
         --model_params "moe_experts=8;moe_top_k=2"
     python3 scripts/profile_torch_transformer.py --train --zoo lora
+    python3 scripts/profile_torch_transformer.py --train --sp 2 [--steps 3]
 
 The model is the flagship config (vocab 32768, dim 1024, 24 layers, 16
 heads, 436 M parameters, seeded random weights, bf16 compute) with
@@ -33,9 +34,17 @@ combine einsums, LoRA's A @ B; on a bf16 one: an MoE's experts), from
 the trace's links
 from op to kernel (``device_ms_by_matmul_op``).  ``--model_params
 "remat=dots"`` (or ``attn``, ``false``) trains under that remat policy
-instead of remat=True.
+instead of remat=True.  ``--sp N`` (with ``--train``) spawns N ranks
+that share the card (``parallel/launch.py``, gloo groups whose transport
+stages tensors through host memory) and profiles in each one step of the
+port's SPMDTrainer over a ``sp=N`` mesh, attention as ring attention
+(B3p); each rank reports, beside the groups, the device time inside
+``_partial_stats_bwd`` (the partial's backward in plain PyTorch) and the
+host time inside the transport calls (ring shifts, the gradient and loss
+all-reduces), each entered after a synchronise, so that work queued
+before it is not counted as transport.
 Prints the card's name and power limit, then one JSON object per call
-as its last lines.
+(per rank with ``--sp``) as its last lines.
 """
 
 import argparse
@@ -68,6 +77,10 @@ F32_GEMM = ("sgemm", "f32f32_f32f32")    # float32 GEMM kernel names
 BATCH, PROMPT, NEW = 8, 128, 128
 # Kernel-name fragments -> group, first match wins.
 GROUPS = [
+    ("flash attention partial (B3p)", ("flash_fwd_wgmma<false>",
+                                       "flash_fwd_bf16<128, 1, false>",
+                                       "flash_fwd_f32<64, false>",
+                                       "flash_fwd_f32<128, false>")),
     ("flash attention (B3)", ("flash_fwd",)),
     ("flash attention dq (B4)", ("bwd_dq_",)),
     ("flash attention dk, dv (B5)", ("bwd_dkv_",)),
@@ -111,13 +124,24 @@ def untraced_ms(fn, steps):
     return (time.perf_counter() - t0) * 1e3 / steps
 
 
-def profile(fn, steps):
+def range_ms(evt, attr_names):
+    for attr in attr_names:
+        value = getattr(evt, attr, None)
+        if value is not None:
+            return float(value) / 1e3
+    return 0.0
+
+
+def profile(fn, steps, ranges=()):
     """Trace ``steps`` synchronised calls of ``fn`` after two warm-up
-    calls; device time by group, launches, busy and idle share."""
+    calls; device time by group, launches, busy and idle share; for each
+    ``record_function`` range named in ``ranges``, the host and device
+    time inside it per call."""
     for _ in range(2):
         fn()
     wall_untraced = untraced_ms(fn, steps)
     fa.LAUNCHES = fa.BWD_DQ_LAUNCHES = fa.BWD_DKV_LAUNCHES = 0
+    fa.PARTIAL_LAUNCHES = 0
     acts = [torch.profiler.ProfilerActivity.CPU,
             torch.profiler.ProfilerActivity.CUDA]
     with torch.profiler.profile(activities=acts, record_shapes=True) as prof:
@@ -126,8 +150,19 @@ def profile(fn, steps):
             fn()
             torch.cuda.synchronize()
         wall_ms = (time.perf_counter() - t0) * 1e3 / steps
-    kernels, launches = {}, 0
+    kernels, launches, in_ranges = {}, 0, {}
     for evt in prof.key_averages():
+        if evt.key in ranges:
+            # a range has a host entry and a device entry (its span on the
+            # card's timeline), neither of them a kernel
+            entry = in_ranges.setdefault(evt.key, {"host_ms": 0.0,
+                                                   "device_ms": 0.0})
+            if evt.device_type == torch.autograd.DeviceType.CUDA:
+                entry["device_ms"] += range_ms(
+                    evt, ("device_time_total", "cuda_time_total")) / steps
+            else:
+                entry["host_ms"] += range_ms(evt, ("cpu_time_total",)) / steps
+            continue
         us = device_us(evt)
         if us > 0 and evt.device_type == torch.autograd.DeviceType.CUDA:
             kernels[evt.key] = kernels.get(evt.key, 0.0) + us
@@ -148,6 +183,7 @@ def profile(fn, steps):
         "host_gap_ms_untraced": max(0.0, wall_untraced - busy_ms),
         "kernel_launches_per_call": launches / steps,
         "flash_launches_per_call": fa.LAUNCHES / steps,
+        "flash_partial_launches_per_call": fa.PARTIAL_LAUNCHES / steps,
         "flash_bwd_launches_per_call": [fa.BWD_DQ_LAUNCHES / steps,
                                         fa.BWD_DKV_LAUNCHES / steps],
         # the kernels each mm/addmm/bmm op launched, gemm or not
@@ -156,6 +192,7 @@ def profile(fn, steps):
                                           key=lambda kv: -kv[1])),
         "top_kernels_ms": {k[:90]: v / steps / 1e3 for k, v in sorted(
             kernels.items(), key=lambda kv: -kv[1])[:10]},
+        "ranges_ms_per_call": in_ranges,
     }
 
 
@@ -195,6 +232,67 @@ def profile_training(steps, zoo, params):
     return result
 
 
+def _ranged(module, name, label):
+    """Wrap ``module.name`` in a ``record_function`` range ``label``,
+    entered after a synchronise."""
+    fn = getattr(module, name)
+
+    def wrapped(*args, **kwargs):
+        torch.cuda.synchronize()
+        with torch.profiler.record_function(label):
+            return fn(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    return label
+
+
+def sp_rank_profile(steps, params, sp):
+    """One rank of ``profile_sp_training``."""
+    from elasticdl_tpu_torch.parallel import transport
+    from elasticdl_tpu_torch.parallel.mesh import build_mesh
+    from elasticdl_tpu_torch.parallel.spmd_trainer import SPMDTrainer
+
+    build.build_all()
+    mesh = build_mesh(sp=sp, backend="gloo")
+    if "remat=" not in params:
+        params += ";remat=true"
+    spec = load_model_spec("transformer", params)
+    cfg = spec.config
+
+    def loss_fn(module, batch):
+        toks, targets = batch
+        logits = tfm.forward(module, toks, cfg, mesh=mesh)
+        return tfm.next_token_loss_sum(logits, targets), (targets >= 0).sum()
+
+    trainer = SPMDTrainer(mesh, spec.init_fn, loss_fn, spec.optimizer,
+                          param_specs=tfm.param_specs(cfg))
+    tokens = torch.from_numpy(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, size=(BATCH, cfg.max_seq_len)))
+    batch = (tokens, tfm.next_token_targets(tokens))
+    ranges = (_ranged(fa, "_partial_stats_bwd", "partial backward"),
+              _ranged(transport, "shift", "transport: ring shifts"),
+              _ranged(transport, "all_reduce_sum_",
+                      "transport: all-reduces"))
+    torch.cuda.reset_peak_memory_stats()
+    result = profile(lambda: float(trainer.train_step(batch)), steps,
+                     ranges)
+    result["peak_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    result["call"] = ("SPMDTrainer step at sp=%d, rank %d of the card %s, "
+                      "batch %d x %d (%d positions a rank), bf16 compute, "
+                      "AdamW; %s" % (sp, mesh.coords["sp"], mesh.device,
+                                     BATCH, cfg.max_seq_len,
+                                     cfg.max_seq_len // sp, params))
+    return result
+
+
+def profile_sp_training(steps, params, sp):
+    """``sp`` ranks on the card, each profiling an SPMDTrainer step."""
+    from elasticdl_tpu_torch.parallel import launch
+
+    return launch.spawn(sp_rank_profile, sp, (steps, params, sp),
+                        timeout=1500)
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--steps", type=int, default=5)
@@ -202,6 +300,9 @@ def main():
                         help="profile a training step instead of serving")
     parser.add_argument("--model_params", default="",
                         help="zoo settings added to the flagship's")
+    parser.add_argument("--sp", type=int, default=1,
+                        help="with --train: ranks of a sequence-parallel "
+                             "mesh sharing the card (ring attention)")
     parser.add_argument("--zoo", default="transformer",
                         choices=("transformer", "lora"),
                         help="lora: LoRA adapters on a frozen base "
@@ -213,6 +314,9 @@ def main():
             raise SystemExit("--zoo lora profiles training (--train): its "
                              "servable is a merged plain transformer")
         params += ";" + LORA_PARAMS
+    if args.sp > 1 and (not args.train or args.zoo != "transformer"):
+        raise SystemExit("--sp profiles the transformer's training step "
+                         "(--train)")
     if not torch.cuda.is_available():
         raise SystemExit("needs an NVIDIA card")
     print(subprocess.run(
@@ -220,6 +324,10 @@ def main():
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip())
     build.build_all()
+    if args.train and args.sp > 1:
+        for result in profile_sp_training(args.steps, params, args.sp):
+            print(json.dumps(result))
+        return
     if args.train:
         print(json.dumps(profile_training(args.steps, args.zoo, params)))
         return

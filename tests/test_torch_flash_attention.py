@@ -10,6 +10,8 @@ kernel against its running row max, the plain version against the final
 one, so outputs may sit one bf16 rounding of p and one of out apart.
 """
 
+import types
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -126,8 +128,12 @@ def test_window_and_mesh_errors():
             call(causal=False, window=64)
         with pytest.raises(ValueError, match="window must be >= 0"):
             call(causal=True, window=-1)
-    with pytest.raises(NotImplementedError, match="A17"):
-        tring.ring_attention(qs, ks, vs, mesh=object())
+    # A mesh whose sp is 1 is attention_local (the ring itself runs over
+    # gloo ranks in tests/test_torch_ring_attention.py).
+    mesh = types.SimpleNamespace(shape={"dp": 1, "pp": 1, "ep": 1, "tp": 1,
+                                        "sp": 1})
+    close(tring.ring_attention(qs, ks, vs, mesh),
+          tring.attention_local(qs, ks, vs).numpy())
 
 
 def test_cuda_path_refuses_what_the_kernel_does_not_take():
@@ -192,11 +198,17 @@ def test_flagship_forward_dispatches_to_the_wgmma_kernel():
     """bf16 at head_dim 64 (the flagship LM's attention) reaches the kernel
     built on wgmma and TMA; bf16 at head_dim 128 keeps the mma.sync
     kernel and float32 the FMA kernels: a dispatch by dtype and D, with
-    an error for anything else."""
+    an error for anything else.  B3 and B3p (the unnormalised forward)
+    share the dispatch, B3 with normalize 1."""
     import re
 
     body = _kernel_sources("flash_attention.cu")["flash_attention.cu"]
-    entry = body[body.index("int edl_flash_attention_fwd("):]
+    for c_entry, normalize in (("edl_flash_attention_fwd", 1),
+                               ("edl_flash_attention_partial_fwd", 0)):
+        at = body[body.index("int %s(" % c_entry):]
+        assert re.search(r"return forward\([^;]*dtype, %d, stream\);"
+                         % normalize, at[:at.index("\n}\n")])
+    entry = body[body.index("int dispatch("):]
     bf16 = entry[entry.index("if (dtype == 1) {"):]
     assert re.match(r"if \(dtype == 1\) \{\s*if \(D == 64\) return "
                     r"launch_wgmma\(prm, B, stream\);", bf16)
@@ -207,7 +219,8 @@ def test_flagship_forward_dispatches_to_the_wgmma_kernel():
     assert "return (int)cudaErrorInvalidValue;" in entry
     launcher = body[body.index("int launch_wgmma("):]
     launcher = launcher[:launcher.index("\n}\n")]
-    assert "flash_fwd_wgmma<<<" in launcher
+    assert "flash_fwd_wgmma<true>" in launcher
+    assert "kernel<<<" in launcher
     assert "encode_rows_bf16" in launcher
     for op in ("wgmma_ss(", "wgmma_rs_mn(", "tma_load_4d(",
                "named_barrier_arrive("):

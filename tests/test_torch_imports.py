@@ -35,6 +35,8 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
     result = json.loads(out.stdout.strip().splitlines()[-1])
     for name in ("serving.server", "ops.group_norm", "ops.build",
                  "ops.flash_attention", "parallel.ring_attention",
+                 "parallel.mesh", "parallel.transport", "parallel.ulysses",
+                 "parallel.spmd_trainer", "parallel.launch",
                  "models.transformer", "models.lora",
                  "models.mnist", "models.resnet", "models.spec",
                  "utils.checkpoint", "utils.metrics",

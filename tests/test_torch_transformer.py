@@ -195,15 +195,18 @@ def test_config_and_export_validation(tmp_path):
     with pytest.raises(ValueError, match="num_kv_heads"):
         ttfm.model_spec(vocab_size=64, dim=32, num_heads=4, num_layers=2,
                         seq_len=16, num_kv_heads=3)
-    for kwargs, item in (({"attention_impl": "ulysses"}, "A17"),
-                         ({"pipeline_microbatches": 2}, "A18"),
-                         ({"mesh": object()}, "A18")):
+    for kwargs, item in (({"pipeline_microbatches": 2}, "A18"),
+                         ({"mesh": object()}, "A4")):
         with pytest.raises(NotImplementedError, match=item):
             ttfm.model_spec(vocab_size=64, dim=32, num_heads=2,
                             num_layers=1, seq_len=16, **kwargs)
-    # MoE and the remat policies are ported (tests/test_torch_moe.py,
-    # tests/test_torch_remat_policy.py)
-    for kwargs in ({"moe_experts": 2}, {"remat": "dots"}, {"remat": "attn"}):
+    with pytest.raises(ValueError, match="attention_impl"):
+        ttfm.model_spec(vocab_size=64, dim=32, num_heads=2, num_layers=1,
+                        seq_len=16, attention_impl="ringg")
+    # MoE, the remat policies and ulysses are ported (tests/test_torch_moe.py,
+    # tests/test_torch_remat_policy.py, tests/test_torch_ring_attention.py)
+    for kwargs in ({"moe_experts": 2}, {"remat": "dots"}, {"remat": "attn"},
+                   {"attention_impl": "ulysses"}):
         cfg = ttfm.model_spec(vocab_size=64, dim=32, num_heads=2,
                               num_layers=1, seq_len=16, **kwargs).config
         assert all(getattr(cfg, k) == v for k, v in kwargs.items())
