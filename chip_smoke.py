@@ -148,7 +148,22 @@ Phases, in order; any failure exits non-zero:
     and with a window that bands two blocks and skips the third, and a
     4-layer full-width LM's step-1 gradients (rank r launches B3p 8 (r +
     1) times);
-17. one JSON line of kernels, then the card's name and power limit, then
+17. the master/worker process path: in this process, the flagship LM at
+    full width and depth (remat) trained through the port's master
+    (TaskManager and gRPC servicer) and Worker task loop, two jobs of 4
+    tasks of 4 minibatches at batch 8 x 2048, each step launching B3 48
+    times and B4, B5 24 times, every parameter on the card, the loss
+    falling in each job; ms per step and tokens/s beside the direct
+    CollectiveTrainer step timed before, between and after the jobs on
+    the same trainer; then the master CLI
+    (``python -m elasticdl_tpu_torch.master.main``) with two worker
+    processes on the card (no device variable: the workers' default),
+    the flagship's widths at 4 layers from an empty kernel cache, worker
+    0 killed -9 after its first checkpoint: its task requeued, a
+    replacement launched that restores the checkpoint and trains, the
+    job finishing with exit 0 and no failed task; start-up, checkpoint
+    and recovery seconds;
+18. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
@@ -188,6 +203,8 @@ import http.client
 import json
 import math
 import os
+import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -2887,6 +2904,367 @@ def sp_phase(torch, fa, lm_refs):
     return out
 
 
+# The master/worker process path (phase 17).  Leg 1: the flagship at full
+# width and depth (remat) trained in this process through the port's
+# master (TaskManager + gRPC servicer) and Worker task loop, PROC_TASKS
+# tasks of PROC_MINIBATCHES minibatches at batch LM_TRAIN_BATCH x 2048
+# (synthetic_lm: arithmetic token sequences), PROC_JOBS such jobs in
+# turn with PROC_DIRECT_STEPS direct CollectiveTrainer steps on one batch
+# before, between and after them, for the task loop's overhead.  Leg 2: the master CLI with 2 worker processes on the
+# card, the flagship's widths at CLI_LAYERS layers (100.7 M parameters,
+# a 1.21 GB checkpoint of parameters and AdamW moments), worker 0
+# killed -9 after its first checkpoint; both workers start from an empty
+# kernel cache (ELASTICDL_TORCH_BUILD_DIR), so they build B3-B5 side by
+# side, and the replacement loads the cached libraries.
+PROC_MINIBATCHES = 4
+PROC_TASKS = 4
+PROC_DIRECT_STEPS = 5
+PROC_JOBS = 2
+CLI_LAYERS = 4
+CLI_PARAMS = ("vocab_size=32768;dim=1024;num_heads=16;num_layers=%d;"
+              "seq_len=2048;dtype=bfloat16;remat=true" % CLI_LAYERS)
+# 160 tasks of 4 minibatches: enough that the surviving worker cannot
+# finish the job before the replacement's first step.
+CLI_RECORDS = 5120
+CLI_CHECKPOINT_STEPS = 8
+CLI_TIMEOUT_S = 420
+
+
+def process_leg(torch, fa):
+    """Leg 1: the flagship through the master servicer and the Worker in
+    this process; returns the leg's numbers."""
+    from elasticdl_tpu_torch.data.factory import create_data_reader
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.master.task_manager import TaskManager
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.proto import elastic_pb2 as pb
+    from elasticdl_tpu_torch.utils import grpc_utils
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+    from elasticdl_tpu_torch.worker.worker import Worker
+
+    B = LM_TRAIN_BATCH
+    per_task = B * PROC_MINIBATCHES
+    n = PROC_TASKS * PROC_MINIBATCHES
+    spec = load_model_spec("transformer", LM_PARAMS + ";remat=true")
+    cfg = spec.config
+    T = cfg.max_seq_len
+    want = (2 * cfg.num_layers, cfg.num_layers, cfg.num_layers)
+    reader = create_data_reader("synthetic_lm:%d:%d:%d" % (
+        per_task * PROC_TASKS, T, cfg.vocab_size),
+        records_per_shard=per_task)
+    trainer = CollectiveTrainer(spec, batch_size=B, device=DEVICE)
+    # The direct step: random tokens already on the card (no task loop,
+    # no host copy), on the same trainer, timed before, between and after
+    # the Worker's jobs; the task loop's cost is the gap to their steps.
+    tokens = torch.from_numpy(np.random.RandomState(10).randint(
+        0, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(DEVICE)
+
+    def direct_ms():
+        _, ms, counts = timed_steps(torch, fa, trainer, tokens,
+                                    PROC_DIRECT_STEPS)
+        if counts != tuple(PROC_DIRECT_STEPS * w for w in want):
+            fail("the direct steps launched %s" % (counts,))
+        return ms
+
+    def job():
+        """One job of PROC_TASKS tasks: a master, a Worker, the counts
+        zeroed just before its run and read just after."""
+        master = Master(TaskManager(training_shards=reader.create_shards(),
+                                    records_per_task=per_task,
+                                    num_epochs=1))
+        master.prepare()
+        inner = trainer.train_minibatch
+        try:
+            channel = grpc_utils.build_channel("localhost:%d" % master.port)
+            grpc_utils.wait_for_channel_ready(channel, timeout=60)
+            mc = MasterClient(channel, worker_id=0)
+            # Each step's loss and launches; one synchronise after step 1
+            # so the steps after it time the loop in its steady state.
+            steps, marks = [], {}
+
+            def train_minibatch(features, labels):
+                before = flash_counts(fa)
+                loss, version = inner(features, labels)
+                steps.append((loss, tuple(
+                    a - b for a, b in zip(flash_counts(fa), before))))
+                if len(steps) == 1:
+                    torch.cuda.synchronize()
+                    marks["first"] = time.perf_counter()
+                return loss, version
+
+            trainer.train_minibatch = train_minibatch
+            worker = Worker(mc, reader, spec, trainer, batch_size=B)
+            torch.cuda.synchronize()
+            zero_flash_counts(fa)
+            t0 = time.perf_counter()
+            worker.run()
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            counts = flash_counts(fa)
+            task_counts = master.task_manager.counts()
+        finally:
+            trainer.train_minibatch = inner
+            master.stop()
+        if not master.task_manager.finished() or task_counts["completed"][
+                pb.TRAINING] != PROC_TASKS or sum(
+                    task_counts["failed"].values()):
+            fail("the in-process job did not finish its %d tasks: %s"
+                 % (PROC_TASKS, task_counts))
+        if len(steps) != n or any(c != want for _, c in steps):
+            fail("the Worker ran %d steps (want %d) launching (B3, B4, B5) "
+                 "%s (want %s each)" % (len(steps), n,
+                                        sorted({c for _, c in steps}), want))
+        if counts != tuple(n * w for w in want):
+            fail("the Worker's run launched (B3, B4, B5) %s, want %s"
+                 % (counts, tuple(n * w for w in want)))
+        losses = [float(loss) for loss, _ in steps]
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            fail("the Worker's loss did not fall: %s" % losses)
+        return {"ms_per_step": (t1 - marks["first"]) * 1e3 / (n - 1),
+                "first_step_s": marks["first"] - t0, "losses": losses,
+                "launches": counts, "timing": worker.timing.summary()}
+
+    float(trainer.train_minibatch(tokens, tokens)[0])  # warm-up
+    direct, jobs = [direct_ms()], []
+    for _ in range(PROC_JOBS):
+        jobs.append(job())
+        direct.append(direct_ms())
+    off = [name for name, p in trainer.module.named_parameters()
+           if p.device.type != torch.device(DEVICE).type]
+    if off:
+        fail("parameters off the card: %s" % off[:5])
+    worker_ms = [j["ms_per_step"] for j in jobs]
+    ms, direct_mean = np.mean(worker_ms), np.mean(direct)
+    out = {"steps_per_job": n, "tasks_per_job": PROC_TASKS,
+           "launches_per_step": want, "jobs": jobs,
+           "worker_ms_per_step": worker_ms,
+           "worker_tokens_per_s": B * T / ms * 1e3,
+           "direct_ms_per_step": direct,
+           "direct_tokens_per_s": B * T / direct_mean * 1e3,
+           "task_loop_ms_per_step": ms - direct_mean,
+           "task_loop_share": (ms - direct_mean) / ms,
+           "trainer_timing": trainer.timing.summary()}
+    print("process path, leg 1 (in process): %d jobs of %d tasks x %d steps "
+          "of the flagship (batch %d x %d, remat) through the port's master "
+          "and Worker on %s, launches per step B3 %d, B4 %d, B5 %d: ms per "
+          "step %s (%.0f tokens/s), first steps %s s, losses %s; direct "
+          "CollectiveTrainer steps before, between and after: %s ms (%.0f "
+          "tokens/s); task loop %.2f ms per step (%.2f %%)" % (
+              PROC_JOBS, PROC_TASKS, PROC_MINIBATCHES, B, T, DEVICE, *want,
+              ", ".join("%.2f" % x for x in worker_ms),
+              out["worker_tokens_per_s"],
+              ", ".join("%.2f" % j["first_step_s"] for j in jobs),
+              ", ".join("%.4f -> %.4f" % (j["losses"][0], j["losses"][-1])
+                        for j in jobs),
+              ", ".join("%.2f" % x for x in direct),
+              out["direct_tokens_per_s"], out["task_loop_ms_per_step"],
+              100 * out["task_loop_share"]))
+    print("process path, leg 1: worker timing %s" % json.dumps(
+        {k: v for k, v in jobs[0]["timing"].items() if "total_s" in v}))
+    del trainer
+    torch.cuda.empty_cache()
+    return out
+
+
+class _MasterProcess:
+    """The master CLI as a subprocess; a thread stamps each log line with
+    the host clock as it arrives."""
+
+    def __init__(self, args, env, cwd):
+        self.lines = []
+        self._cond = threading.Condition()
+        self.t0 = time.perf_counter()
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "elasticdl_tpu_torch.master.main"] + args,
+            env=env, cwd=cwd, stdout=subprocess.DEVNULL,
+            stderr=subprocess.PIPE, text=True)
+        self._thread = threading.Thread(target=self._read, daemon=True)
+        self._thread.start()
+
+    def _read(self):
+        for line in self.proc.stderr:
+            with self._cond:
+                self.lines.append((time.perf_counter(), line))
+                self._cond.notify_all()
+
+    def wait_for(self, pattern, deadline):
+        """(host time, match) of the first log line matching
+        ``pattern``; fails at ``deadline`` or when the master exits."""
+        with self._cond:
+            while True:
+                for t, line in self.lines:
+                    m = re.search(pattern, line)
+                    if m:
+                        return t, m
+                if self.proc.poll() is not None or (
+                        time.perf_counter() > deadline):
+                    fail("process path, leg 2: no %r in the master's log "
+                         "(master rc %s); its tail:\n%s" % (
+                             pattern, self.proc.poll(), self.tail()))
+                self._cond.wait(1.0)
+
+    def tail(self, n=40):
+        with self._cond:
+            return "".join(line for _, line in self.lines[-n:])
+
+    def children(self):
+        try:
+            with open("/proc/%d/task/%d/children" % (
+                    self.proc.pid, self.proc.pid)) as f:
+                return [int(p) for p in f.read().split()]
+        except OSError:
+            return []
+
+    def worker_pid(self, worker_id):
+        for pid in self.children():
+            try:
+                with open("/proc/%d/environ" % pid, "rb") as f:
+                    env = f.read().split(b"\0")
+            except OSError:
+                continue
+            if b"WORKER_ID=%d" % worker_id in env:
+                return pid
+        fail("process path, leg 2: no worker %d among the master's "
+             "children" % worker_id)
+
+    def stop(self):
+        """Kill the master and every worker it left running."""
+        if self.proc.poll() is None:
+            for pid in self.children():
+                with contextlib.suppress(OSError):
+                    os.kill(pid, signal.SIGKILL)
+            self.proc.kill()
+        self.proc.wait(timeout=60)
+        self._thread.join(timeout=60)
+
+
+def cli_leg(torch):
+    """Leg 2: the master CLI with two worker processes on the card, a
+    kill -9 of worker 0 after its first checkpoint; returns the leg's
+    numbers."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ)
+    env.pop("ELASTICDL_TORCH_DEVICE", None)     # the workers' default: cuda
+    env["ELASTICDL_TORCH_BUILD_DIR"] = os.path.join(tmp.name, "build")
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+    ckpt = os.path.join(tmp.name, "ckpt")
+    args = ["--model_zoo", "transformer", "--model_params", CLI_PARAMS,
+            "--data_origin", "synthetic_lm:%d:2048:32768" % CLI_RECORDS,
+            "--batch_size", str(LM_TRAIN_BATCH),
+            "--num_minibatches_per_task", str(PROC_MINIBATCHES),
+            "--num_workers", "2", "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(CLI_CHECKPOINT_STEPS),
+            "--log_loss_steps", "1"]
+    job = _MasterProcess(args, env, tmp.name)
+    deadline = job.t0 + CLI_TIMEOUT_S
+    try:
+        # Start-up in three parts: the interpreter and imports (to the
+        # worker's first log line), then its master connection, model
+        # spec, data and trainer on the card (to "training on"), then the
+        # first step (the kernels built or loaded, the first step run).
+        launched = {w: job.wait_for(r"launched worker %d\b" % w,
+                                    deadline)[0] for w in (0, 1)}
+        started = {w: job.wait_for(r"\[worker-%d\] .*worker starting" % w,
+                                   deadline)[0] for w in (0, 1)}
+        ready = {w: job.wait_for(r"worker %d training on" % w,
+                                 deadline)[0] for w in (0, 1)}
+        first = {w: job.wait_for(r"\[worker-%d\] .* step 1 loss" % w,
+                                 deadline)[0] for w in (0, 1)}
+        t_ckpt, m = job.wait_for(
+            r"\[worker-0\] .*checkpoint version (\d+) written: (\d+) bytes "
+            r"in ([\d.]+) s", deadline)
+        ckpt_version, ckpt_bytes, ckpt_s = (
+            int(m.group(1)), int(m.group(2)), float(m.group(3)))
+        pid = job.worker_pid(0)
+        os.kill(pid, signal.SIGKILL)
+        t_kill = time.perf_counter()
+        t_launch, _ = job.wait_for(r"launched worker 2\b", deadline)
+        t_started, _ = job.wait_for(r"\[worker-2\] .*worker starting",
+                                    deadline)
+        t_ready, _ = job.wait_for(r"worker 2 training on", deadline)
+        _, m = job.wait_for(r"\[worker-2\] .*restored checkpoint version "
+                            r"(\d+)", deadline)
+        restored = int(m.group(1))
+        t_step, m = job.wait_for(
+            r"\[worker-2\] .* step 1 loss [\d.]+ \(version (\d+)\)",
+            deadline)
+        version_after = int(m.group(1))
+        try:
+            rc = job.proc.wait(timeout=max(1.0, deadline
+                                           - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            fail("process path, leg 2: the job did not finish within %d s;"
+                 " its tail:\n%s" % (CLI_TIMEOUT_S, job.tail()))
+        t_end = time.perf_counter()
+    finally:
+        job.stop()
+        tmp.cleanup()
+    log = "".join(line for _, line in job.lines)
+    finished = re.search(r"job finished: .*'failed': \{0: 0, ", log)
+    requeued = re.search(r"task \d+ failed \(worker 0 died\), retry 1/3",
+                         log)
+    on_card = sorted(set(re.findall(r"worker (\d+) training on (\S+)",
+                                    log)))
+    if rc != 0 or not finished or not requeued:
+        fail("process path, leg 2: rc %s, job finished with no failed "
+             "task: %s, the killed worker's task requeued: %s; tail:\n%s"
+             % (rc, bool(finished), bool(requeued), job.tail()))
+    if [w for w, _ in on_card] != ["0", "1", "2"] or any(
+            not d.startswith(torch.device(DEVICE).type)
+            for _, d in on_card):
+        fail("process path, leg 2: workers ran on %s" % on_card)
+    if not restored >= ckpt_version > 0 or version_after <= restored:
+        fail("process path, leg 2: the replacement restored version %d "
+             "(worker 0 wrote %d) and reached version %d after its first "
+             "step" % (restored, ckpt_version, version_after))
+    losses = [float(x) for x in re.findall(
+        r"\[worker-\d\] .* step \d+ loss ([\d.eE+-]+)", log)]
+    if not losses or not all(map(math.isfinite, losses)):
+        fail("process path, leg 2: losses %s" % losses[:10])
+    steps = len(losses)
+    out = {"layers": CLI_LAYERS, "records": CLI_RECORDS, "steps": steps,
+           "startup_s": {w: t - job.t0 for w, t in first.items()},
+           "launched_s": {w: t - job.t0 for w, t in launched.items()},
+           "started_s": {w: t - job.t0 for w, t in started.items()},
+           "ready_s": {w: t - job.t0 for w, t in ready.items()},
+           "checkpoint_version": ckpt_version,
+           "checkpoint_bytes": ckpt_bytes, "checkpoint_write_s": ckpt_s,
+           "kill_after_start_s": t_kill - job.t0,
+           "relaunch_s": t_launch - t_kill,
+           "recovery_s": t_step - t_kill,
+           "replacement_started_s": t_started - t_kill,
+           "replacement_ready_s": t_ready - t_kill,
+           "restored_version": restored,
+           "job_s": t_end - job.t0, "rc": rc,
+           "first_loss": losses[0], "last_loss": losses[-1]}
+    print("process path, leg 2 (CLI, 2 workers on the card, %d layers, "
+          "cold kernel cache): after the master started, workers 0 and 1 "
+          "were launched at %.1f s and %.1f s, logged their first line at "
+          "%.1f s and %.1f s, were ready (model on the card) at %.1f s and "
+          "%.1f s and ran their first steps at %.1f s and %.1f s; worker "
+          "0's checkpoint (version %d, %d bytes) "
+          "written in %.2f s; kill -9 at %.1f s; after it, replacement "
+          "launched at %.2f s, first line at %.1f s, ready at %.1f s, "
+          "restored version %d, first step at %.1f s; job finished exit 0 "
+          "in %.1f s (%d steps logged), 0 failed tasks" % (
+              CLI_LAYERS, out["launched_s"][0], out["launched_s"][1],
+              out["started_s"][0], out["started_s"][1],
+              out["ready_s"][0], out["ready_s"][1], out["startup_s"][0],
+              out["startup_s"][1], ckpt_version, ckpt_bytes, ckpt_s,
+              out["kill_after_start_s"], out["relaunch_s"],
+              out["replacement_started_s"], out["replacement_ready_s"],
+              restored, out["recovery_s"], out["job_s"], steps))
+    return out
+
+
+def process_phase(torch, fa):
+    return {"in_process": process_leg(torch, fa), "cli": cli_leg(torch)}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -2980,6 +3358,9 @@ def main():
     sp = sp_phase(torch, fa, lm_refs)
     del lm_refs
     phase_s["sequence parallelism"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    proc = process_phase(torch, fa)
+    phase_s["process path"] = time.perf_counter() - t0
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -3040,6 +3421,8 @@ def main():
         "launches_lora_request": lora_out["served_launches"][0],
         "launches_remat_step": {k: v["launches_per_step"][0]
                                 for k, v in remat.items()},
+        "launches_process_path_step":
+            proc["in_process"]["launches_per_step"][0],
         "d128": {key: flash_timed["bfloat16 d128"][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }]
@@ -3057,6 +3440,8 @@ def main():
                 lora_out["launches_per_step"][1 + i],
             "launches_remat_step": {k: v["launches_per_step"][1 + i]
                                     for k, v in remat.items()},
+            "launches_process_path_step":
+                proc["in_process"]["launches_per_step"][1 + i],
             "max_abs_err": flash_bwd_err["bfloat16"][0],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -3122,6 +3507,7 @@ def main():
                               if k != "partial_timed"},
                        "partial_timed": {"%s causal=%s" % k: v for k, v in
                                          part.items()},
+                       "process_path": proc,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -26,7 +26,9 @@ In the port:
    the JAX package's layout and back; the trainer saves and restores
    optimizer state through them;
  - ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
-   serves a generation export (language models only).
+   serves a generation export (language models only);
+ - ``callbacks`` lists training callbacks for the worker's task loop
+   (empty by default).
 
 The functions below implement those maps for modules whose submodules
 carry flax's call-order names (``Conv_0``, ``Dense_1``): conv kernels
@@ -93,6 +95,11 @@ class ModelSpec:
     # tensor -> ndarray, ndarray -> CPU tensor.
     to_jax_layout: typing.Callable = to_jax_layout
     from_jax_layout: typing.Callable = from_jax_layout
+    # Training callbacks (``on_train_batch_begin(trainer)``,
+    # ``on_train_end(trainer)``) the worker calls; a non-empty list makes
+    # the master schedule a train-end task.  No zoo model of the port
+    # sets any yet (``models/callbacks.py`` is ROADMAP A11).
+    callbacks: list = dataclasses.field(default_factory=list)
 
 
 def params_from_jax(named):

@@ -3,11 +3,13 @@
 Each ``csrc/<name>.cu`` is compiled by ``nvcc`` for Hopper (``sm_90a``)
 into its own shared library with a plain C interface, which is loaded
 with ``ctypes``.  No PyTorch headers are involved, so a build takes
-seconds.  Libraries land in ``ops/_build/`` under a name that carries a
-hash of the flags and of every source and header in ``csrc/``: editing
-a source rebuilds it, an unchanged one is reused.  A library is written
-to a temporary name and renamed into place, so a concurrent build never
-loads a torn file.
+seconds.  Libraries land in ``ops/_build/`` (or in
+``$ELASTICDL_TORCH_BUILD_DIR``) under a name that carries a hash of the
+flags and of every source and header in ``csrc/``: editing a source
+rebuilds it, an unchanged one is reused.  A library is written to a
+temporary name of its process and thread and renamed into place, so two
+processes that build it together (two workers starting on a cold cache)
+never load a torn file.
 
 ``build_all()`` starts one ``nvcc`` per source, all together, and waits
 for them; ``library(name)`` builds one on demand.  Both raise on any
@@ -23,8 +25,8 @@ import subprocess
 import threading
 
 CSRC = os.path.join(os.path.dirname(os.path.abspath(__file__)), "csrc")
-BUILD_DIR = os.path.join(os.path.dirname(os.path.abspath(__file__)),
-                         "_build")
+BUILD_DIR = os.environ.get("ELASTICDL_TORCH_BUILD_DIR") or os.path.join(
+    os.path.dirname(os.path.abspath(__file__)), "_build")
 # -Xptxas -v prints registers, shared memory and spills per kernel; the
 # output is returned by build_all() for the caller to show.
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",

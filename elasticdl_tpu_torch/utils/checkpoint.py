@@ -18,6 +18,7 @@ here: it comes with that path.
 import os
 import re
 import shutil
+import time
 
 import numpy as np
 
@@ -53,9 +54,13 @@ class CheckpointSaver:
                    for name, arr in dense.items()}
         path = _shard_file(self._dir, version, 0, 1)
         tmp = path + ".tmp"
+        start = time.perf_counter()
         with open(tmp, "wb") as f:
             np.savez(f, **payload)
         os.replace(tmp, path)
+        logger.info("checkpoint version %d written: %d bytes in %.3f s",
+                    version, os.path.getsize(path),
+                    time.perf_counter() - start)
         self._gc()
         return path
 

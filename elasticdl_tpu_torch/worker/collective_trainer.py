@@ -46,28 +46,51 @@ Where it differs:
    ``utils.device.use_float32_numerics()`` first (``chip_smoke.py``
    does).  The trainer changes no process-wide setting.
 
-Left for later slices: meshes and ``rebuild`` (elastic collectives),
-ZeRO-1, fused multi-step windows, the servable exporter, and version
-reports to a master (with the port's master client).
+What the worker's task loop uses (``worker/worker.py``,
+``worker/fused_driver.py``):
+
+ - ``prepare_batch`` is host work only: it pads and reshapes on the
+   host (CPU tensors) and touches no device, so the fused driver's
+   prefetch producer thread may run it.  The copy to the card happens
+   on the thread that dispatches the step, on its current stream
+   (``train_minibatch``, ``stage_window``), so the copy and the step are
+   ordered by the stream itself;
+ - version reports to the master every ``report_version_steps`` steps
+   through the master client, and checkpoints every
+   ``checkpoint_steps``;
+ - the fused-window API (``max_window``, ``steps_to_boundary``,
+   ``stage_window``, ``train_window``, ``build_fused_window``,
+   ``build_fused_steps``).  A window of K is K optimizer steps issued
+   back to back with no host sync between them; the losses stay on the
+   device until the driver fetches them.  It is not one captured
+   program (the JAX trainer's unrolled ``lax.scan``): each step is the
+   same ``_train_step`` a ``train_minibatch`` runs, on its own
+   device copy of its batch, so a window equals K single steps bitwise.
+
+Left for later slices: meshes and ``rebuild`` (elastic collectives,
+ROADMAP A4), ZeRO-1 (A6) and the servable exporter (A11); the
+constructor's ``mesh``, ``zero1`` and ``exporter`` accept only their
+defaults and otherwise raise ``NotImplementedError`` naming the item.
 """
 
-import collections
 import concurrent.futures
 
 import numpy as np
 import torch
 
 from elasticdl_tpu_torch.models.spec import jax_name
+from elasticdl_tpu_torch.utils.args import not_ported
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.logging import get_logger
 from elasticdl_tpu_torch.utils.pytree import tree_leaves, tree_map
 from elasticdl_tpu_torch.utils.timing import Timing
+from elasticdl_tpu_torch.worker.fused_driver import (
+    PreparedBatch,
+    StagedWindow,
+)
 from elasticdl_tpu_torch.worker.trainer import Trainer
 
 logger = get_logger(__name__)
-
-PreparedBatch = collections.namedtuple(
-    "PreparedBatch", ["features", "labels", "weights", "count"])
 
 
 def _masked_mean(per_example, weights):
@@ -96,6 +119,13 @@ def _pad_batch(tree, batch_size):
                           device=first.device)
     weights[:n] = 1.0
     return tree_map(lambda leaf: _pad_rows(leaf, batch_size), tree), weights
+
+
+def _host_tensor(a):
+    """A batch leaf as a tensor, without a device copy: an ndarray (or
+    array-like) becomes a CPU tensor; a tensor stays where it is."""
+    return a if isinstance(a, torch.Tensor) else torch.as_tensor(
+        np.asarray(a))
 
 
 # Adam and AdamW keep the same slots; whether AdamW subclasses Adam
@@ -183,19 +213,33 @@ class CollectiveTrainer(Trainer):
         batch_size,
         accum_steps=1,
         rng_seed=0,
+        master_client=None,
+        report_version_steps=0,
         checkpoint_saver=None,
         checkpoint_steps=0,
         use_bf16_compute=False,
         device=None,
+        mesh=None,
+        zero1=False,
+        exporter=None,
+        export_steps=0,
     ):
+        if mesh is not None:
+            raise not_ported("a CollectiveTrainer over a mesh", "A4")
+        if zero1:
+            raise not_ported("ZeRO-1 (zero1=True)", "A6")
+        if exporter is not None or export_steps:
+            raise not_ported("continuous servable export", "A11")
         self._spec = spec
         self._batch_size = batch_size
         self._accum_steps = accum_steps
+        self._mc = master_client
+        self._report_version_steps = report_version_steps
         self._checkpoint_saver = checkpoint_saver
         self._checkpoint_steps = checkpoint_steps
         self._use_bf16_compute = use_bf16_compute
         self._device = resolve_device(device)
-        self.timing = Timing()
+        self.timing = Timing(logger=logger)
         self._version = 0
         self._ckpt_executor = None
         self._ckpt_future = None
@@ -215,6 +259,18 @@ class CollectiveTrainer(Trainer):
     def _as_tensor(self, a):
         return torch.as_tensor(a if isinstance(a, torch.Tensor)
                                else np.asarray(a), device=self._device)
+
+    def _to_device(self, tree):
+        """Copy a host batch tree to the trainer's device on the calling
+        thread's current stream (a no-op for leaves already there).
+        From pinned memory the copy is asynchronous and still ordered
+        before every later step on that stream."""
+        def put(t):
+            if self._device.type == "cuda" and not t.is_cuda:
+                return t.pin_memory().to(self._device, non_blocking=True)
+            return t.to(self._device)
+
+        return tree_map(put, tree)
 
     def _loss_and_grads(self, features, labels, weights):
         """Forward and backward of one (micro)batch; the gradients add
@@ -250,10 +306,12 @@ class CollectiveTrainer(Trainer):
     # -- Trainer API --------------------------------------------------------
 
     def prepare_batch(self, features, labels, count=None):
-        """Batch prep on the trainer's device: pad to the static batch
-        (with the loss mask) and reshape for accumulation."""
+        """Host-side batch prep: pad to the static batch (with the loss
+        mask) and reshape for accumulation, on CPU tensors.  It touches
+        no device, so it may run on the prefetch producer thread; the
+        step's thread copies the result to the card."""
         with self.timing.timeit("batch_prep"):
-            batch = tree_map(self._as_tensor, (features, labels))
+            batch = tree_map(_host_tensor, (features, labels))
             n = int(tree_leaves(batch)[0].shape[0])
             accum, micro = self._accum_steps, self._batch_size
             batch, weights = _pad_batch(batch, accum * micro)
@@ -270,15 +328,112 @@ class CollectiveTrainer(Trainer):
         """One step; returns (loss, version) where ``loss`` is a LAZY
         device scalar: no host sync here.  ``float(loss)`` is the
         fence."""
-        prepared = self.prepare_batch(features, labels)
+        staged = self.stage_window([self.prepare_batch(features, labels)])
         with self.timing.timeit("step_dispatch"):
-            loss = self._train_step(prepared.features, prepared.labels,
-                                    prepared.weights)
+            loss = self._train_step(staged.features, staged.labels,
+                                    staged.weights)
         self._version += 1
-        self._maybe_checkpoint()
+        self._maybe_report_and_checkpoint()
         return loss, self._version
 
-    def _maybe_checkpoint(self):
+    # -- fused window API (fused_driver.FusedStepDriver) --------------------
+
+    @property
+    def max_window(self):
+        """None: windows are unbounded (one process, no mesh)."""
+        return None
+
+    def steps_to_boundary(self):
+        """Steps until the next version-report or checkpoint cadence
+        boundary: the fused driver clamps windows to it so those events
+        land on exactly the per-step loop's step numbers."""
+        dists = []
+        if self._mc is not None and self._report_version_steps:
+            dists.append(
+                self._report_version_steps
+                - self._version % self._report_version_steps
+            )
+        if self._checkpoint_saver is not None and self._checkpoint_steps:
+            dists.append(
+                self._checkpoint_steps
+                - self._version % self._checkpoint_steps
+            )
+        return min(dists) if dists else None
+
+    def stage_window(self, prepared, to_device=True):
+        """K prepared batches -> a ``StagedWindow``; ``to_device`` starts
+        their copy to the card now, on the calling thread's stream.  A
+        window of 1 keeps the batch's own trees; a longer one holds a
+        tuple of K per-step trees in each field (not one stacked array:
+        each step reads its own device copy, exactly as a single step
+        does)."""
+        put = self._to_device if to_device else (lambda tree: tree)
+        if len(prepared) == 1:
+            b = prepared[0]
+            return StagedWindow(1, put(b.features), put(b.labels),
+                                put(b.weights))
+        return StagedWindow(
+            len(prepared),
+            tuple(put(b.features) for b in prepared),
+            tuple(put(b.labels) for b in prepared),
+            tuple(put(b.weights) for b in prepared),
+        )
+
+    def build_fused_window(self, num_steps):
+        """fn(features, labels, weights) -> losses[num_steps]: the
+        num_steps optimizer steps of one window, each over its own
+        minibatch (``stage_window``'s per-step tuples), issued with no
+        host sync; the stacked losses stay on the device."""
+        def window(features, labels, weights):
+            if not len(features) == len(labels) == len(weights) \
+                    == num_steps:
+                raise ValueError("a window of %d steps got %d batches"
+                                 % (num_steps, len(features)))
+            return torch.stack([
+                self._train_step(*self._to_device((f, l, w)))
+                for f, l, w in zip(features, labels, weights)
+            ])
+
+        return window
+
+    def build_fused_steps(self, num_steps):
+        """fn(features, labels, weights) -> last loss: num_steps
+        optimizer steps over ONE fixed batch with no host sync between
+        them (the bench's steps-per-loop form)."""
+        def multi(features, labels, weights):
+            features, labels, weights = self._to_device(
+                (features, labels, weights))
+            loss = None
+            for _ in range(num_steps):
+                loss = self._train_step(features, labels, weights)
+            return loss
+
+        return multi
+
+    def train_window(self, staged):
+        """Dispatch one staged window; returns (device losses, version
+        after the window).  The caller clamps K to
+        ``steps_to_boundary`` (fused_driver does): report and
+        checkpoint cadences are checked once, at the window's end."""
+        if staged.size == 1:
+            with self.timing.timeit("step_dispatch"):
+                losses = self._train_step(*self._to_device(
+                    (staged.features, staged.labels, staged.weights)))
+        else:
+            with self.timing.timeit("step_dispatch"):
+                losses = self.build_fused_window(staged.size)(
+                    staged.features, staged.labels, staged.weights)
+        self._version += staged.size
+        self._maybe_report_and_checkpoint()
+        return losses, self._version
+
+    def _maybe_report_and_checkpoint(self):
+        if (
+            self._mc is not None
+            and self._report_version_steps
+            and self._version % self._report_version_steps == 0
+        ):
+            self._mc.report_version(self._version)
         if (
             self._checkpoint_saver is not None
             and self._checkpoint_steps
@@ -355,6 +510,16 @@ class CollectiveTrainer(Trainer):
             )
         logger.info("checkpoint at version %d queued for write",
                     self._version)
+
+    def zero1_report(self):
+        """Per-device optimizer-state accounting of ZeRO-1: None, as in
+        the JAX trainer without a mesh (ZeRO-1 is ROADMAP A6)."""
+        return None
+
+    def close(self):
+        """Join pending checkpoint writes (the worker calls this when
+        its task loop ends)."""
+        self.flush_checkpoints()
 
     def _surface_checkpoint_errors(self, wait):
         future = self._ckpt_future

@@ -41,7 +41,21 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "models.mnist", "models.resnet", "models.spec",
                  "utils.checkpoint", "utils.metrics",
                  "utils.timing", "worker.trainer",
-                 "worker.collective_trainer"):
+                 "worker.collective_trainer",
+                 # the master/worker process path
+                 "proto.elastic_pb2", "proto.rpc", "utils.args",
+                 "utils.logging", "utils.hist", "utils.retry",
+                 "utils.slo", "utils.grpc_utils", "utils.tensor_codec",
+                 "utils.tracing", "utils.hashing", "data.reader",
+                 "data.recio", "data.recio_gen", "data.token_reader",
+                 "data.parallel_reader", "data.factory",
+                 "master.worker_state", "master.journal",
+                 "master.task_manager", "master.rendezvous",
+                 "master.evaluation_service", "master.servicer",
+                 "master.master", "master.worker_manager", "master.main",
+                 "worker.master_client", "worker.data_shard_service",
+                 "worker.task_data_service", "worker.worker",
+                 "worker.main", "worker.fused_driver"):
         assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
