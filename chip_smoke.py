@@ -163,7 +163,27 @@ Phases, in order; any failure exits non-zero:
     replacement launched that restores the checkpoint and trains, the
     job finishing with exit 0 and no failed task; start-up, checkpoint
     and recovery seconds;
-18. one JSON line of kernels, then the card's name and power limit, then
+18. the managed elastic-collective path: ResNet-50 at full size (224x224,
+    1000 classes, float32, TF32 off) trained by two ranks spawned on the
+    card, each at batch 32 over a data mesh whose world is formed through
+    the port's MasterCoordinationService and initialize_from_rendezvous
+    on gloo (host-staged transfers: both ranks share the card); step-1
+    loss and gradients against a single-process step at batch 64 (each
+    leaf within COLL_FLOOR_X x its floor, the largest distance from the
+    dense f32 plain path of the kernels at batch 64 and at 32 and of the
+    plain path at 32; COLL_GRAD_MIN at least), B1/B2 53 launches a step a
+    rank, ms a step and the all-reduce's ms a step; then the world
+    re-formed 2 -> 1 -> 2 in place: parameters and momentum kept bit for
+    bit, a joiner with other weights adopting rank 0's bit for bit and
+    taking the same next step; then the master CLI with
+    ``--distribution_strategy collective`` and two workers on the card
+    (resnet50_cifar10, synthetic_cifar10, kernels from the build phase's
+    directory), worker 0 killed -9 once both have stepped in a world of
+    2: the survivor's in-band failure, an epoch of world 1, the relaunch,
+    an epoch of world 2 again, B1/B2 53 launches a pass in every worker
+    that exits, the job finishing with exit 0 and no failed task;
+    recovery seconds and steps/s at worlds 2 and 1;
+19. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
@@ -194,7 +214,9 @@ Tolerances (|got - ref| <= atol + rtol * |ref|):
    LM_TOL, LM_TF_TOL, FLASH_BWD_TOL and LM_GRAD_MIN below, each with its
    reason;
  - sequence parallelism: PARTIAL_TOL, SP2_ATTENTION's comment,
-   ``sp1_reference`` and SP_LOSS_RTOL below.
+   ``sp1_reference`` and SP_LOSS_RTOL below;
+ - the collective path: COLL_FLOOR_X, COLL_GRAD_MIN and COLL_LOSS_RTOL
+   below.
 """
 
 import argparse
@@ -3070,9 +3092,10 @@ def process_leg(torch, fa):
 
 class _MasterProcess:
     """The master CLI as a subprocess; a thread stamps each log line with
-    the host clock as it arrives."""
+    the host clock as it arrives.  ``what`` names the leg in failures."""
 
-    def __init__(self, args, env, cwd):
+    def __init__(self, args, env, cwd, what="process path, leg 2"):
+        self.what = what
         self.lines = []
         self._cond = threading.Condition()
         self.t0 = time.perf_counter()
@@ -3089,20 +3112,26 @@ class _MasterProcess:
                 self.lines.append((time.perf_counter(), line))
                 self._cond.notify_all()
 
-    def wait_for(self, pattern, deadline):
-        """(host time, match) of the first log line matching
-        ``pattern``; fails at ``deadline`` or when the master exits."""
+    def wait_for(self, pattern, deadline, after=None, count=1):
+        """(host time, match) of the ``count``-th log line matching
+        ``pattern`` (that arrived at ``after`` or later); fails at
+        ``deadline`` or when the master exits."""
         with self._cond:
             while True:
+                seen = 0
                 for t, line in self.lines:
+                    if after is not None and t < after:
+                        continue
                     m = re.search(pattern, line)
                     if m:
-                        return t, m
+                        seen += 1
+                        if seen == count:
+                            return t, m
                 if self.proc.poll() is not None or (
                         time.perf_counter() > deadline):
-                    fail("process path, leg 2: no %r in the master's log "
-                         "(master rc %s); its tail:\n%s" % (
-                             pattern, self.proc.poll(), self.tail()))
+                    fail("%s: no %r in the master's log (master rc %s); "
+                         "its tail:\n%s" % (self.what, pattern,
+                                             self.proc.poll(), self.tail()))
                 self._cond.wait(1.0)
 
     def tail(self, n=40):
@@ -3126,8 +3155,8 @@ class _MasterProcess:
                 continue
             if b"WORKER_ID=%d" % worker_id in env:
                 return pid
-        fail("process path, leg 2: no worker %d among the master's "
-             "children" % worker_id)
+        fail("%s: no worker %d among the master's children"
+             % (self.what, worker_id))
 
     def stop(self):
         """Kill the master and every worker it left running."""
@@ -3265,6 +3294,445 @@ def process_phase(torch, fa):
     return {"in_process": process_leg(torch, fa), "cli": cli_leg(torch)}
 
 
+# The managed elastic-collective path (phase 18).  Leg 1: ResNet-50 at
+# full size (224x224, 1000 classes, float32, TF32 off) trained by two
+# ranks spawned on the card, each a CollectiveTrainer at COLL_BATCH over
+# a data mesh, their world formed through the port's
+# MasterCoordinationService and initialize_from_rendezvous on gloo
+# (host-staged: both ranks share the card).  Step-1 gradients are held
+# against a single-process step at the global batch (2 x COLL_BATCH) with
+# the dense-f32 plain GroupNorm, each leaf within the larger of
+# COLL_GRAD_MIN and COLL_FLOOR_X x its noise floor in that single
+# process; then the world re-forms 2 -> 1 -> 2 in place, a third process
+# joining with other weights.
+# A leaf's floor is the largest distance from the reference of the
+# kernels at batch 64, the kernels at the ranks' batch of 32 and the plain
+# path on those halves.  The kernels at 64 alone are not enough: B2 sums a
+# batch of 32 in another order than one of 64, and on an H100 the last
+# block's GroupNorm scale and bias (sums of 3,136 mixed-sign terms) land
+# 2.3x and 5.3x past that floor.
+# Leg 2: the master CLI with the collective strategy and two workers on
+# the card (resnet50_cifar10, the ResNet-50 stages at full width on
+# 32x32 synthetic_cifar10, COLL_CLI_BATCH a worker), worker 0 killed -9
+# once both have stepped COLL_CLI_KILL_STEPS times in a world of 2.
+COLL_IMAGE = 224
+COLL_PARAMS = ("variant=resnet50;num_classes=1000;image_size=%d;"
+               "learning_rate=%g" % (COLL_IMAGE, TRAIN_LR))
+COLL_BATCH = 32
+COLL_TIMED_STEPS = 3
+# The 2-rank path adds the all-reduce's f32 sum of two halves to the
+# kernels' noise at batch 32: twice the floor bounds it.
+COLL_FLOOR_X = 2.0
+# A leaf whose kernels-vs-plain floor is tiny is held at this instead.
+COLL_GRAD_MIN = 1e-5
+# The 2-rank loss is the single process's over the same 64 rows, summed
+# as two halves: f32 rounding apart, ~1e-7 relative.
+COLL_LOSS_RTOL = 1e-5
+COLL_RANKS_TIMEOUT_S = 400
+COLL_CLI_BATCH = 32
+COLL_CLI_KILL_STEPS = 8
+# Records enough that the survivor, alone, cannot finish them before the
+# replacement joins, and few enough that the regrown world ends the job
+# soon.  On an H100 (80GB HBM3, 700 W) the leg ran 22.3 steps/s (714
+# records/s) at world 1 for the 25 s the replacement took to join, and
+# 4.45 global steps/s (285 records/s) at world 2 (PERF.md §6): 24,576
+# records leave ~25 s to the regrown world, and run out before the
+# replacement joins only if it is 1.45x slower.
+COLL_CLI_RECORDS = 24576
+COLL_CLI_TIMEOUT_S = 300
+
+
+def _state_digest(torch, trainer):
+    """sha256 of the parameters, the SGD momentum and the version: equal
+    digests are bit-equal states."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for p in trainer.module.parameters():
+        h.update(p.detach().cpu().numpy().tobytes())
+        buf = trainer._optimizer.state.get(p, {}).get("momentum_buffer")
+        h.update(b"-" if buf is None else buf.cpu().numpy().tobytes())
+    h.update(str(trainer.version).encode())
+    return h.hexdigest()
+
+
+def _state_clone(trainer):
+    return [t.detach().clone() for p in trainer.module.parameters()
+            for t in [p] + [trainer._optimizer.state.get(p, {}).get(
+                "momentum_buffer", p)]]
+
+
+def _state_equal(torch, trainer, clone):
+    return all(torch.equal(a, b) for a, b in zip(_state_clone(trainer),
+                                                  clone))
+
+
+def coll_rank(role, epochs, named, xs, ys):
+    """One process of leg 1: ``role`` "rank0" (rank 0 of worlds 2, 1, 2),
+    "rank1" (rank 1 of the first world) or "joiner" (rank 1 of the last,
+    its own init from another seed).  Returns its readings."""
+    import torch
+
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.ops import group_norm as gn
+    from elasticdl_tpu_torch.parallel import distributed as tdist
+    from elasticdl_tpu_torch.parallel import transport
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    use_float32_numerics()
+    spec = load_model_spec("resnet", COLL_PARAMS)
+    trainer = CollectiveTrainer(spec, batch_size=COLL_BATCH, device=DEVICE,
+                                rng_seed=7 if role == "joiner" else 0)
+    build = tdist.data_mesh_builder(DEVICE, COLL_RANKS_TIMEOUT_S)
+    reduce_s = []
+    real_reduce = transport.all_reduce_grads_
+
+    def timed_reduce(params, group, scalars=()):
+        # The host-staged all-reduce of one step, from the end of the
+        # backward to the sums back on the card.
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_reduce(params, group, scalars)
+        torch.cuda.synchronize()
+        reduce_s.append(time.perf_counter() - t0)
+
+    transport.all_reduce_grads_ = timed_reduce
+
+    def rebuild(rank, world, addr):
+        trainer.snapshot_to_host()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.rebuild(build(rank, world, addr))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def step(i):
+        loss, _ = trainer.train_minibatch(xs[i % len(xs)], ys[i % len(ys)])
+        return float(loss)
+
+    out = {}
+    if role == "joiner":
+        out["own"] = _state_digest(torch, trainer)
+        out["join_s"] = rebuild(1, 2, epochs[2])
+        out["adopted"] = _state_digest(torch, trainer)
+        out["loss_joint"] = step(0)
+        out["after"] = _state_digest(torch, trainer)
+        tdist.reset_single_process()
+        return out
+    rank = 0 if role == "rank0" else 1
+    if rank == 0:
+        trainer.set_params(spec.params_from_jax(named))
+    out["form_s"] = rebuild(rank, 2, epochs[0])
+    out["start"] = _state_digest(torch, trainer)
+    torch.cuda.synchronize()
+    gn.LAUNCHES = gn.BWD_LAUNCHES = 0
+    out["loss1"] = step(0)
+    out["step1_launches"] = (gn.LAUNCHES, gn.BWD_LAUNCHES)
+    if rank == 0:
+        out["grads"] = {name: p.grad.detach().cpu() for name, p in
+                        trainer.module.named_parameters()}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["timed_losses"] = [step(i + 1) for i in range(COLL_TIMED_STEPS)]
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3 / COLL_TIMED_STEPS
+    out["launches"] = (gn.LAUNCHES, gn.BWD_LAUNCHES)
+    out["allreduce_ms"] = [s * 1e3 for s in reduce_s]
+    out["world2"] = _state_digest(torch, trainer)
+    out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    if role == "rank1":
+        trainer.snapshot_to_host()
+        tdist.reset_single_process()
+        return out
+    kept = _state_clone(trainer)
+    out["shrink_s"] = rebuild(0, 1, epochs[1])
+    out["kept_2_to_1"] = _state_equal(torch, trainer, kept)
+    out["alone"] = (trainer.process_count, trainer.max_window)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out["loss_alone"] = step(1)
+    out["alone_step_ms"] = (time.perf_counter() - t0) * 1e3
+    kept = _state_clone(trainer)
+    before_join = _state_digest(torch, trainer)
+    out["grow_s"] = rebuild(0, 2, epochs[2])
+    out["kept_1_to_2"] = _state_equal(torch, trainer, kept)
+    out["before_join"] = before_join
+    out["loss_joint"] = step(0)
+    out["after"] = _state_digest(torch, trainer)
+    tdist.reset_single_process()
+    return out
+
+
+def collective_leg(torch):
+    """Leg 1: two ranks of ResNet-50 at 224 on the card against the
+    single-process step, then 2 -> 1 -> 2 with a joiner."""
+    from elasticdl_tpu_torch.models import resnet
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.ops import group_norm as gn
+    from elasticdl_tpu_torch.parallel import distributed as tdist
+    from elasticdl_tpu_torch.parallel import launch
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    use_float32_numerics()
+    spec = load_model_spec("resnet", COLL_PARAMS)
+    B = COLL_BATCH
+    rng = np.random.RandomState(18)
+    shape = (2 * B, COLL_IMAGE, COLL_IMAGE, 3)
+    x = rng.rand(*shape).astype(np.float32)
+    y = rng.randint(0, 1000, size=2 * B).astype(np.int32)
+    more = [(rng.rand(*shape).astype(np.float32),
+             rng.randint(0, 1000, size=2 * B).astype(np.int32))
+            for _ in range(COLL_TIMED_STEPS - 1)]
+
+    def single(plain, split=False):
+        """Step 1 in this process on the global batch, or (``split``) on
+        each half at the ranks' batch from the same weights, the mean of
+        their gradients."""
+        rows = (slice(0, B), slice(B, None)) if split else (slice(None),)
+        trainer = CollectiveTrainer(spec, batch_size=B if split else 2 * B,
+                                    device=DEVICE)
+        named = seeded_params(spec, trainer.module, seed=18)
+        ctx = (plain_group_norm(resnet, gn) if plain
+               else contextlib.nullcontext())
+        losses, grads = [], {}
+        with ctx:
+            for part in rows:
+                trainer.set_params(spec.params_from_jax(named))
+                losses.append(float(trainer.train_minibatch(
+                    x[part], y[part])[0]))
+                for name, p in trainer.module.named_parameters():
+                    g = p.grad.detach().cpu() / len(rows)
+                    grads[name] = g + grads[name] if name in grads else g
+        del trainer
+        torch.cuda.empty_cache()
+        return named, float(np.mean(losses)), grads
+
+    named, loss_k, grads_k = single(plain=False)
+    _, loss_p, grads_p = single(plain=True)
+    # The reference's noise floor, leaf by leaf: the largest distance
+    # from it of the kernels at the global batch, the kernels at the
+    # ranks' batch (two halves: the B2 batch sums run in another order)
+    # and the plain path itself on the two halves.
+    floor = {n: 0.0 for n in grads_p}
+    for grads in (grads_k, single(plain=False, split=True)[2],
+                  single(plain=True, split=True)[2]):
+        for n in floor:
+            floor[n] = max(floor[n], norm_rel(grads[n], grads_p[n]))
+    limit = {n: max(COLL_GRAD_MIN, COLL_FLOOR_X * f)
+             for n, f in floor.items()}
+    del grads_k, grads
+    # One store per epoch, all up from the start: each epoch's master
+    # would start its store at the commit (none is marked superseded).
+    svcs = [tdist.MasterCoordinationService(reap_secs=COLL_RANKS_TIMEOUT_S)
+            for _ in range(3)]
+    epochs = [svc.start_epoch(n) for svc, n in zip(svcs, (2, 1, 2))]
+    halves = {0: [x[:B]] + [b[0][:B] for b in more],
+              1: [x[B:]] + [b[0][B:] for b in more]}
+    labels = {0: [y[:B]] + [b[1][:B] for b in more],
+              1: [y[B:]] + [b[1][B:] for b in more]}
+    roles = {"rank0": (epochs, named, halves[0], labels[0]),
+             "rank1": (epochs, None, halves[1], labels[1]),
+             "joiner": (epochs, None, halves[1], labels[1])}
+    t0 = time.perf_counter()
+    got = dict(zip(roles, launch.run(
+        [(coll_rank, (role,) + args) for role, args in roles.items()],
+        timeout=COLL_RANKS_TIMEOUT_S)))
+    ranks_s = time.perf_counter() - t0
+    r0, r1, joiner = got["rank0"], got["rank1"], got["joiner"]
+    errs = {n: norm_rel(r0["grads"][n], grads_p[n]) for n in grads_p}
+    over = {n: (errs[n], limit[n]) for n in errs if not errs[n] <= limit[n]}
+    if over:
+        fail("collective path, leg 1: 2-rank step-1 gradients past their "
+             "limits (norm-relative error, limit): %s" % dict(
+                 sorted(over.items())[:8]))
+    if abs(r0["loss1"] - loss_k) > COLL_LOSS_RTOL * abs(loss_k) or (
+            r0["loss1"] != r1["loss1"]):
+        fail("collective path, leg 1: step-1 loss %r / %r against the "
+             "single process's %r" % (r0["loss1"], r1["loss1"], loss_k))
+    want = (GN_PER_FORWARD, GN_PER_FORWARD)
+    total = tuple(w * (1 + COLL_TIMED_STEPS) for w in want)
+    for r in (r0, r1):
+        if tuple(r["step1_launches"]) != want or tuple(
+                r["launches"]) != total:
+            fail("collective path, leg 1: a rank launched (B1, B2) %s in "
+                 "step 1 and %s in all, want %s and %s" % (
+                     r["step1_launches"], r["launches"], want, total))
+    checks = {
+        "rank 1 adopted rank 0's state": r0["start"] == r1["start"],
+        "replicas equal after the steps": r0["world2"] == r1["world2"],
+        "2 -> 1 kept state bitwise": r0["kept_2_to_1"],
+        "alone at world 1": tuple(r0["alone"]) == (1, None),
+        "1 -> 2 kept rank 0's state bitwise": r0["kept_1_to_2"],
+        "the joiner started elsewhere": joiner["own"] != r0["before_join"],
+        "the joiner adopted rank 0's state": (
+            joiner["adopted"] == r0["before_join"]),
+        "one joint step, one loss": (
+            joiner["loss_joint"] == r0["loss_joint"]),
+        "replicas equal after it": joiner["after"] == r0["after"],
+        "finite losses": all(map(math.isfinite, [
+            r0["loss1"], r0["loss_alone"], r0["loss_joint"]]
+            + r0["timed_losses"])),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail("collective path, leg 1: %s" % bad)
+    ar = r0["allreduce_ms"]
+    out = {"batch_per_rank": B, "loss_single": loss_k, "loss_plain": loss_p,
+           "loss_ranks": r0["loss1"], "grad_rel_err_max": max(errs.values()),
+           "grad_worst_leaf": max(errs, key=lambda n: errs[n] / limit[n]),
+           "floor_max": max(floor.values()),
+           "err_over_limit_max": max(errs[n] / limit[n] for n in errs),
+           "launches_per_step": want, "step_ms": r0["step_ms"],
+           "step_ms_rank1": r1["step_ms"],
+           "allreduce_ms": ar, "allreduce_ms_mean": float(np.mean(ar[1:])),
+           "grad_mb": sum(g.numel() for g in grads_p.values()) * 4 / 1e6,
+           "form_s": r0["form_s"], "shrink_s": r0["shrink_s"],
+           "grow_s": r0["grow_s"], "join_s": joiner["join_s"],
+           "alone_step_ms": r0["alone_step_ms"],
+           "peak_gb": [r0["peak_gb"], r1["peak_gb"]], "ranks_s": ranks_s,
+           "checks": sorted(checks)}
+    print("collective path, leg 1 (ResNet-50 %dx%d f32, 2 ranks x batch "
+          "%d on the card, gloo through the host): step-1 loss %.6f (single "
+          "process at batch %d: %.6f), gradients within their limits (worst "
+          "%.3g of its limit at %s; noise floor up to %.3g); B1/B2 "
+          "%d/%d launches a step a rank; %.1f ms a step (rank 1 %.1f), "
+          "all-reduce of %.1f MB %.1f ms a step (%s); world formed in %.2f s, "
+          "2 -> 1 in %.2f s, a step alone %.1f ms, 1 -> 2 with a joiner in "
+          "%.2f s (joiner %.2f s); %s; peak %.1f / %.1f GB" % (
+              COLL_IMAGE, COLL_IMAGE, B, out["loss_ranks"], 2 * B, loss_k,
+              out["err_over_limit_max"],
+              out["grad_worst_leaf"], out["floor_max"], *want,
+              out["step_ms"], out["step_ms_rank1"], out["grad_mb"],
+              out["allreduce_ms_mean"], ", ".join("%.1f" % a for a in ar),
+              out["form_s"], out["shrink_s"], out["alone_step_ms"],
+              out["grow_s"], out["join_s"], ", ".join(sorted(checks)),
+              *out["peak_gb"]))
+    return out
+
+
+def _rate(times):
+    """Steps a second over step-log arrival times (None for < 2)."""
+    if len(times) < 2 or times[-1] <= times[0]:
+        return None
+    return (len(times) - 1) / (times[-1] - times[0])
+
+
+def collective_cli_leg(torch):
+    """Leg 2: the master CLI's collective job with two workers on the card;
+    kill -9 of worker 0 once both have stepped in a world of 2."""
+    from elasticdl_tpu_torch.ops import build
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    tmp = tempfile.TemporaryDirectory()
+    env = dict(os.environ)
+    env.pop("ELASTICDL_TORCH_DEVICE", None)     # the workers' default: cuda
+    # The libraries the build phase made: the workers load, never build.
+    env["ELASTICDL_TORCH_BUILD_DIR"] = build.BUILD_DIR
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+    args = ["--model_zoo", "resnet", "--model_params",
+            "variant=resnet50_cifar10",
+            "--data_origin", "synthetic_cifar10:%d" % COLL_CLI_RECORDS,
+            "--batch_size", str(COLL_CLI_BATCH),
+            "--num_minibatches_per_task", "4", "--num_workers", "2",
+            "--distribution_strategy", "collective", "--log_loss_steps", "1"]
+    what = "collective path, leg 2"
+    job = _MasterProcess(args, env, tmp.name, what=what)
+    deadline = job.t0 + COLL_CLI_TIMEOUT_S
+    epoch = r"rendezvous epoch (\d+): world=\[%s\]"
+    step = r"\[worker-%d\] .* step \d+ loss"
+    try:
+        t_w2, _ = job.wait_for(epoch % r"'worker-\d', 'worker-\d'", deadline)
+        for w in (0, 1):
+            job.wait_for(step % w, deadline, after=t_w2,
+                         count=COLL_CLI_KILL_STEPS)
+        os.kill(job.worker_pid(0), signal.SIGKILL)
+        t_kill = time.perf_counter()
+        t_fail, _ = job.wait_for(r"\[worker-1\] .*minibatch failed "
+                                 r"\(attempt 1\)", deadline, after=t_kill)
+        t_w1, _ = job.wait_for(epoch % r"'worker-1'", deadline, after=t_kill)
+        t_s1, _ = job.wait_for(step % 1, deadline, after=t_w1)
+        t_launch, _ = job.wait_for(r"launched worker 2\b", deadline,
+                                   after=t_kill)
+        t_w3, _ = job.wait_for(epoch % r"'worker-1', 'worker-2'", deadline,
+                               after=t_w1)
+        t_s3, _ = job.wait_for(step % 2, deadline, after=t_w3)
+        try:
+            rc = job.proc.wait(timeout=max(1.0, deadline
+                                           - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            fail("%s: the job did not finish within %d s; its tail:\n%s"
+                 % (what, COLL_CLI_TIMEOUT_S, job.tail()))
+        t_end = time.perf_counter()
+    finally:
+        job.stop()
+        tmp.cleanup()
+    log = "".join(line for _, line in job.lines)
+    finished = re.search(r"job finished: .*'failed': \{0: 0, ", log)
+    if rc != 0 or not finished:
+        fail("%s: rc %s, job finished with no failed task: %s; tail:\n%s"
+             % (what, rc, bool(finished), job.tail()))
+    on_card = sorted(set(re.findall(r"worker (\d+) training on (\S+)", log)))
+    if [w for w, _ in on_card] != ["0", "1", "2"] or any(
+            not d.startswith("cuda") for _, d in on_card):
+        fail("%s: workers ran on %s" % (what, on_card))
+    steps = {w: [t for t, line in job.lines
+                 if re.search(step % w, line)] for w in (0, 1, 2)}
+    launches = {}
+    for w in (1, 2):
+        m = re.search(r"\[worker-%d\] .*kernel launches: (\{.*\})" % w, log)
+        if not m:
+            fail("%s: worker %d logged no kernel launches" % (what, w))
+        counts = json.loads(m.group(1))
+        passes = counts["train_passes"]
+        if not (passes >= len(steps[w]) > 0 and counts["group_norm_fwd"]
+                == counts["group_norm_bwd"] == GN_PER_FORWARD * passes):
+            fail("%s: worker %d launched %s over %d logged steps, want B1 "
+                 "and B2 %d a pass" % (what, w, counts, len(steps[w]),
+                                       GN_PER_FORWARD))
+        launches[w] = counts
+    world2 = [t for t in steps[1] if t_w2 <= t < t_kill]
+    world1 = [t for t in steps[1] if t_s1 <= t < t_w3]
+    regrown = [t for t in steps[2] if t >= t_s3]
+    out = {"batch": COLL_CLI_BATCH, "records": COLL_CLI_RECORDS,
+           "job_s": t_end - job.t0, "world2_at_s": t_w2 - job.t0,
+           "kill_at_s": t_kill - job.t0,
+           "kill_to_failure_s": t_fail - t_kill,
+           "kill_to_world1_epoch_s": t_w1 - t_kill,
+           "kill_to_world1_step_s": t_s1 - t_kill,
+           "kill_to_relaunch_s": t_launch - t_kill,
+           "kill_to_world2_epoch_s": t_w3 - t_kill,
+           "kill_to_world2_step_s": t_s3 - t_kill,
+           "steps_per_s_world2": _rate(world2),
+           "steps_per_s_world1": _rate(world1),
+           "steps_per_s_world2_again": _rate(regrown),
+           "steps": {w: len(s) for w, s in steps.items()},
+           "launches": launches, "rc": rc}
+    print("%s (master CLI, collective, 2 workers on the card, "
+          "resnet50_cifar10 batch %d a worker, %d records): world of 2 at "
+          "%.1f s, kill -9 of worker 0 at %.1f s; after it the survivor's "
+          "in-band failure at %.2f s, an epoch of world 1 at %.2f s and its "
+          "first step there at %.2f s, the relaunch at %.2f s, an epoch of "
+          "world 2 at %.2f s and its first step at %.2f s; steps/s at world "
+          "2 %s, world 1 %s, world 2 again %s; worker launches %s; job "
+          "finished exit 0 in %.1f s, 0 failed tasks" % (
+              what, COLL_CLI_BATCH, COLL_CLI_RECORDS, out["world2_at_s"],
+              out["kill_at_s"], out["kill_to_failure_s"],
+              out["kill_to_world1_epoch_s"], out["kill_to_world1_step_s"],
+              out["kill_to_relaunch_s"], out["kill_to_world2_epoch_s"],
+              out["kill_to_world2_step_s"], out["steps_per_s_world2"],
+              out["steps_per_s_world1"], out["steps_per_s_world2_again"],
+              json.dumps(launches), out["job_s"]))
+    return out
+
+
+def collective_phase(torch):
+    return {"ranks": collective_leg(torch), "cli": collective_cli_leg(torch)}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -3361,6 +3829,9 @@ def main():
     t0 = time.perf_counter()
     proc = process_phase(torch, fa)
     phase_s["process path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    coll = collective_phase(torch)
+    phase_s["collective path"] = time.perf_counter() - t0
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -3373,6 +3844,11 @@ def main():
         "replaces": "elasticdl_tpu/ops/group_norm.py:98",
         "launches": train["launches"][0],
         "launches_serving": serve_launches,
+        "launches_collective_step_per_rank":
+            coll["ranks"]["launches_per_step"][0],
+        "launches_collective_job": {
+            w: c["group_norm_fwd"]
+            for w, c in coll["cli"]["launches"].items()},
         "max_abs_err": max_err["float32"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -3389,6 +3865,11 @@ def main():
         "source": "elasticdl_tpu_torch/ops/csrc/group_norm_bwd.cu",
         "replaces": "elasticdl_tpu/ops/group_norm.py:199",
         "launches": train["launches"][1],
+        "launches_collective_step_per_rank":
+            coll["ranks"]["launches_per_step"][1],
+        "launches_collective_job": {
+            w: c["group_norm_bwd"]
+            for w, c in coll["cli"]["launches"].items()},
         "max_abs_err": bwd_err["float32"],
         "ms": bf32["ms"],
         "plain_ms": bf32["plain_ms"],
@@ -3508,6 +3989,7 @@ def main():
                        "partial_timed": {"%s causal=%s" % k: v for k, v in
                                          part.items()},
                        "process_path": proc,
+                       "collective_path": coll,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -3,11 +3,13 @@ counterpart of ``elasticdl_tpu/master/main.py``).
 
 Builds the control plane from flags, optionally launches/manages workers
 (local-process backend), runs the job to completion.  The port runs the
-default path: the ``local`` strategy over process workers
-(``python -m elasticdl_tpu_torch.worker.main``).  Flag values that select
-another path (k8s workers, the collective and PS strategies, the
-multi-tenant scheduler, the status server, predict and evaluate jobs)
-raise ``NotImplementedError`` naming their ROADMAP item
+``local`` and ``collective`` strategies over process workers
+(``python -m elasticdl_tpu_torch.worker.main``); for ``collective`` the
+master also hosts the rendezvous and one ``torch.distributed`` store
+per membership epoch (``parallel/distributed.py``).  Flag values that
+select another path (k8s workers, the PS strategy, the multi-tenant
+scheduler, the status server, predict and evaluate jobs) raise
+``NotImplementedError`` naming their ROADMAP item
 (``utils.args.check_ported``).  The model spec the master loads to size
 its work is the port's, so no process of a port job imports JAX.
 """
@@ -192,9 +194,34 @@ def build_master(args):
         # training task (reference: deferred train-end task,
         # task_manager.py:35-68 + callbacks.py:23-66).
         task_manager.set_train_end_callback_task()
-    # The collective strategy's rendezvous and coordination service
-    # (ROADMAP A4) and the PS strategy's PSManager (A8) were refused by
-    # check_ported.
+    rendezvous = None
+    if args.distribution_strategy == "collective":
+        from elasticdl_tpu_torch.master.rendezvous import RendezvousServer
+        from elasticdl_tpu_torch.parallel.distributed import (
+            MasterCoordinationService,
+            derive_reap_secs,
+        )
+
+        # The master hosts each epoch's rendezvous store, so worker
+        # churn never strands the survivors; process workers dial it on
+        # localhost (the k8s backend, A19, was refused by check_ported).
+        rendezvous = RendezvousServer(
+            coordinator_factory=MasterCoordinationService(
+                host="localhost",
+                # Old-epoch stores outlive the workers' epoch discovery:
+                # workers poll every num_minibatches_per_task steps
+                # (worker/main.py passes the same value as check_steps).
+                reap_secs=derive_reap_secs(
+                    check_steps=max(1, args.num_minibatches_per_task)),
+            ).start_epoch,
+            journal=journal,
+            # Restart re-arms STRICTLY past every epoch a worker can
+            # hold (journaled id, +1 for an un-journaled commit racing
+            # the crash) so reconnecting workers re-form at a fresh id.
+            initial_epoch=(
+                journal_state.rendezvous_id + 1 if journal_state else 0),
+        )
+    # The PS strategy's PSManager (A8) was refused by check_ported.
     worker_manager = None
     if args.num_workers > 0:
         worker_args = build_arguments_from_parsed_result(
@@ -217,6 +244,7 @@ def build_master(args):
         interceptors = [FaultInjectionInterceptor(args.rpc_fault_spec)]
     master = Master(
         task_manager,
+        rendezvous_server=rendezvous,
         evaluation_service=evaluation_service,
         worker_manager=worker_manager,
         port=args.port,

@@ -1,13 +1,13 @@
 """Elastic collective membership — rendezvous epochs.
 
-TPU-native replacement for the master-hosted Horovod rendezvous
-(elasticdl/python/master/rendezvous_server.py:34-167).  Where Horovod
-rebuilds a Gloo ring, JAX bakes the device mesh into the compiled step; so
-membership changes are modeled as *epochs*: any join/leave bumps
-``rendezvous_id``, and workers observing a new id tear down their collective
-context (jax.distributed / compiled-step cache) and rebuild it for the new
-world.  Joins are batched behind a short grace window so a burst of
-relaunched workers triggers one re-compile, not many.
+Replacement for the master-hosted Horovod rendezvous
+(elasticdl/python/master/rendezvous_server.py:34-167; counterpart of
+``elasticdl_tpu/master/rendezvous.py``).  Membership changes are modeled
+as *epochs*: any join/leave bumps ``rendezvous_id``, and workers
+observing a new id tear down their collective world (a
+``torch.distributed`` process group, ``parallel/distributed.py``) and
+re-form it for the new world.  Joins are batched behind a short grace
+window so a burst of relaunched workers triggers one re-form, not many.
 """
 
 import threading
@@ -25,8 +25,8 @@ class RendezvousServer:
         """``coordinator_factory(world_size) -> addr`` (optional): run
         at every epoch commit to stand up that epoch's coordination
         plane — in production ``MasterCoordinationService.start_epoch``
-        (parallel/distributed.py), which keeps the JAX coordination
-        service on the MASTER so worker churn can never strand the
+        (parallel/distributed.py), which keeps the epoch's rendezvous
+        store on the MASTER so worker churn can never strand the
         survivors.  Without a factory the address set via
         ``set_coordinator_addr`` is advertised unchanged (legacy:
         worker 0 hosts the service).

@@ -33,8 +33,8 @@ the gathered sequence; ``"ulysses"``) over the ``sp`` group.  Parameters
 are replicated; ``parallel/spmd_trainer.py`` reduces their gradients.
 Not ported yet: ``tp``/``pp``/``ep`` sharding, MoE under ``sp`` > 1 and
 ``forward_pipelined`` (ROADMAP A18), and the zoo entry's mesh, which is
-the collective trainer's (A4); each raises ``NotImplementedError``
-naming its ROADMAP item.
+the collective trainer's for an LM (A4b); each raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 import dataclasses
@@ -703,7 +703,7 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
     ``moe_aux_weight`` x the mean per-layer aux loss to the loss) as in
     the JAX entry; the optimizer is AdamW at ``learning_rate`` with weight
     decay 0.01 (``optax.adamw``'s).  A mesh (the collective trainer's,
-    A4) and pipelining (A18) raise ``NotImplementedError`` naming their
+    A4b) and pipelining (A18) raise ``NotImplementedError`` naming their
     ROADMAP item.
     ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
     serves generation exports.
@@ -711,7 +711,7 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
     if mesh is not None:
         raise NotImplementedError(
             "the zoo entry's mesh is the collective trainer's, not ported "
-            "yet (ROADMAP A4); train over a mesh with "
+            "for the LM yet (ROADMAP A4b); train over a mesh with "
             "parallel.spmd_trainer.SPMDTrainer")
     if pipeline_microbatches:
         raise NotImplementedError(

@@ -56,13 +56,16 @@ def _check_ported(shape):
             "and expert parallelism); dp and sp are" % unported)
 
 
-def build_mesh(dp=None, pp=1, tp=1, sp=1, ep=1, *, backend, device=None):
+def build_mesh(dp=None, pp=1, tp=1, sp=1, ep=1, *, backend, device=None,
+               timeout=None):
     """The mesh with axes (dp, pp, ep, tp, sp) over the initialised
     ``torch.distributed`` world; ``dp=None`` means whatever is left after
     pp*ep*tp*sp.  Every rank must call it, in the same order as its other
     group creations: each axis's groups are made by all ranks together.
     ``backend`` names the groups' backend; ``device`` is this rank's
-    (``None``: ``cuda:(rank % device_count)``)."""
+    (``None``: ``cuda:(rank % device_count)``); ``timeout`` (a
+    ``timedelta``) bounds the groups' collectives (None: torch's default
+    for the backend, not the world's)."""
     if not dist.is_initialized():
         raise RuntimeError("build_mesh needs an initialised torch.distributed "
                            "world (init_process_group)")
@@ -88,19 +91,22 @@ def build_mesh(dp=None, pp=1, tp=1, sp=1, ep=1, *, backend, device=None):
         # Every line of the grid along this axis, in one fixed order.
         lines = np.moveaxis(grid, i, -1).reshape(-1, shape[axis])
         for line in lines:
-            group = dist.new_group([int(r) for r in line], backend=backend)
+            group = dist.new_group([int(r) for r in line], backend=backend,
+                                   timeout=timeout)
             if rank in line:
                 groups[axis] = group
-    world_group = dist.new_group(list(range(n)), backend=backend)
+    world_group = dist.new_group(list(range(n)), backend=backend,
+                                 timeout=timeout)
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", rank % torch.cuda.device_count())
     return Mesh(shape, coords, groups, world_group, device)
 
 
-def data_mesh(*, backend, device=None):
+def data_mesh(*, backend, device=None, timeout=None):
     """Pure data-parallel mesh (the elastic AllReduce replacement)."""
-    return build_mesh(dp=None, backend=backend, device=device)
+    return build_mesh(dp=None, backend=backend, device=device,
+                      timeout=timeout)
 
 
 def factor_mesh(n, want_tp=True, want_sp=True):

@@ -128,12 +128,8 @@ class SPMDTrainer:
         self.optimizer.zero_grad(set_to_none=True)
         share = self._global_mean(batch)
         share.backward()
-        params = [p for p in self.module.parameters() if p.requires_grad]
-        for p in params:
-            if p.grad is None:
-                p.grad = torch.zeros_like(p)
-        transport.all_reduce_sum_([p.grad for p in params],
-                                  self.mesh.group())
+        transport.all_reduce_grads_(self.module.parameters(),
+                                    self.mesh.group())
         return self._reduced(share)
 
     def train_step(self, batch):

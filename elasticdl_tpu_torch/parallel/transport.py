@@ -1,6 +1,6 @@
-"""Point-to-point shifts, all-to-alls and all-reduces over a process group,
-for the mesh paths (ring and Ulysses attention, the SPMD trainer's
-gradients).
+"""Point-to-point shifts, all-to-alls, all-reduces and broadcasts over a
+process group, for the mesh paths (ring and Ulysses attention, the SPMD
+and collective trainers' gradients, a re-formed world's state).
 
 How a tensor travels follows the group's backend, set by whoever built
 the group (``parallel/mesh.py``):
@@ -81,6 +81,41 @@ def all_reduce_sum_(tensors, group):
     for t in tensors:
         t.copy_(flat[offset:offset + t.numel()].view_as(t))
         offset += t.numel()
+
+
+def all_reduce_grads_(params, group, scalars=()):
+    """Sum the gradients of ``params`` over ``group`` in place, with
+    ``scalars`` (1-element tensors, summed in the same buffer); a
+    parameter with no gradient contributes zeros and gets the sum.  One
+    collective for the whole step: the data-parallel gradient reduction
+    of the SPMD and collective trainers."""
+    params = [p for p in params if p.requires_grad]
+    for p in params:
+        if p.grad is None:
+            p.grad = torch.zeros_like(p)
+    all_reduce_sum_([p.grad for p in params] + list(scalars), group)
+
+
+def broadcast_(tensors, group, src=0):
+    """Overwrite ``tensors`` on every rank of ``group`` with rank
+    ``src``'s (a rank of the group), bit for bit: one flat buffer per
+    dtype, staged through the host as ``all_reduce_sum_`` stages."""
+    by_dtype = {}
+    for t in tensors:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    root = dist.get_global_rank(group, src)
+    for same in by_dtype.values():
+        flat = torch.cat([t.reshape(-1) for t in same])
+        if _staged(group, flat):
+            host = flat.cpu()
+            dist.broadcast(host, root, group=group)
+            flat = host.to(flat.device)
+        else:
+            dist.broadcast(flat, root, group=group)
+        offset = 0
+        for t in same:
+            t.copy_(flat[offset:offset + t.numel()].view_as(t))
+            offset += t.numel()
 
 
 class _RingShift(torch.autograd.Function):

@@ -288,8 +288,6 @@ def build_arguments_from_parsed_result(args, filter_args=(), defaults=None):
 # flag value whose path the port has not ported.  Master-only flags are
 # absent from a worker's Namespace and read as their defaults.
 _UNPORTED = (
-    ("distribution_strategy", lambda v: v == "collective",
-     "the collective strategy (elastic collectives)", "A4"),
     ("distribution_strategy", lambda v: v == "ps",
      "the parameter-server strategy", "A8"),
     ("worker_backend", lambda v: v == "k8s",

@@ -1,9 +1,10 @@
-"""Collective trainer, single process (counterpart of
+"""Collective trainer (counterpart of
 ``elasticdl_tpu/worker/collective_trainer.py``).
 
-One process, one device, no mesh: this is the trainer that the JAX
-package's ``bench.py`` and its trainer tests drive.  What it keeps of the
-JAX trainer:
+One process, one device; alone (no mesh, the trainer that the JAX
+package's ``bench.py`` and its trainer tests drive) or as one rank of a
+data-parallel world (a ``parallel/mesh.data_mesh``, the managed elastic
+collective path).  What it keeps of the JAX trainer:
 
  - padding to a static batch with a loss mask (``_masked_mean``,
    ``_pad_batch``), so a partial minibatch trains on the same shapes as
@@ -67,10 +68,28 @@ What the worker's task loop uses (``worker/worker.py``,
    same ``_train_step`` a ``train_minibatch`` runs, on its own
    device copy of its batch, so a window equals K single steps bitwise.
 
-Left for later slices: meshes and ``rebuild`` (elastic collectives,
-ROADMAP A4), ZeRO-1 (A6) and the servable exporter (A11); the
-constructor's ``mesh``, ``zero1`` and ``exporter`` accept only their
-defaults and otherwise raise ``NotImplementedError`` naming the item.
+Over a mesh (``rebuild``, called by the constructor and by the elastic
+controller at every rendezvous epoch) each rank trains on its own task
+stream's local batch, padded to ``batch_size`` rows, and the loss is the
+weighted mean over the global batch, the concatenation of the ranks'
+local batches, as the JAX trainer's ``_globalize`` gives it: each rank
+backpropagates its local weighted loss sum, then the gradients, the sum
+and the weight count go through one ``transport.all_reduce_grads_`` and
+are divided by the global count.  With accumulation each microbatch's
+mean is over the global microbatch (its count is summed first), as the
+JAX scan over global microbatches.  Padded rows weigh 0 on every rank.
+At every epoch of more than one rank, ``rebuild`` hands rank 0's
+parameters, optimizer state and version to the world (the oldest
+survivor's, since ranks are in join order), so a replacement that
+restored an older checkpoint, or a fresh rank, adopts them bit for bit.
+Evaluation and prediction run on the local copy and never enter a
+collective (the JAX ``_forward_local``).  A multi-process world trains
+one step per dispatch (``max_window`` 1), as the JAX trainer does.
+
+Left for later slices: ZeRO-1 (ROADMAP A6), the servable exporter
+(A11) and meshes with axes other than dp (A4b); the constructor's
+``zero1`` and ``exporter`` accept only their defaults and otherwise
+raise ``NotImplementedError`` naming the item, as does such a mesh.
 """
 
 import concurrent.futures
@@ -79,6 +98,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.models.spec import jax_name
+from elasticdl_tpu_torch.parallel import transport
 from elasticdl_tpu_torch.utils.args import not_ported
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.logging import get_logger
@@ -224,8 +244,6 @@ class CollectiveTrainer(Trainer):
         exporter=None,
         export_steps=0,
     ):
-        if mesh is not None:
-            raise not_ported("a CollectiveTrainer over a mesh", "A4")
         if zero1:
             raise not_ported("ZeRO-1 (zero1=True)", "A6")
         if exporter is not None or export_steps:
@@ -245,6 +263,83 @@ class CollectiveTrainer(Trainer):
         self._ckpt_future = None
         self._module = spec.init_fn(self._device, rng_seed)
         self._optimizer = self._new_optimizer()
+        self.rebuild(mesh)
+
+    # -- mesh / world management --------------------------------------------
+
+    def snapshot_to_host(self):
+        """The elastic controller's hook before the world is re-formed or
+        left.  The JAX trainer pulls its state to the host here, because
+        re-forming its world clears the device backends; a torch world's
+        re-forming leaves the parameters and optimizer state on the card,
+        so nothing moves.  What this does instead is let go of the old
+        world's mesh (the trainer trains alone until the next
+        ``rebuild``): its groups' sockets then close when the world is
+        destroyed, and a peer still blocked in one of their collectives
+        fails at once, not at the timeout."""
+        self.rebuild(None)
+
+    def rebuild(self, mesh):
+        """Train over ``mesh`` from now on (None: alone).  Called at
+        construction and at every rendezvous epoch.  Parameters,
+        optimizer state and version stay where they are; in a world of
+        more than one rank, rank 0's are broadcast to all (the
+        epoch-start sync).  The port keeps no per-world caches (pad plans
+        or compiled windows), so there is nothing else to drop."""
+        if mesh is not None:
+            others = {axis: n for axis, n in mesh.shape.items()
+                      if axis != "dp" and n > 1}
+            if others:
+                raise not_ported(
+                    "a CollectiveTrainer over mesh axes %s" % others, "A4b")
+        self._mesh = mesh
+        # Read once: a world the controller has left is destroyed under
+        # the mesh, which rebuild() replaces before the next step.
+        self._world_size = (1 if mesh is None else
+                            torch.distributed.get_world_size(mesh.group()))
+        if self.process_count > 1:
+            with self.timing.timeit("state_broadcast"):
+                self._adopt_rank0_state()
+            logger.info(
+                "world of %d ranks: adopted rank 0's parameters, optimizer "
+                "state and version %d", self.process_count, self._version)
+
+    def _group(self):
+        """The world's process group, or None when training alone."""
+        return self._mesh.group() if self.process_count > 1 else None
+
+    def _adopt_rank0_state(self):
+        """Overwrite this rank's parameters, buffers, optimizer state and
+        version with rank 0's, bit for bit.  Optimizer slots not created
+        yet go as their initial value (zeros, step 0), which is what
+        torch's SGD (dampening 0) and Adam would start from."""
+        named = self._named_params()
+        identity = lambda t: t  # noqa: E731
+        opt = _opt_state_to_jax(self._optimizer, named, identity)
+        slots = sorted(k for k in opt if isinstance(opt[k], torch.Tensor))
+        counts = sorted(k for k in opt if k not in slots)
+        scalars = torch.tensor(
+            [float(self._version)] + [float(opt[k]) for k in counts],
+            dtype=torch.float64, device=self._device)
+        state = ([p.data for p in self._module.parameters()]
+                 + list(self._module.buffers())
+                 + [opt[k] for k in slots] + [scalars])
+        transport.broadcast_(state, self._mesh.group())
+        values = scalars.tolist()
+        self._version = int(values[0])
+        for k, v in zip(counts, values[1:]):
+            opt[k] = np.asarray(v, np.int32)
+        _opt_state_from_jax(self._optimizer, named, opt, identity)
+
+    @property
+    def global_device_count(self):
+        """Devices of the world: one per rank."""
+        return self.process_count
+
+    @property
+    def process_count(self):
+        """Ranks of the world (1: training alone)."""
+        return self._world_size
 
     def _new_optimizer(self):
         return self._spec.optimizer(self._module.named_parameters())
@@ -272,22 +367,62 @@ class CollectiveTrainer(Trainer):
 
         return tree_map(put, tree)
 
-    def _loss_and_grads(self, features, labels, weights):
+    def _loss_and_grads(self, features, labels, weights, scale=None):
         """Forward and backward of one (micro)batch; the gradients add
-        into ``.grad``.  Returns the masked-mean loss, detached."""
+        into ``.grad``.  Returns the loss, detached: the masked mean, or
+        with ``scale`` (a scalar tensor) the weighted sum times it."""
+        self.timing.bump("train_passes")
         with torch.autocast(self._device.type, dtype=torch.bfloat16,
                             enabled=self._use_bf16_compute):
             out = self._spec.apply_fn(self._module, features, True)
         per_example = self._spec.loss_fn(out, labels).float()
-        loss = _masked_mean(per_example, weights)
+        if scale is None:
+            loss = _masked_mean(per_example, weights)
+        else:
+            per_example = per_example.reshape(
+                per_example.shape[0], -1).mean(dim=-1)
+            loss = (per_example * weights).sum() * scale
         loss.backward()
         return loss.detach()
+
+    def _world_step_grads(self, features, labels, weights, group):
+        """The gradients of one step in a world of more than one rank,
+        summed over it into every replica's ``.grad``; returns the global
+        mean loss (the same scalar on every rank)."""
+        accum = self._accum_steps
+        params = list(self._module.parameters())
+        if accum == 1:
+            one = torch.ones((), device=weights.device)
+            loss_sum = self._loss_and_grads(features, labels, weights, one)
+            total = torch.stack([loss_sum, weights.sum()])
+            transport.all_reduce_grads_(params, group, [total])
+            count = total[1].clamp_min(1.0)
+            for p in params:
+                if p.grad is not None:
+                    p.grad.div_(count)
+            return total[0] / count
+        # Each microbatch's mean is over the global microbatch, so its
+        # count is summed before its backward.
+        counts = weights.sum(dim=1)
+        transport.all_reduce_sum_([counts], group)
+        scales = 1.0 / (counts.clamp_min(1.0) * accum)
+        loss = torch.zeros(1, device=weights.device)
+        for i in range(accum):
+            micro_features, micro_labels = tree_map(
+                lambda leaf: leaf[i], (features, labels))
+            loss += self._loss_and_grads(micro_features, micro_labels,
+                                         weights[i], scales[i])
+        transport.all_reduce_grads_(params, group, [loss])
+        return loss[0]
 
     def _train_step(self, features, labels, weights):
         self._module.train()
         self._optimizer.zero_grad(set_to_none=True)
         accum = self._accum_steps
-        if accum == 1:
+        group = self._group()
+        if group is not None:
+            loss = self._world_step_grads(features, labels, weights, group)
+        elif accum == 1:
             loss = self._loss_and_grads(features, labels, weights)
         else:
             loss = 0.0
@@ -340,8 +475,10 @@ class CollectiveTrainer(Trainer):
 
     @property
     def max_window(self):
-        """None: windows are unbounded (one process, no mesh)."""
-        return None
+        """None (unbounded) when training alone; 1 in a world of more
+        than one rank, as the JAX trainer: a collective failure then
+        surfaces on its own minibatch, inside the worker's retry scope."""
+        return 1 if self.process_count > 1 else None
 
     def steps_to_boundary(self):
         """Steps until the next version-report or checkpoint cadence
@@ -442,6 +579,9 @@ class CollectiveTrainer(Trainer):
             self.save_checkpoint()
 
     def _forward(self, features):
+        """Inference on this process's copy of the parameters: in a
+        world of more than one rank it enters no collective (an eval
+        task is one worker's, the JAX ``_forward_local``)."""
         features = tree_map(self._as_tensor, features)
         n = int(tree_leaves(features)[0].shape[0])
         padded, _ = _pad_batch(features, self._batch_size)

@@ -8,13 +8,19 @@ The device comes from ``ELASTICDL_TORCH_DEVICE`` (the variable the port's
 server reads), ``cuda`` when it is unset: a worker launched with no
 device variable runs on the card, and raises where there is none.  TF32
 is turned off at entry (``use_float32_numerics``), so float32 work on
-the card computes in float32.  The port runs the ``local`` strategy;
-the PS trainer (ROADMAP A8), the collective mesh and elastic controller
-(A4), ZeRO-1 (A6), continuous export (A11), device traces (A15) and
-predict jobs (A21) raise ``NotImplementedError`` naming their item
-(``utils.args.check_ported``).
+the card computes in float32.  The port runs the ``local`` strategy
+and the ``collective`` one: there the worker joins the master's
+rendezvous, and the elastic controller (``api/controller.py``) re-forms
+its ``torch.distributed`` world and data mesh at every epoch
+(``parallel/distributed.py``), gloo on the same card for every rank.
+The PS trainer (ROADMAP A8), ZeRO-1 (A6), continuous export (A11),
+device traces (A15) and predict jobs (A21) raise
+``NotImplementedError`` naming their item (``utils.args.check_ported``).
+At exit the worker logs its kernel launches (``kernel launches: {...}``)
+with the forward and backward passes its trainer ran.
 """
 
+import json
 import os
 
 from elasticdl_tpu_torch.data.factory import create_data_reader
@@ -102,13 +108,50 @@ def build_worker(args):
     )
     trainer = _build_collective_trainer(args, mc, spec, worker_id, device)
     logger.info("worker %d training on %s", worker_id, device)
+    collective = args.distribution_strategy == "collective"
+    elastic = None
+    if collective:
+        # Managed elastic AllReduce: the controller consumes the master's
+        # rendezvous epochs from inside the task loop, at the step
+        # cadence; the trainer starts alone and is rebuilt over each
+        # epoch's world (docs/designs/elastic_collectives.md).
+        from elasticdl_tpu_torch.api.controller import (
+            ElasticCollectiveController,
+        )
+        from elasticdl_tpu_torch.parallel.distributed import (
+            collective_timeout_secs,
+            data_mesh_builder,
+        )
+
+        check_steps = max(1, args.num_minibatches_per_task)
+        elastic = ElasticCollectiveController(
+            mc, trainer, check_steps=check_steps,
+            mesh_builder=data_mesh_builder(
+                device, collective_timeout_secs(check_steps)),
+        )
     return Worker(
         mc, reader, spec, trainer,
         batch_size=args.batch_size,
         log_loss_steps=args.log_loss_steps,
+        join_rendezvous=collective,
+        elastic_controller=elastic,
         fused_steps=args.fused_steps,
         device_prefetch=args.device_prefetch,
     )
+
+
+def kernel_launches(trainer):
+    """The process's kernel launch counters (``ops/``) and the forward
+    and backward passes its trainer ran (``train_passes``): on the card
+    B1/B2 launch 53 times a ResNet-50 pass."""
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.ops import group_norm as gn
+
+    return {"group_norm_fwd": gn.LAUNCHES, "group_norm_bwd": gn.BWD_LAUNCHES,
+            "flash_fwd": fa.LAUNCHES, "flash_partial": fa.PARTIAL_LAUNCHES,
+            "flash_bwd_dq": fa.BWD_DQ_LAUNCHES,
+            "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES,
+            "train_passes": trainer.timing.counters().get("train_passes", 0)}
 
 
 def main(argv=None):
@@ -138,7 +181,11 @@ def main(argv=None):
     # AFTER the preemption hook so the SIGTERM chain is
     # dump-ring-then-graceful-preempt ($ELASTICDL_TRACE_DIR gates it).
     tracing.arm_crash_dump()
-    worker.run()
+    try:
+        worker.run()
+    finally:
+        logger.info("kernel launches: %s",
+                    json.dumps(kernel_launches(worker.trainer)))
     if worker.preempted:
         logger.info("worker preempted (checkpointed)")
         return PREEMPTED_EXIT_CODE

@@ -33,6 +33,13 @@ class PreemptedExit(Exception):
     requested (SIGTERM): unwind cleanly after the current minibatch."""
 
 
+class CollectiveFailure(RuntimeError):
+    """A minibatch whose collective still failed after the elastic
+    re-rendezvous retries: the task is reported failed and the worker
+    exits non-zero (the reference's ``RuntimeError`` out of
+    ``elastic_run``), so the manager relaunches it into a fresh world."""
+
+
 # Drill knob: "id:ms[,id:ms...]" — a deliberate per-step sleep for the
 # NAMED worker ids only (bench_elastic's straggler leg throttles one
 # member of a managed pool through the shared environment).
@@ -173,6 +180,11 @@ class Worker:
         # an exact cumulative sum however reports interleave.  Same
         # single-thread discipline as _tele_mark.
         self._tele_hist_prev = None
+
+    @property
+    def trainer(self):
+        """The trainer this worker runs its tasks on."""
+        return self._trainer
 
     def _telemetry_snapshot(self):
         """Telemetry dict for the next progress RPC: worker-local
@@ -372,7 +384,9 @@ class Worker:
                     # that the task fails and the task-retry machinery
                     # takes over.
                     if attempt + 1 >= 3:
-                        break
+                        raise CollectiveFailure(
+                            "minibatch failed after %d re-rendezvous "
+                            "retries" % (attempt + 1)) from e
                     if not self._elastic.await_new_epoch():
                         self._elastic.init_world_if_needed(force=True)
                     continue
@@ -508,9 +522,12 @@ class Worker:
                 raise
             except Exception as e:  # noqa: BLE001
                 # Report the failure so the master can retry the task on
-                # another worker; keep this worker alive for the next task.
+                # another worker; keep this worker alive for the next task
+                # unless its collective world is beyond repair.
                 logger.error("training task %d failed: %s", task.id, e)
                 self._shard_service.report_task_failed(task, str(e))
+                if isinstance(e, CollectiveFailure):
+                    raise
 
     def _evaluate_task(self, task):
         try:

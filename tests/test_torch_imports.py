@@ -55,7 +55,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "master.master", "master.worker_manager", "master.main",
                  "worker.master_client", "worker.data_shard_service",
                  "worker.task_data_service", "worker.worker",
-                 "worker.main", "worker.fused_driver"):
+                 "worker.main", "worker.fused_driver",
+                 # the managed elastic-collective path
+                 "api.controller", "parallel.distributed"):
         assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 

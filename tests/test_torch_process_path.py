@@ -187,7 +187,8 @@ def test_unknown_model_exits_1_fast(job_env):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--distribution_strategy", "collective"], "A4"),
+    # The collective strategy is ported; ZeRO-1 on it is not.
+    (["--distribution_strategy", "collective", "--zero1", "true"], "A6"),
     (["--distribution_strategy", "ps"], "A8"),
     (["--worker_backend", "k8s"], "A19"),
     (["--jobs_spec", "[]"], "A20"),
@@ -208,12 +209,68 @@ def test_unported_flag_values_name_their_item(flags, item):
 
 
 def test_master_cli_refuses_an_unported_path(job_env):
-    job = Job(["--distribution_strategy", "collective", "--num_workers",
+    job = Job(["--distribution_strategy", "ps", "--num_workers",
                "1"], *job_env)
     rc = job.finish(timeout=60)
     assert rc != 0
-    assert "NotImplementedError" in job.log and "ROADMAP A4" in job.log
+    assert "NotImplementedError" in job.log and "ROADMAP A8" in job.log
     assert "launched worker" not in job.log
+
+
+COLLECTIVE_ARGS = ["--model_zoo", "mnist", "--batch_size", "16",
+                   "--num_minibatches_per_task", "4",
+                   "--distribution_strategy", "collective"]
+
+
+def test_managed_collective_two_workers_form_world(job_env):
+    """The port of tests/test_worker_e2e.py's managed elastic AllReduce
+    job: two worker processes join one 2-rank world through the
+    master-hosted store, train global batches in lockstep, survive the
+    end-of-data shrink, and the job completes with no failed task."""
+    # 8,192 records: a worker that starts a grace window before the other
+    # trains alone for seconds before the world of 2 forms.
+    job = Job(["--data_origin", "synthetic_mnist:8192", "--num_workers",
+               "2"] + COLLECTIVE_ARGS, *job_env)
+    rc = job.finish(timeout=240)
+    log = job.log
+    assert rc == 0, log
+    assert re.search(r"job finished: .*'failed': \{0: 0", log), log
+    assert "collective world joined: rank 0 / 2" in log
+    assert "collective world joined: rank 1 / 2" in log
+    assert log.count("adopted rank 0's parameters") >= 2
+
+
+def test_collective_kill_9_shrinks_and_grows_back(job_env):
+    """kill -9 of one worker mid-job: the survivor's collective fails
+    in-band, the master commits a world of 1 and relaunches the worker,
+    the replacement joins a world of 2 again, and the job ends exit 0
+    with no failed task."""
+    job = Job(["--data_origin", "synthetic_mnist:16384", "--num_workers",
+               "2", "--log_loss_steps", "10"] + COLLECTIVE_ARGS, *job_env)
+    try:
+        job.wait_for(r"adopted rank 0's parameters")
+        job.wait_for(r"\[worker-0\] .* step 10 loss")
+        os.kill(job.worker_pid(0), signal.SIGKILL)
+        rc = job.finish(timeout=240)
+    finally:
+        job.finish(timeout=10)
+    log = job.log
+    assert rc == 0, log
+    assert re.search(r"\[worker-1\] .*minibatch failed \(attempt 1\)",
+                     log), log
+    # Consecutive epochs: both workers, the survivor alone, the survivor
+    # and the replacement (a world of 1 may come first, when one worker
+    # started a grace window before the other, and last, at end of data).
+    worlds = [re.findall(r"worker-\d", w) for w in re.findall(
+        r"rendezvous epoch \d+: world=(\[[^]]*\])", log)]
+    assert any(sorted(a) == ["worker-0", "worker-1"] and b == ["worker-1"]
+               and c == ["worker-1", "worker-2"]
+               for a, b, c in zip(worlds, worlds[1:], worlds[2:])), worlds
+    assert "launched worker 2" in log
+    assert re.search(r"\[worker-2\] .*collective world joined: rank \d / 2",
+                     log), log
+    assert re.search(r"task \d+ failed \(worker 0 died\), retry 1/3", log)
+    assert re.search(r"job finished: .*'failed': \{0: 0", log), log
 
 
 def test_process_backend_sets_no_device_variable(monkeypatch):
