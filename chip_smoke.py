@@ -183,7 +183,21 @@ Phases, in order; any failure exits non-zero:
     an epoch of world 2 again, B1/B2 53 launches a pass in every worker
     that exits, the job finishing with exit 0 and no failed task;
     recovery seconds and steps/s at worlds 2 and 1;
-19. one JSON line of kernels, then the card's name and power limit, then
+19. ZeRO-1 on the collective path: ResNet-50 at full size trained by two
+    ranks on the card as in phase 18, ZERO_STEPS steps with zero1=True
+    and the same steps with zero1=False over a second mesh of the same
+    world, both on cuDNN's deterministic algorithms (two zero1=False legs
+    on its defaults first show whether those reproduce): losses,
+    parameters and the whole optimizer state (the shards gathered) bit
+    for bit equal, B1/B2 53 launches a step a rank, the
+    optimizer state a rank half the replicated, ms a step both ways and
+    the parameter all-gather's ms; then 2 -> 3 with a joiner (the state
+    bit for bit that of before, the no-churn reference) and 3 -> 2 with a
+    leaver (the moments restarted, the parameters kept); then phase 18's
+    CLI job with ``--zero1 true`` and a kill -9: the ZeRO-1 placement
+    logged at a world of 2, the survivor's moment restart at the shrink,
+    exit 0 with no failed task;
+20. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
@@ -3620,9 +3634,12 @@ def _rate(times):
     return (len(times) - 1) / (times[-1] - times[0])
 
 
-def collective_cli_leg(torch):
+def collective_cli_leg(torch, zero1=False):
     """Leg 2: the master CLI's collective job with two workers on the card;
-    kill -9 of worker 0 once both have stepped in a world of 2."""
+    kill -9 of worker 0 once both have stepped in a world of 2.  With
+    ``zero1`` (phase 19) the job runs ``--zero1 true``: the workers log
+    the ZeRO-1 placement at a world of 2, and the survivor restarts its
+    moments at the shrink."""
     from elasticdl_tpu_torch.ops import build
 
     repo = os.path.dirname(os.path.abspath(__file__))
@@ -3640,6 +3657,9 @@ def collective_cli_leg(torch):
             "--num_minibatches_per_task", "4", "--num_workers", "2",
             "--distribution_strategy", "collective", "--log_loss_steps", "1"]
     what = "collective path, leg 2"
+    if zero1:
+        args += ["--zero1", "true"]
+        what = "ZeRO-1 path, leg 2"
     job = _MasterProcess(args, env, tmp.name, what=what)
     deadline = job.t0 + COLL_CLI_TIMEOUT_S
     epoch = r"rendezvous epoch (\d+): world=\[%s\]"
@@ -3694,6 +3714,25 @@ def collective_cli_leg(torch):
                  "and B2 %d a pass" % (what, w, counts, len(steps[w]),
                                        GN_PER_FORWARD))
         launches[w] = counts
+    zero1_lines = {}
+    if zero1:
+        placed = r"\[worker-%d\] .*zero1: optimizer state sharded 2 ways"
+        reset = (r"\[worker-1\] .*zero1: .*re-initializing optimizer "
+                 r"moments")
+        zero1_lines = {
+            "placement_world2": all(
+                any(re.search(placed % w, line) for t, line in job.lines
+                    if t < t_kill) for w in (0, 1)),
+            "reset_at_shrink": any(re.search(reset, line) for t, line
+                                   in job.lines if t_kill <= t <= t_s1),
+            "placement_regrown": all(
+                any(re.search(placed % w, line) for t, line in job.lines
+                    if t >= t_w3) for w in (1, 2)),
+        }
+        bad = [k for k, ok in zero1_lines.items() if not ok]
+        if bad:
+            fail("%s: the workers' logs lack %s; tail:\n%s"
+                 % (what, bad, job.tail()))
     world2 = [t for t in steps[1] if t_w2 <= t < t_kill]
     world1 = [t for t in steps[1] if t_s1 <= t < t_w3]
     regrown = [t for t in steps[2] if t >= t_s3]
@@ -3710,7 +3749,7 @@ def collective_cli_leg(torch):
            "steps_per_s_world1": _rate(world1),
            "steps_per_s_world2_again": _rate(regrown),
            "steps": {w: len(s) for w, s in steps.items()},
-           "launches": launches, "rc": rc}
+           "launches": launches, "rc": rc, "zero1_logs": zero1_lines}
     print("%s (master CLI, collective, 2 workers on the card, "
           "resnet50_cifar10 batch %d a worker, %d records): world of 2 at "
           "%.1f s, kill -9 of worker 0 at %.1f s; after it the survivor's "
@@ -3731,6 +3770,290 @@ def collective_cli_leg(torch):
 
 def collective_phase(torch):
     return {"ranks": collective_leg(torch), "cli": collective_cli_leg(torch)}
+
+
+# ZeRO-1 on the collective path (phase 19).  Leg 1: ResNet-50 at full size
+# (224x224, 1000 classes, float32, TF32 off) trained by two ranks on the
+# card at COLL_BATCH each, a world formed as phase 18's, ZERO_STEPS steps
+# with zero1=True and the same steps from the same weights with
+# zero1=False over a second mesh of the same world, on cuDNN's
+# deterministic algorithms: losses, parameters and the whole optimizer
+# state (the shards gathered) bit for bit equal;
+# then the world re-formed 2 -> 3 with a joiner (every old shard present:
+# the momentum kept bit for bit, equal to the zero1=False leg's at the
+# same version, the no-churn reference) and 3 -> 2 with a leaver (a shard
+# gone: the momentum restarts, zero1_moment_resets 1, parameters kept).
+# Leg 2: phase 18's CLI leg with --zero1 true.
+# cuDNN's default algorithms are not bitwise reproducible from run to run
+# (on an H100, 80GB HBM3, 700 W, two zero1=False legs from the same
+# weights on the same batches parted at the third step's loss), so the
+# gated legs run with torch.backends.cudnn.deterministic = True and
+# benchmark = False, and two zero1=False legs under the defaults first
+# record whether the defaults reproduce (printed, not gated).
+ZERO_STEPS = COLL_TIMED_STEPS + 1      # a first step, then the timed ones
+
+
+def _arrays_digest(named):
+    """sha256 over ``{name: array}`` in name order."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k in sorted(named):
+        h.update(k.encode())
+        h.update(np.ascontiguousarray(named[k]).tobytes())
+    return h.hexdigest()
+
+
+def _zero1_state(torch, trainer):
+    """(digest of the parameters and buffers, digest of the whole
+    optimizer state, its largest |slot|); the state is gathered from the
+    ranks' shards under ZeRO-1, so every member of the world calls it."""
+    state = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
+                 else np.asarray(v))
+             for k, v in trainer._whole_state().items()}
+    params = {k: v.detach().cpu().numpy()
+              for k, v in trainer.module.state_dict().items()}
+    biggest = max(float(np.abs(v).max()) for v in state.values()
+                  if v.ndim)
+    return _arrays_digest(params), _arrays_digest(state), biggest
+
+
+def zero_rank(role, epochs, named):
+    """One process of phase 19's leg 1: ``role`` "rank0" (rank 0 of the
+    worlds 2, 3, 2), "rank1" (rank 1 of the first two) or "joiner" (rank 2
+    of the world of 3, rank 1 of the last; its own init from another
+    seed).  Returns its readings."""
+    import datetime
+
+    import torch
+
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.ops import group_norm as gn
+    from elasticdl_tpu_torch.parallel import distributed as tdist
+    from elasticdl_tpu_torch.parallel import transport
+    from elasticdl_tpu_torch.parallel.mesh import data_mesh
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    use_float32_numerics()
+    spec = load_model_spec("resnet", COLL_PARAMS)
+    build = tdist.data_mesh_builder(DEVICE, COLL_RANKS_TIMEOUT_S)
+    rank = {"rank0": 0, "rank1": 1, "joiner": 2}[role]
+    rng = np.random.RandomState(1900 + rank)
+    shape = (COLL_BATCH, COLL_IMAGE, COLL_IMAGE, 3)
+    data = [(rng.rand(*shape).astype(np.float32),
+             rng.randint(0, 1000, size=COLL_BATCH).astype(np.int32))
+            for _ in range(ZERO_STEPS + 2)]
+    gather_s = []
+    timed = {"on": False}
+    real_gather = transport.all_gather_flat_
+
+    def timed_gather(outs, shards, group):
+        # The host-staged all-gather of a step's fresh shards, from the
+        # shard update's end to the parameters' bytes back on the card.
+        if not timed["on"]:
+            return real_gather(outs, shards, group)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        real_gather(outs, shards, group)
+        torch.cuda.synchronize()
+        gather_s.append(time.perf_counter() - t0)
+
+    transport.all_gather_flat_ = timed_gather
+
+    def trainer(zero1):
+        t = CollectiveTrainer(spec, batch_size=COLL_BATCH, device=DEVICE,
+                              zero1=zero1, rng_seed=7 if rank == 2 else 0)
+        if rank == 0:
+            t.set_params(spec.params_from_jax(named))
+        return t
+
+    def steps(t, batches):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(t.train_minibatch(x, y)[0]) for x, y in batches]
+        return losses, (time.perf_counter() - t0) * 1e3 / len(batches)
+
+    def reform(t, world_rank, world, addr):
+        t.snapshot_to_host()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        t.rebuild(build(world_rank, world, addr))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def counters(t):
+        return {k: v for k, v in t.timing.counters().items()
+                if k.startswith("zero1_")}
+
+    def replicated():
+        """A zero1=False trainer over a second mesh of the world."""
+        r = trainer(False)
+        r.rebuild(data_mesh(backend=tdist.BACKEND, device=DEVICE,
+                            timeout=datetime.timedelta(
+                                seconds=COLL_RANKS_TIMEOUT_S)))
+        return r
+
+    def leg(t, time_gathers=False):
+        """ZERO_STEPS steps: (losses, ms a step after the first, state);
+        ``time_gathers`` times each step's parameter all-gather."""
+        timed["on"] = time_gathers
+        first, _ = steps(t, data[:1])
+        rest, ms = steps(t, data[1:ZERO_STEPS])
+        timed["on"] = False
+        return first + rest, ms, _zero1_state(torch, t)
+
+    out = {}
+    z = trainer(True)
+    if rank < 2:
+        out["form_s"] = reform(z, rank, 2, epochs[0])
+        out["default_legs"] = [leg(replicated()) for _ in range(2)]
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
+        r = replicated()
+        out["reports"] = (r.zero1_report(), z.zero1_report())
+        out["flat_param_bytes"] = z._zero.flat_param_bytes()
+        out["off_losses"], out["off_step_ms"], out["off_state"] = leg(r)
+        torch.cuda.synchronize()
+        gn.LAUNCHES = gn.BWD_LAUNCHES = 0
+        out["on_losses"], out["on_step_ms"], out["on_state"] = leg(z, True)
+        out["launches"] = (gn.LAUNCHES, gn.BWD_LAUNCHES)
+        out["all_gather_ms"] = [t * 1e3 for t in gather_s]
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        del r
+        torch.cuda.empty_cache()
+    # 2 -> 3: the joiner brings no shard; the old two bring both.
+    out["grow_s"] = reform(z, rank, 3, epochs[1])
+    out["state_3"] = _zero1_state(torch, z)
+    out["counters_3"] = counters(z)
+    out["report_3"] = z.zero1_report()
+    out["loss_3"] = steps(z, data[ZERO_STEPS:ZERO_STEPS + 1])[0][0]
+    out["stepped_3"] = _zero1_state(torch, z)
+    # 3 -> 2: rank 1 leaves with its shard.
+    if rank == 1:
+        z.snapshot_to_host()
+        tdist.reset_single_process()
+        return out
+    out["shrink_s"] = reform(z, {0: 0, 2: 1}[rank], 2, epochs[2])
+    out["state_2"] = _zero1_state(torch, z)
+    out["counters_2"] = counters(z)
+    out["loss_2"] = steps(z, data[ZERO_STEPS + 1:])[0][0]
+    tdist.reset_single_process()
+    return out
+
+
+def zero1_leg(torch):
+    """Leg 1 of phase 19 (see ZERO_STEPS): ZeRO-1 on against off, bit for
+    bit, then 2 -> 3 -> 2."""
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.parallel import distributed as tdist
+    from elasticdl_tpu_torch.parallel import launch
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    spec = load_model_spec("resnet", COLL_PARAMS)
+    named = seeded_params(spec, CollectiveTrainer(
+        spec, batch_size=COLL_BATCH, device=DEVICE).module, seed=19)
+    torch.cuda.empty_cache()
+    svcs = [tdist.MasterCoordinationService(reap_secs=COLL_RANKS_TIMEOUT_S)
+            for _ in range(3)]
+    epochs = [svc.start_epoch(n) for svc, n in zip(svcs, (2, 3, 2))]
+    roles = ("rank0", "rank1", "joiner")
+    t0 = time.perf_counter()
+    r0, r1, joiner = launch.run(
+        [(zero_rank, (role, epochs, named if role == "rank0" else None))
+         for role in roles], timeout=COLL_RANKS_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+    want = tuple(GN_PER_FORWARD * ZERO_STEPS for _ in range(2))
+    off_report, on_report = r0["reports"]
+    checks = {
+        "ZeRO-1 losses bitwise those of zero1=False": all(
+            r["on_losses"] == r["off_losses"] for r in (r0, r1)),
+        "one global loss": r0["on_losses"] == r1["on_losses"],
+        "parameters bitwise": r0["on_state"][0] == r0["off_state"][0]
+        == r1["on_state"][0],
+        "optimizer state bitwise": r0["on_state"][1] == r0["off_state"][1]
+        == r1["on_state"][1],
+        "B1/B2 %d a step a rank" % GN_PER_FORWARD: all(
+            tuple(r["launches"]) == want for r in (r0, r1)),
+        "half the optimizer state a rank": on_report["mode"] == "zero1"
+        and off_report["mode"] == "replicated"
+        and 2 * on_report["per_device_bytes"]
+        <= 1.01 * off_report["per_device_bytes"],
+        "2 -> 3 kept the state bitwise": all(
+            r["state_3"][1] == r0["on_state"][1] for r in (r0, r1, joiner)),
+        "2 -> 3 restarted nothing": all(
+            r["counters_3"].get("zero1_moment_resets", 0) == 0
+            for r in (r0, r1, joiner)),
+        "the joiner adopted rank 0's parameters": joiner["state_3"][0]
+        == r0["on_state"][0],
+        "one step at 3, one state": joiner["stepped_3"] == r0["stepped_3"]
+        == r1["stepped_3"] and joiner["loss_3"] == r0["loss_3"],
+        "3 -> 2 restarted the moments": all(
+            r["state_2"][2] == 0.0
+            and r["counters_2"].get("zero1_moment_resets") == 1
+            for r in (r0, joiner)),
+        "3 -> 2 kept the parameters": joiner["state_2"][0]
+        == r0["state_2"][0] == r0["stepped_3"][0],
+        "finite losses": all(map(math.isfinite, r0["on_losses"] + [
+            r0["loss_3"], r0["loss_2"], joiner["loss_2"]])),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail("ZeRO-1 path, leg 1: %s (losses on %s, off %s)" % (
+            bad, r0["on_losses"], r0["off_losses"]))
+    ag = r0["all_gather_ms"]
+    (d1_losses, d1_ms, d1_state), (d2_losses, d2_ms, d2_state) = r0[
+        "default_legs"]
+    out = {"batch_per_rank": COLL_BATCH, "steps": ZERO_STEPS,
+           "losses": r0["on_losses"],
+           "default_cudnn_reproduces": d1_losses == d2_losses
+           and d1_state[:2] == d2_state[:2],
+           "default_cudnn_losses": [d1_losses, d2_losses],
+           "default_cudnn_step_ms": [d1_ms, d2_ms],
+           "report_off": off_report, "report_on": on_report,
+           "report_world3": r0["report_3"],
+           "step_ms_on": r0["on_step_ms"], "step_ms_off": r0["off_step_ms"],
+           "step_ms_on_rank1": r1["on_step_ms"],
+           "step_ms_off_rank1": r1["off_step_ms"],
+           "all_gather_ms": ag, "all_gather_ms_mean": float(np.mean(ag[1:])),
+           "all_gather_mb": r0["flat_param_bytes"] / 1e6,
+           "launches_per_step": tuple(n // ZERO_STEPS
+                                      for n in r0["launches"]),
+           "form_s": r0["form_s"], "grow_s": r0["grow_s"],
+           "join_s": joiner["grow_s"], "shrink_s": r0["shrink_s"],
+           "reshard_bytes_3": r0["counters_3"].get("zero1_reshard_bytes"),
+           "peak_gb": [r0["peak_gb"], r1["peak_gb"]], "ranks_s": ranks_s,
+           "checks": sorted(checks)}
+    print("ZeRO-1 path, leg 1 (ResNet-50 %dx%d f32, 2 ranks x batch %d on "
+          "the card, gloo through the host, %d steps): two zero1=False legs "
+          "under cuDNN's default algorithms %s (losses %s; %.1f, %.1f ms a "
+          "step); under its deterministic ones zero1 on = off bit "
+          "for bit (losses %s); optimizer state a rank %.1f MB zero1 (%d "
+          "shards) vs %.1f MB replicated; %.1f ms a step on (rank 1 %.1f) "
+          "vs %.1f off (rank 1 %.1f), the all-gather of %.1f MB %.1f ms a "
+          "step (%s); B1/B2 %d/%d launches a step a rank; world formed in "
+          "%.2f s, 2 -> 3 in %.2f s (joiner %.2f s, state bitwise), 3 -> 2 "
+          "in %.2f s (moments restarted); %s; peak %.1f / %.1f GB" % (
+              COLL_IMAGE, COLL_IMAGE, COLL_BATCH, ZERO_STEPS,
+              "reproduce bit for bit" if out["default_cudnn_reproduces"]
+              else "differ", out["default_cudnn_losses"], d1_ms, d2_ms,
+              out["losses"],
+              on_report["per_device_bytes"] / 1e6, on_report["num_shards"],
+              off_report["per_device_bytes"] / 1e6, out["step_ms_on"],
+              out["step_ms_on_rank1"], out["step_ms_off"],
+              out["step_ms_off_rank1"], out["all_gather_mb"],
+              out["all_gather_ms_mean"], ", ".join("%.1f" % a for a in ag),
+              *out["launches_per_step"], out["form_s"], out["grow_s"],
+              out["join_s"], out["shrink_s"], ", ".join(sorted(checks)),
+              *out["peak_gb"]))
+    return out
+
+
+def zero1_phase(torch):
+    return {"ranks": zero1_leg(torch),
+            "cli": collective_cli_leg(torch, zero1=True)}
 
 
 def main():
@@ -3832,6 +4155,9 @@ def main():
     t0 = time.perf_counter()
     coll = collective_phase(torch)
     phase_s["collective path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    zero = zero1_phase(torch)
+    phase_s["ZeRO-1 path"] = time.perf_counter() - t0
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -3849,6 +4175,11 @@ def main():
         "launches_collective_job": {
             w: c["group_norm_fwd"]
             for w, c in coll["cli"]["launches"].items()},
+        "launches_zero1_step_per_rank":
+            zero["ranks"]["launches_per_step"][0],
+        "launches_zero1_job": {
+            w: c["group_norm_fwd"]
+            for w, c in zero["cli"]["launches"].items()},
         "max_abs_err": max_err["float32"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -3870,6 +4201,11 @@ def main():
         "launches_collective_job": {
             w: c["group_norm_bwd"]
             for w, c in coll["cli"]["launches"].items()},
+        "launches_zero1_step_per_rank":
+            zero["ranks"]["launches_per_step"][1],
+        "launches_zero1_job": {
+            w: c["group_norm_bwd"]
+            for w, c in zero["cli"]["launches"].items()},
         "max_abs_err": bwd_err["float32"],
         "ms": bf32["ms"],
         "plain_ms": bf32["plain_ms"],
@@ -3990,6 +4326,7 @@ def main():
                                          part.items()},
                        "process_path": proc,
                        "collective_path": coll,
+                       "zero1_path": zero,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -1,6 +1,7 @@
-"""Point-to-point shifts, all-to-alls, all-reduces and broadcasts over a
-process group, for the mesh paths (ring and Ulysses attention, the SPMD
-and collective trainers' gradients, a re-formed world's state).
+"""Point-to-point shifts, all-to-alls, all-reduces, broadcasts and
+all-gathers over a process group, for the mesh paths (ring and Ulysses
+attention, the SPMD and collective trainers' gradients, a re-formed
+world's state, ZeRO-1's parameter shards).
 
 How a tensor travels follows the group's backend, set by whoever built
 the group (``parallel/mesh.py``):
@@ -8,7 +9,8 @@ the group (``parallel/mesh.py``):
  - ``nccl`` hands CUDA tensors to the collective as they are;
  - ``gloo`` takes CPU tensors only for point-to-point, so a CUDA tensor
    is copied to a host buffer first and the result copied back to the
-   tensor's device; the all-to-all and the all-reduce go the same way.
+   tensor's device; the all-to-all, the all-reduce, the broadcast and
+   the all-gather go the same way.
    This is the route of ranks that share one card, which NCCL refuses.
    CPU tensors go as they are.
 
@@ -116,6 +118,36 @@ def broadcast_(tensors, group, src=0):
         for t in same:
             t.copy_(flat[offset:offset + t.numel()].view_as(t))
             offset += t.numel()
+
+
+def all_gather_flat_(outs, shards, group):
+    """Gather each rank's ``shards[i]`` (1-D, the same length on every
+    rank of ``group``) into ``outs[i]`` (1-D, ``n`` times as long) on
+    every rank, in rank order: one flat buffer per dtype, staged through
+    the host as ``all_reduce_sum_`` stages.  The list form of
+    ``all_gather``, which every torch that runs the port has."""
+    n = dist.get_world_size(group)
+    by_dtype = {}
+    for out, shard in zip(outs, shards):
+        if out.numel() != n * shard.numel():
+            raise ValueError("a shard of %d elements gathers into %d, not "
+                             "%d" % (shard.numel(), n * shard.numel(),
+                                     out.numel()))
+        by_dtype.setdefault(shard.dtype, []).append((out, shard))
+    for same in by_dtype.values():
+        flat = torch.cat([s.reshape(-1) for _, s in same])
+        staged = _staged(group, flat)
+        send = flat.cpu() if staged else flat
+        rows = [torch.empty_like(send) for _ in range(n)]
+        dist.all_gather(rows, send, group=group)
+        for i, row in enumerate(rows):
+            if staged:
+                row = row.to(flat.device)
+            offset = 0
+            for out, shard in same:
+                k = shard.numel()
+                out.view(n, k)[i].copy_(row[offset:offset + k])
+                offset += k
 
 
 class _RingShift(torch.autograd.Function):

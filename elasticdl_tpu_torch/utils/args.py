@@ -298,7 +298,6 @@ _UNPORTED = (
     ("status_port", lambda v: v is not None and v >= 0,
      "the master's status server", "A15"),
     ("profile_dir", bool, "device traces", "A15"),
-    ("zero1", bool, "ZeRO-1 weight-update sharding", "A6"),
     ("export_base", bool, "continuous servable export", "A11"),
 )
 

@@ -86,13 +86,34 @@ Evaluation and prediction run on the local copy and never enter a
 collective (the JAX ``_forward_local``).  A multi-process world trains
 one step per dispatch (``max_window`` 1), as the JAX trainer does.
 
-Left for later slices: ZeRO-1 (ROADMAP A6), the servable exporter
-(A11) and meshes with axes other than dp (A4b); the constructor's
-``zero1`` and ``exporter`` accept only their defaults and otherwise
-raise ``NotImplementedError`` naming the item, as does such a mesh.
+ZeRO-1 (``zero1=True``; ``worker/zero.py``): in a world of N > 1 ranks
+each rank holds a flat padded 1/N shard of every optimizer slot and of
+every parameter the optimizer updates, and a shard optimizer (the
+spec's, over the shard tensors under the parameters' names) steps it.
+A step reduces the gradients as the replicated path does (one
+all-reduce, divided by the global count), slices each rank's shard out
+of them, steps the shard optimizer and all-gathers the fresh shards into
+the parameters (``transport.all_gather_flat_``), so the trajectory is
+bit-equal to ``zero1=False``.  Alone, the trainer runs the whole
+optimizer as without ZeRO-1.  Where the JAX trainer gathers the shards
+before a world re-forms (its ``snapshot_to_host``), the port's ranks
+leave a world at different moments, so the shards are put back together
+in ``rebuild``, over the new world's group: they survive, bit for bit,
+when the new world holds every shard of rank 0's layout at its version,
+and otherwise the moments restart from the parameters (a leaver, a
+killed peer, a planned shrink; ``zero1_moment_resets``).  Checkpoints
+hold the whole state in original shapes, gathered at the cadence by
+every rank of the world (``checkpoint_writer`` says which one writes),
+and move between ZeRO-1 on, off and the JAX package.
+
+Left for later slices: the servable exporter (A11) and meshes with axes
+other than dp (A4b); the constructor's ``exporter`` accepts only its
+default and otherwise raises ``NotImplementedError`` naming the item, as
+does such a mesh.
 """
 
 import concurrent.futures
+import os
 
 import numpy as np
 import torch
@@ -109,6 +130,7 @@ from elasticdl_tpu_torch.worker.fused_driver import (
     StagedWindow,
 )
 from elasticdl_tpu_torch.worker.trainer import Trainer
+from elasticdl_tpu_torch.worker.zero import ZeroPartitioner
 
 logger = get_logger(__name__)
 
@@ -161,38 +183,51 @@ def _grouped(optimizer, named_params):
             for group in optimizer.param_groups for p in group["params"]]
 
 
+def _jax_slots(optimizer, named_params):
+    """(optax name, torch state key, parameter) of each leaf of the optax
+    state a torch optimizer stands for, in ``flatten_with_names`` order;
+    an Adam count is (name, None, None)."""
+    if isinstance(optimizer, torch.optim.SGD):
+        if not optimizer.defaults["momentum"]:
+            return []
+        return [(prefix + "0/trace/" + name, "momentum_buffer", p)
+                for prefix, name, p in _grouped(optimizer, named_params)]
+    if isinstance(optimizer, _ADAM):
+        out = [(group.get("jax_prefix", "") + "0/count", None, None)
+               for group in optimizer.param_groups]
+        for prefix, name, p in _grouped(optimizer, named_params):
+            out += [(prefix + "0/mu/" + name, "exp_avg", p),
+                    (prefix + "0/nu/" + name, "exp_avg_sq", p)]
+        return out
+    raise NotImplementedError(
+        "no checkpoint mapping for optimizer %s" % type(optimizer).__name__)
+
+
+def _opt_state_geometry(optimizer, named_params):
+    """``[(name, shape, dtype)]`` of each leaf ``_opt_state_to_jax``
+    gives (a count: shape (), int32), without making any."""
+    return [(name, (), np.int32) if key is None
+            else (name, tuple(p.shape), p.dtype)
+            for name, key, p in _jax_slots(optimizer, named_params)]
+
+
 def _opt_state_to_jax(optimizer, named_params, to_jax_layout):
     """A torch optimizer's state -> ``{name: ndarray}`` as
     ``flatten_with_names`` names the optax state it stands for, each slot
     in its parameter's JAX layout.  A slot not created yet (before the
     first step) is saved as optax's initial value: zeros."""
-    def slot(state, key, p):
-        value = state.get(key)
-        return to_jax_layout(value if value is not None
-                             else torch.zeros_like(p))
-
+    # Every group steps together, so each optax count is the step.
+    count = max((int(s["step"]) for s in optimizer.state.values()
+                 if "step" in s), default=0)
     out = {}
-    if isinstance(optimizer, torch.optim.SGD):
-        if not optimizer.defaults["momentum"]:
-            return out
-        for prefix, name, p in _grouped(optimizer, named_params):
-            out[prefix + "0/trace/" + name] = slot(
-                optimizer.state.get(p, {}), "momentum_buffer", p)
-        return out
-    if isinstance(optimizer, _ADAM):
-        # Every group steps together, so each optax count is the step.
-        count = max((int(s["step"]) for s in optimizer.state.values()
-                     if "step" in s), default=0)
-        for group in optimizer.param_groups:
-            out[group.get("jax_prefix", "") + "0/count"] = np.asarray(
-                count, np.int32)
-        for prefix, name, p in _grouped(optimizer, named_params):
-            state = optimizer.state.get(p, {})
-            out[prefix + "0/mu/" + name] = slot(state, "exp_avg", p)
-            out[prefix + "0/nu/" + name] = slot(state, "exp_avg_sq", p)
-        return out
-    raise NotImplementedError(
-        "no checkpoint mapping for optimizer %s" % type(optimizer).__name__)
+    for name, key, p in _jax_slots(optimizer, named_params):
+        if key is None:
+            out[name] = np.asarray(count, np.int32)
+            continue
+        value = optimizer.state.get(p, {}).get(key)
+        out[name] = to_jax_layout(value if value is not None
+                                  else torch.zeros_like(p))
+    return out
 
 
 def _opt_state_from_jax(optimizer, named_params, named, from_jax_layout):
@@ -226,6 +261,34 @@ def _opt_state_from_jax(optimizer, named_params, named, from_jax_layout):
         "no checkpoint mapping for optimizer %s" % type(optimizer).__name__)
 
 
+def _identity(t):
+    return t
+
+
+def _nonce():
+    """A random 62-bit id (a ZeRO-1 layout's, see ``_exchange_shards``)."""
+    return int.from_bytes(os.urandom(8), "little") >> 2
+
+
+def _holders(rows):
+    """Which rank of a new world holds each shard of rank 0's ZeRO-1
+    layout, from every member's descriptor ``(layout world size, layout
+    rank, layout id, version, finished, nonce)`` in new-rank order: a list
+    indexed by the layout's rank, or None when a shard of it is missing,
+    at another version or unfinished (a step failed between the shard
+    update and the parameter all-gather)."""
+    world, _, layout_id, version, finished = rows[0][:5]
+    if not finished:
+        return None
+    holders = {}
+    for new_rank, row in enumerate(rows):
+        if (row[0], row[2], row[3], row[4]) == (world, layout_id, version, 1):
+            holders.setdefault(row[1], new_rank)
+    if len(holders) < world:
+        return None
+    return [holders[r] for r in range(world)]
+
+
 class CollectiveTrainer(Trainer):
     def __init__(
         self,
@@ -243,9 +306,8 @@ class CollectiveTrainer(Trainer):
         zero1=False,
         exporter=None,
         export_steps=0,
+        checkpoint_writer=True,
     ):
-        if zero1:
-            raise not_ported("ZeRO-1 (zero1=True)", "A6")
         if exporter is not None or export_steps:
             raise not_ported("continuous servable export", "A11")
         self._spec = spec
@@ -255,6 +317,9 @@ class CollectiveTrainer(Trainer):
         self._report_version_steps = report_version_steps
         self._checkpoint_saver = checkpoint_saver
         self._checkpoint_steps = checkpoint_steps
+        # Whether the checkpoint cadence writes; a rank that does not
+        # still joins a ZeRO-1 world's gather at it.
+        self._checkpoint_writer = checkpoint_writer
         self._use_bf16_compute = use_bf16_compute
         self._device = resolve_device(device)
         self.timing = Timing(logger=logger)
@@ -263,6 +328,16 @@ class CollectiveTrainer(Trainer):
         self._ckpt_future = None
         self._module = spec.init_fn(self._device, rng_seed)
         self._optimizer = self._new_optimizer()
+        # ZeRO-1 (module docstring): the state is whole in _optimizer
+        # while _zero is None, else this rank's shards are in _shard_opt.
+        # _layout names the layout the state was cut for (world size,
+        # rank, id); _shard_finished is False from a shard step until
+        # its parameters are gathered.
+        self._zero1 = zero1
+        self._drop_shards()
+        self._layout = (1, 0, _nonce())
+        self._shard_finished = True
+        self._rank = 0
         self.rebuild(mesh)
 
     # -- mesh / world management --------------------------------------------
@@ -272,20 +347,26 @@ class CollectiveTrainer(Trainer):
         left.  The JAX trainer pulls its state to the host here, because
         re-forming its world clears the device backends; a torch world's
         re-forming leaves the parameters and optimizer state on the card,
-        so nothing moves.  What this does instead is let go of the old
-        world's mesh (the trainer trains alone until the next
-        ``rebuild``): its groups' sockets then close when the world is
-        destroyed, and a peer still blocked in one of their collectives
-        fails at once, not at the timeout."""
-        self.rebuild(None)
+        so nothing moves, and nothing here enters a collective (the
+        members of a world do not agree on when they leave it).  What
+        this does instead is let go of the old world's mesh (the trainer
+        trains alone until the next ``rebuild``): its groups' sockets then
+        close when the world is destroyed, and a peer still blocked in one
+        of their collectives fails at once, not at the timeout.  ZeRO-1
+        shards stay as they are: the next ``rebuild`` puts them back
+        together if the new world holds them all."""
+        self._mesh = None
+        self._world_size = 1
 
     def rebuild(self, mesh):
         """Train over ``mesh`` from now on (None: alone).  Called at
         construction and at every rendezvous epoch.  Parameters,
         optimizer state and version stay where they are; in a world of
         more than one rank, rank 0's are broadcast to all (the
-        epoch-start sync).  The port keeps no per-world caches (pad plans
-        or compiled windows), so there is nothing else to drop."""
+        epoch-start sync), and under ZeRO-1 the state is first put back
+        together from the members' shards (``_exchange_shards``) and then
+        cut anew for this world.  The port keeps no per-world caches (pad
+        plans or compiled windows), so there is nothing else to drop."""
         if mesh is not None:
             others = {axis: n for axis, n in mesh.shape.items()
                       if axis != "dp" and n > 1}
@@ -297,12 +378,21 @@ class CollectiveTrainer(Trainer):
         # the mesh, which rebuild() replaces before the next step.
         self._world_size = (1 if mesh is None else
                             torch.distributed.get_world_size(mesh.group()))
+        self._rank = (0 if mesh is None else
+                      torch.distributed.get_rank(mesh.group()))
         if self.process_count > 1:
             with self.timing.timeit("state_broadcast"):
+                layout_id = self._exchange_shards() if self._zero1 else None
                 self._adopt_rank0_state()
+                if self._zero1:
+                    self._cut(layout_id)
             logger.info(
                 "world of %d ranks: adopted rank 0's parameters, optimizer "
                 "state and version %d", self.process_count, self._version)
+            if self._zero1:
+                self._log_zero1_placement()
+        elif self._zero is not None:
+            self._settle_alone()
 
     def _group(self):
         """The world's process group, or None when training alone."""
@@ -314,8 +404,7 @@ class CollectiveTrainer(Trainer):
         yet go as their initial value (zeros, step 0), which is what
         torch's SGD (dampening 0) and Adam would start from."""
         named = self._named_params()
-        identity = lambda t: t  # noqa: E731
-        opt = _opt_state_to_jax(self._optimizer, named, identity)
+        opt = _opt_state_to_jax(self._optimizer, named, _identity)
         slots = sorted(k for k in opt if isinstance(opt[k], torch.Tensor))
         counts = sorted(k for k in opt if k not in slots)
         scalars = torch.tensor(
@@ -329,7 +418,213 @@ class CollectiveTrainer(Trainer):
         self._version = int(values[0])
         for k, v in zip(counts, values[1:]):
             opt[k] = np.asarray(v, np.int32)
-        _opt_state_from_jax(self._optimizer, named, opt, identity)
+        _opt_state_from_jax(self._optimizer, named, opt, _identity)
+
+    # -- ZeRO-1 --------------------------------------------------------------
+
+    def _drop_shards(self):
+        self._zero = None
+        self._shards = None
+        self._shard_opt = None
+
+    def _opt_params(self):
+        """(module name, parameter) of each parameter the optimizer
+        updates, group by group."""
+        names = {p: name for name, p in self._module.named_parameters()}
+        return [(names[p], p) for group in self._optimizer.param_groups
+                for p in group["params"]]
+
+    def _partitioner(self, num_shards, rank=0):
+        """The ZeRO-1 layout of this model and optimizer over
+        ``num_shards`` ranks."""
+        return ZeroPartitioner(
+            [(jax_name(name), tuple(p.shape), p.dtype)
+             for name, p in self._opt_params()],
+            _opt_state_geometry(self._optimizer, self._named_params()),
+            num_shards, rank)
+
+    def _named_shards(self):
+        return [(jax_name(name), s) for (name, _), s in
+                zip(self._opt_params(), self._shards)]
+
+    def _cut(self, layout_id):
+        """Cut the whole optimizer state (``_optimizer``'s) and the
+        parameters into this rank's shards of the world's layout; the
+        whole state is dropped.  The shard optimizer is the spec's,
+        called with the shard tensors under the parameters' names, so it
+        has the same groups and hyper-parameters and picks the same torch
+        implementation (foreach on the card, the for-loop on the CPU)."""
+        zero = self._partitioner(self.process_count, self._rank)
+        whole = _opt_state_to_jax(self._optimizer, self._named_params(),
+                                  _identity)
+        params = self._opt_params()
+        shards = [zero.cut(p.detach(), spec)
+                  for (_, p), spec in zip(params, zero.param_specs)]
+        shard_opt = self._spec.optimizer(
+            [(name, s) for (name, _), s in zip(params, shards)])
+        self._optimizer = self._new_optimizer()   # groups only, no state
+        self._zero, self._shards, self._shard_opt = zero, shards, shard_opt
+        _opt_state_from_jax(shard_opt, self._named_shards(),
+                            zero.cut_state(whole), _identity)
+        self._layout = (self.process_count, self._rank, layout_id)
+        self._shard_finished = True
+
+    def _restart_moments(self, why):
+        """The optimizer state afresh, whole (JAX ``snapshot_to_host``'s
+        fallback: moments re-initialised, parameters kept).  A trainer
+        that never stepped loses nothing, so only a later one counts."""
+        if self._version > 0:
+            self.timing.bump("zero1_moment_resets")
+            logger.warning(
+                "zero1: %s; re-initializing optimizer moments from params "
+                "(version %d)", why, self._version)
+        self._drop_shards()
+        self._optimizer = self._new_optimizer()
+        self._layout = (1, 0, _nonce())
+        self._shard_finished = True
+
+    def _settle_alone(self):
+        """Alone with the shards of a world of 2+: the other shards went
+        with that world, so the moments restart."""
+        self._restart_moments(
+            "alone with 1 of the %d shards of the optimizer state"
+            % self._layout[0])
+
+    def _shard_state(self):
+        """This rank's shards of its layout, ``{optax name: tensor}``."""
+        return _opt_state_to_jax(self._shard_opt, self._named_shards(),
+                                 _identity)
+
+    def _gather_layout(self, group, zero, holders, mine, counter):
+        """The whole optimizer state of layout ``zero``, put back together
+        on every rank of ``group`` by one all-gather: rank ``holders[r]``
+        gives shard r (``mine``, this rank's shards, or None for a rank
+        that holds none).  Returns ``{optax name: tensor}`` in original
+        shapes (counts as int32 arrays, scalars from shard 0); the bytes
+        received go to the timing counter ``counter``."""
+        n = torch.distributed.get_world_size(group)
+        sends = []
+        for name, spec, dtype in zip(zero.state_names, zero.state_specs,
+                                     zero.state_dtypes):
+            count = not isinstance(dtype, torch.dtype)
+            if mine is None:
+                k = zero.shard_len(spec) or 1
+                sends.append(torch.zeros(
+                    k, dtype=torch.int64 if count else dtype,
+                    device=self._device))
+            elif count:
+                sends.append(torch.tensor(
+                    [int(np.asarray(mine[name]))], dtype=torch.int64,
+                    device=self._device))
+            else:
+                sends.append(mine[name].reshape(-1))
+        outs = [t.new_empty(n * t.numel()) for t in sends]
+        transport.all_gather_flat_(outs, sends, group)
+        self.timing.bump(counter, sum(t.numel() * t.element_size()
+                                      for t in outs))
+        shards = [{} for _ in holders]
+        for name, spec, dtype, out in zip(zero.state_names, zero.state_specs,
+                                          zero.state_dtypes, outs):
+            rows = out.view(n, -1)
+            for r, h in enumerate(holders):
+                if not isinstance(dtype, torch.dtype):
+                    shards[r][name] = np.asarray(int(rows[h][0]), np.int32)
+                elif spec.padded:
+                    shards[r][name] = rows[h]
+                else:
+                    shards[r][name] = rows[h].reshape(())
+        return zero.assemble_state(shards)
+
+    def _exchange_shards(self):
+        """The ZeRO-1 half of a re-form, over the NEW world's group (its
+        members reach it together, having just formed it).  Each member
+        gives a descriptor of the state it holds: the layout it was cut
+        for (world size, rank, id), its version, and whether its last
+        shard step finished (one that failed before its parameters were
+        gathered leaves the shard a step ahead of them).  If the finished
+        shards at rank 0's version cover every shard of rank 0's layout,
+        the whole state is put back together from them into
+        ``_optimizer``, bit for bit (the contract of JAX
+        ``ZeroPartitioner.repartition``); otherwise the moments restart.
+        Returns the new layout's id (rank 0's draw)."""
+        group = self._mesh.group()
+        n = self.process_count
+        world, rank, layout_id = self._layout
+        mine = torch.tensor([world, rank, layout_id, self._version,
+                             int(self._shard_finished), _nonce()],
+                            dtype=torch.int64)
+        rows = torch.empty(n * mine.numel(), dtype=torch.int64)
+        transport.all_gather_flat_([rows], [mine], group)
+        rows = rows.view(n, -1).tolist()
+        holders = _holders(rows)
+        if holders is None:
+            self._restart_moments(
+                "the shards of the optimizer state at rank 0's version are "
+                "not all in this world of %d" % n)
+            return rows[0][5]
+        if rows[0][0] == 1:
+            # Rank 0 holds the state whole: its broadcast carries it.
+            if self._rank:
+                self._drop_shards()
+            self.timing.bump("zero1_repartitions")
+            return rows[0][5]
+        old = self._partitioner(rows[0][0])
+        whole = self._gather_layout(
+            group, old, holders,
+            self._shard_state() if self._rank in holders else None,
+            "zero1_reshard_bytes")
+        self._drop_shards()
+        self._optimizer = self._new_optimizer()
+        _opt_state_from_jax(self._optimizer, self._named_params(), whole,
+                            _identity)
+        self.timing.bump("zero1_repartitions")
+        return rows[0][5]
+
+    def _whole_state(self):
+        """``{optax name: tensor}``, the whole optimizer state in the
+        parameters' torch layouts; under ZeRO-1 in a world, an all-gather
+        every rank of the world must enter at the same step."""
+        group = self._group()
+        if self._zero is None:
+            return _opt_state_to_jax(self._optimizer, self._named_params(),
+                                     _identity)
+        if group is None:
+            self._settle_alone()
+            return self._whole_state()
+        return self._gather_layout(group, self._zero,
+                                   list(range(self.process_count)),
+                                   self._shard_state(),
+                                   "zero1_checkpoint_gather_bytes")
+
+    def _zero1_update(self, group):
+        """The weight update of a ZeRO-1 rank: the gradients (already
+        summed over the world, as the replicated path's) sliced to this
+        rank's shards, the shard optimizer's step, then the shards
+        all-gathered into the parameters, unpadded.  All-reduce then
+        slice, not a reduce-scatter: the sum lands where the replicated
+        path's does, so the gradients are bit-equal to it at any world
+        size (the JAX design's pin 1)."""
+        zero = self._zero
+        params = [p for _, p in self._opt_params()]
+        for p, s, spec in zip(params, self._shards, zero.param_specs):
+            g = p.grad if p.grad is not None else torch.zeros_like(p)
+            s.grad = zero.cut(g, spec)
+        self._shard_finished = False
+        self._shard_opt.step()
+        sharded = [(p, s, spec) for p, s, spec in
+                   zip(params, self._shards, zero.param_specs) if spec.padded]
+        fulls = [s.new_empty(spec.padded) for _, s, spec in sharded]
+        transport.all_gather_flat_(fulls, [s for _, s, _ in sharded], group)
+        with torch.no_grad():
+            for (p, _, spec), full in zip(sharded, fulls):
+                p.copy_(zero.unflatten_leaf(full, spec))
+            for p, s, spec in zip(params, self._shards, zero.param_specs):
+                if not spec.padded:
+                    p.copy_(s)
+        self._shard_finished = True
+        flat_bytes = zero.flat_param_bytes()
+        self.timing.bump("zero1_reduce_scatter_bytes", flat_bytes)
+        self.timing.bump("zero1_all_gather_bytes", flat_bytes)
 
     @property
     def global_device_count(self):
@@ -420,6 +715,8 @@ class CollectiveTrainer(Trainer):
         self._optimizer.zero_grad(set_to_none=True)
         accum = self._accum_steps
         group = self._group()
+        if group is None and self._zero is not None:
+            self._settle_alone()
         if group is not None:
             loss = self._world_step_grads(features, labels, weights, group)
         elif accum == 1:
@@ -435,7 +732,10 @@ class CollectiveTrainer(Trainer):
                 if p.grad is not None:
                     p.grad.div_(accum)
             loss = loss / accum
-        self._optimizer.step()
+        if self._zero is not None:
+            self._zero1_update(group)
+        else:
+            self._optimizer.step()
         return loss
 
     # -- Trainer API --------------------------------------------------------
@@ -490,7 +790,8 @@ class CollectiveTrainer(Trainer):
                 self._report_version_steps
                 - self._version % self._report_version_steps
             )
-        if self._checkpoint_saver is not None and self._checkpoint_steps:
+        if (self._checkpoint_saver is not None and self._checkpoint_steps
+                and self._checkpoint_writer):
             dists.append(
                 self._checkpoint_steps
                 - self._version % self._checkpoint_steps
@@ -576,7 +877,13 @@ class CollectiveTrainer(Trainer):
             and self._checkpoint_steps
             and self._version % self._checkpoint_steps == 0
         ):
-            self.save_checkpoint()
+            # Every rank of a ZeRO-1 world is here at the same version,
+            # so each joins the gather; only the writer writes.
+            sharded = self._zero is not None and self._group() is not None
+            if self._checkpoint_writer:
+                self._queue_checkpoint(self._whole_state())
+            elif sharded:
+                self._whole_state()
 
     def _forward(self, features):
         """Inference on this process's copy of the parameters: in a
@@ -619,7 +926,32 @@ class CollectiveTrainer(Trainer):
         JAX names) and start the optimizer afresh, as the JAX trainer
         re-inits its optimizer state."""
         self._module.load_state_dict(state_dict)
+        self._load_whole_state(None)
+
+    def _load_whole_state(self, opt_named, from_jax_layout=_identity):
+        """A fresh optimizer, loaded from ``opt_named``
+        (``_opt_state_to_jax``'s names; None: initial state) and, under
+        ZeRO-1 in a world, cut for it in its current layout (every rank
+        loads the same state, so the shards agree without a collective)."""
+        self._drop_shards()
         self._optimizer = self._new_optimizer()
+        try:
+            if opt_named:
+                _opt_state_from_jax(self._optimizer, self._named_params(),
+                                    opt_named, from_jax_layout)
+        except (KeyError, ValueError) as e:
+            # Optimizer changed since the checkpoint (e.g. Adam ->
+            # momentum): params are still good, trajectory is not.
+            logger.warning(
+                "checkpoint optimizer state incompatible (%s); "
+                "re-initializing optimizer", e,
+            )
+            self._optimizer = self._new_optimizer()
+        if self._zero1 and self.process_count > 1:
+            self._cut(self._layout[2])
+        else:
+            self._layout = (1, 0, self._layout[2])
+            self._shard_finished = True
 
     def export_parameters(self):
         """``{JAX name: ndarray}`` in the JAX layouts (host copies)."""
@@ -627,17 +959,38 @@ class CollectiveTrainer(Trainer):
 
     def save_checkpoint(self):
         """Params AND optimizer state (``opt/``-prefixed): a restore must
-        resume the momentum/Adam trajectory, not restart it.
+        resume the momentum/Adam trajectory, not restart it.  Under
+        ZeRO-1 the file holds the whole state in original shapes, so it
+        moves between ZeRO-1 on and off.
 
-        The device->host copy is synchronous (the next step updates the
-        parameters in place); the disk write runs on a single background
-        thread.  ``flush_checkpoints`` joins pending writes."""
+        Called from outside the step cadence (a graceful preemption), a
+        ZeRO-1 rank in a world of 2+ cannot gather its peers' shards:
+        they are not in step with it.  It writes the parameters alone,
+        and a restore restarts the moments, as a re-form without this
+        rank's shard does."""
+        if self._zero is not None and self._group() is not None:
+            logger.warning(
+                "zero1: a checkpoint outside the step cadence holds the "
+                "parameters only (the optimizer shards of the other ranks "
+                "are not gathered)")
+            self._queue_checkpoint(None)
+        else:
+            self._queue_checkpoint(self._whole_state())
+
+    def _queue_checkpoint(self, opt_whole):
+        """Write the parameters and ``opt_whole`` (``_whole_state``'s, or
+        None) at this version.  The device->host copy is synchronous (the
+        next step updates the parameters in place); the disk write runs
+        on a single background thread.  ``flush_checkpoints`` joins
+        pending writes."""
         with self.timing.timeit("checkpoint_save"):
             payload = dict(self.export_parameters())
-            opt_named = _opt_state_to_jax(self._optimizer,
-                                          self._named_params(),
-                                          self._spec.to_jax_layout)
-            payload.update({"opt/" + k: v for k, v in opt_named.items()})
+            if opt_whole is not None:
+                layout = self._spec.to_jax_layout
+                payload.update({
+                    "opt/" + k: (layout(v) if isinstance(v, torch.Tensor)
+                                 else v)
+                    for k, v in opt_whole.items()})
             if self._ckpt_executor is None:
                 self._ckpt_executor = concurrent.futures.ThreadPoolExecutor(
                     max_workers=1, thread_name_prefix="ckpt-write"
@@ -652,9 +1005,47 @@ class CollectiveTrainer(Trainer):
                     self._version)
 
     def zero1_report(self):
-        """Per-device optimizer-state accounting of ZeRO-1: None, as in
-        the JAX trainer without a mesh (ZeRO-1 is ROADMAP A6)."""
-        return None
+        """Per-device optimizer-state accounting (the JAX report's keys
+        and numbers for the same model, optimizer and world size): mode
+        ``zero1`` or ``replicated`` in a world of 2+ ranks, None alone."""
+        if self.process_count <= 1:
+            return None
+        if self._zero is None:
+            total = self._partitioner(self.process_count).state_bytes()[0]
+            return {
+                "mode": "replicated",
+                "num_shards": self.process_count,
+                "per_device_bytes": int(total),
+                "replicated_equiv_bytes": int(total),
+                "reduction_factor": 1.0,
+                "padding_bytes": 0,
+                "scalar_leaves_replicated": 0,
+            }
+        replicated, sharded, padding = self._zero.state_bytes()
+        return {
+            "mode": "zero1",
+            "num_shards": self._zero.num_shards,
+            "per_device_bytes": int(sharded),
+            "replicated_equiv_bytes": int(replicated),
+            "reduction_factor": replicated / max(1, sharded),
+            "padding_bytes": int(padding),
+            "scalar_leaves_replicated": sum(
+                1 for s in self._zero.state_specs if s.padded == 0),
+        }
+
+    def _log_zero1_placement(self):
+        report = self.zero1_report()
+        logger.info(
+            "zero1: optimizer state sharded %d ways — %.3f MiB/device "
+            "(replicated would be %.3f MiB/device, %.1fx reduction; "
+            "%d padding bytes, %d scalar leaves replicated)",
+            report["num_shards"],
+            report["per_device_bytes"] / 2**20,
+            report["replicated_equiv_bytes"] / 2**20,
+            report["reduction_factor"],
+            report["padding_bytes"],
+            report["scalar_leaves_replicated"],
+        )
 
     def close(self):
         """Join pending checkpoint writes (the worker calls this when
@@ -699,19 +1090,9 @@ class CollectiveTrainer(Trainer):
             k[len("opt/"):]: v for k, v in dense.items()
             if k.startswith("opt/")
         }
-        self.set_params(self._spec.params_from_jax(params_named))
-        if opt_named:
-            try:
-                _opt_state_from_jax(self._optimizer, self._named_params(),
-                                    opt_named, self._spec.from_jax_layout)
-            except (KeyError, ValueError) as e:
-                # Optimizer changed since the checkpoint (e.g. Adam ->
-                # momentum): params are still good, trajectory is not.
-                logger.warning(
-                    "checkpoint optimizer state incompatible (%s); "
-                    "re-initializing optimizer", e,
-                )
-                self._optimizer = self._new_optimizer()
+        self._module.load_state_dict(
+            self._spec.params_from_jax(params_named))
+        self._load_whole_state(opt_named, self._spec.from_jax_layout)
         self._version = version
         logger.info("restored checkpoint version %d", version)
         return True

@@ -12,8 +12,10 @@ the card computes in float32.  The port runs the ``local`` strategy
 and the ``collective`` one: there the worker joins the master's
 rendezvous, and the elastic controller (``api/controller.py``) re-forms
 its ``torch.distributed`` world and data mesh at every epoch
-(``parallel/distributed.py``), gloo on the same card for every rank.
-The PS trainer (ROADMAP A8), ZeRO-1 (A6), continuous export (A11),
+(``parallel/distributed.py``), gloo on the same card for every rank;
+``--zero1 true`` shards the optimizer state over that world (the
+trainer's ZeRO-1; under ``local`` it trains alone, unsharded, as the JAX
+worker does).  The PS trainer (ROADMAP A8), continuous export (A11),
 device traces (A15) and predict jobs (A21) raise
 ``NotImplementedError`` naming their item (``utils.args.check_ported``).
 At exit the worker logs its kernel launches (``kernel launches: {...}``)
@@ -61,18 +63,13 @@ def resolve_worker_id(args):
 def _build_collective_trainer(args, mc, spec, worker_id, device):
     """The ONE CollectiveTrainer construction path of the worker: the
     checkpoint rules (every worker restores, only worker 0 writes), bf16
-    compute and the version-report cadence come from the launch args."""
+    compute, ZeRO-1 and the version-report cadence come from the launch
+    args."""
     saver = None
-    checkpoint_steps = args.checkpoint_steps
     if args.checkpoint_dir:
         saver = CheckpointSaver(
             args.checkpoint_dir, keep_max=args.keep_checkpoint_max
         )
-        if worker_id != 0:
-            # Every worker may restore, but only worker 0 writes (the
-            # collective path replicates params, so any single copy is
-            # the model).
-            checkpoint_steps = 0
     trainer = CollectiveTrainer(
         spec,
         batch_size=args.batch_size,
@@ -80,10 +77,15 @@ def _build_collective_trainer(args, mc, spec, worker_id, device):
         report_version_steps=max(1, args.evaluation_steps // 4)
         if args.evaluation_steps else 0,
         checkpoint_saver=saver,
-        checkpoint_steps=checkpoint_steps,
+        checkpoint_steps=args.checkpoint_steps,
+        # Every worker may restore, but only worker 0 writes (the
+        # parameters are replicated, so any single copy is the model);
+        # under ZeRO-1 every rank still joins the cadence's gather.
+        checkpoint_writer=worker_id == 0,
         use_bf16_compute=args.use_bf16,
         rng_seed=args.seed,
         device=device,
+        zero1=args.zero1,
     )
     if saver is not None:
         trainer.init_from_checkpoint()
@@ -108,6 +110,18 @@ def build_worker(args):
     )
     trainer = _build_collective_trainer(args, mc, spec, worker_id, device)
     logger.info("worker %d training on %s", worker_id, device)
+    mem = trainer.zero1_report()
+    if mem is not None:
+        # What one rank holds in optimizer state under the chosen
+        # placement (the trainer starts alone, so this shows only for a
+        # trainer built over a world; rebuild() logs the ZeRO-1
+        # placement at every re-form).
+        logger.info(
+            "optimizer state per device: %d bytes (%s, %d devices; "
+            "replicated equivalent %d bytes, %.1fx)",
+            mem["per_device_bytes"], mem["mode"], mem["num_shards"],
+            mem["replicated_equiv_bytes"], mem["reduction_factor"],
+        )
     collective = args.distribution_strategy == "collective"
     elastic = None
     if collective:

@@ -5,11 +5,12 @@ tests/test_master_recovery.py that need no outage injection
 (``test_rendezvous_epoch_monotonic_across_restart``,
 ``test_controller_reannounces_at_unchanged_restart_epoch``).
 
-Ten of test_elastic_controller.py's eleven tests are here, each under its
-reference name.  ``test_zero1_snapshot_falls_back_to_fresh_moments``
-waits for ZeRO-1 (ROADMAP A6): the port's trainer keeps its optimizer
-state on the card across a re-formed world, so there is no host snapshot
-that could lose ZeRO-1 shards yet.
+All eleven of test_elastic_controller.py's tests are here, each under
+its reference name.  ``test_zero1_snapshot_falls_back_to_fresh_moments``
+is the port's form of its contract: the port's trainer keeps its state on
+the card across a re-formed world and gathers nothing before it, so the
+shards are lost when the new world lacks one, and the moments then
+restart from the parameters.
 
 The master is the port's in-process one (``master/master.py``, real gRPC
 on a localhost port) with the port's ``RendezvousServer``; everything is
@@ -213,6 +214,51 @@ def test_leave_and_rejoin_world(master):
         rebuilds_after_rejoin = len(trainer.rebuilds)
         controller.step_check()  # must NOT re-init the same epoch
         assert len(trainer.rebuilds) == rebuilds_after_rejoin
+
+
+def test_zero1_snapshot_falls_back_to_fresh_moments(master):
+    """Parameters must survive a world change; ZeRO-1 optimizer shards
+    lost with a dead peer are re-initialized from the parameters (the
+    information loss a Horovod restart accepts when it reloads a
+    checkpoint without slots).  The trainer holds rank 0's shards of a
+    world of 2, as that world's ``rebuild`` cut them; the controller's
+    re-form into the master's world of 1 (``snapshot_to_host``, then
+    ``rebuild``) finds the other shard gone."""
+    import numpy as np
+    import torch
+
+    from elasticdl_tpu_torch.models import mnist
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer,
+    )
+
+    trainer = CollectiveTrainer(mnist.model_spec(), batch_size=4,
+                                device="cpu", zero1=True)
+    xs, ys = mnist.synthetic_data(n=4)
+    trainer.train_minibatch(xs, ys)  # moments become non-zero
+    trainer._world_size, trainer._rank = 2, 0
+    trainer._cut(layout_id=1)
+    trainer._world_size = 1
+    params = trainer.export_parameters()
+    shards = trainer._shard_state()
+    assert trainer._zero.num_shards == 2
+    assert any(torch.any(v != 0) for v in shards.values()
+               if isinstance(v, torch.Tensor))
+
+    controller = ElasticCollectiveController(
+        create_master_client(master), trainer, check_secs=0.0,
+        mesh_builder=lambda rank, world, coord: None)
+    with controller.scope():
+        time.sleep(0.15)  # rendezvous grace
+        assert controller.init_world_if_needed(force=True)
+    assert controller.world_size == 1
+    after = trainer.export_parameters()
+    assert all(np.array_equal(params[k], after[k]) for k in params)
+    state = trainer._whole_state()
+    big = [v for v in state.values() if isinstance(v, torch.Tensor)]
+    assert big and all(not torch.any(v) for v in big)
+    assert trainer.timing.counters()["zero1_moment_resets"] == 1
+    assert trainer._zero is None and trainer.version == 1
 
 
 def test_coordinator_factory_failure_defers_commit():

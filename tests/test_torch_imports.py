@@ -57,7 +57,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "worker.task_data_service", "worker.worker",
                  "worker.main", "worker.fused_driver",
                  # the managed elastic-collective path
-                 "api.controller", "parallel.distributed"):
+                 "api.controller", "parallel.distributed",
+                 # ZeRO-1 weight-update sharding
+                 "worker.zero"):
         assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 

@@ -350,7 +350,8 @@ def test_prepare_batch_touches_no_device(monkeypatch):
 @pytest.mark.parametrize("kwargs,item", [
     # A mesh of dp alone is ported; other axes under the trainer are A4b.
     ({"mesh": SimpleNamespace(shape={"dp": 1, "sp": 2})}, "A4b"),
-    ({"zero1": True}, "A6"),
+    # Continuous export asked for by its cadence alone.
+    ({"export_steps": 4}, "A11"),
     ({"exporter": object(), "export_steps": 4}, "A11")])
 def test_unported_trainer_options_name_their_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):

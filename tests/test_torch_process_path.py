@@ -187,8 +187,10 @@ def test_unknown_model_exits_1_fast(job_env):
 
 
 @pytest.mark.parametrize("flags,item", [
-    # The collective strategy is ported; ZeRO-1 on it is not.
-    (["--distribution_strategy", "collective", "--zero1", "true"], "A6"),
+    # The collective strategy is ported (ZeRO-1 on it too); continuous
+    # export on it is not.
+    (["--distribution_strategy", "collective", "--export_base", "/tmp/e",
+      "--export_steps", "4"], "A11"),
     (["--distribution_strategy", "ps"], "A8"),
     (["--worker_backend", "k8s"], "A19"),
     (["--jobs_spec", "[]"], "A20"),
@@ -196,7 +198,7 @@ def test_unknown_model_exits_1_fast(job_env):
     (["--job_type", "evaluate"], "A21"),
     (["--status_port", "0"], "A15"),
     (["--profile_dir", "/tmp/p"], "A15"),
-    (["--zero1", "true"], "A6"),
+    (["--profile_dir", "/tmp/p", "--zero1", "true"], "A15"),
     (["--export_base", "/tmp/e", "--export_steps", "4"], "A11"),
 ])
 def test_unported_flag_values_name_their_item(flags, item):
@@ -238,6 +240,25 @@ def test_managed_collective_two_workers_form_world(job_env):
     assert "collective world joined: rank 0 / 2" in log
     assert "collective world joined: rank 1 / 2" in log
     assert log.count("adopted rank 0's parameters") >= 2
+
+
+def test_collective_zero1_two_workers_checkpoint(job_env, tmp_path):
+    """``--zero1 true`` on the collective strategy: two workers shard the
+    optimizer state over their world of 2 (the placement line), both join
+    the checkpoint cadence's gather while worker 0 alone writes, and the
+    job ends exit 0 with no failed task."""
+    ckpt = tmp_path / "ckpt"
+    job = Job(["--data_origin", "synthetic_mnist:8192", "--num_workers", "2",
+               "--zero1", "true", "--checkpoint_dir", str(ckpt),
+               "--checkpoint_steps", "16"] + COLLECTIVE_ARGS, *job_env)
+    rc = job.finish(timeout=240)
+    log = job.log
+    assert rc == 0, log
+    assert re.search(r"job finished: .*'failed': \{0: 0", log), log
+    for w in (0, 1):
+        assert re.search(r"\[worker-%d\] .*zero1: optimizer state sharded 2 "
+                         r"ways" % w, log), log
+    assert any(name.startswith("version-") for name in os.listdir(ckpt))
 
 
 def test_collective_kill_9_shrinks_and_grows_back(job_env):
