@@ -197,7 +197,23 @@ Phases, in order; any failure exits non-zero:
     CLI job with ``--zero1 true`` and a kill -9: the ZeRO-1 placement
     logged at a world of 2, the survivor's moment restart at the shrink,
     exit 0 with no failed task;
-20. one JSON line of kernels, then the card's name and power limit, then
+20. the collective LM: the flagship LM at full width and depth (bf16,
+    AdamW, remat) trained by two ranks spawned on the card at batch 4
+    each, the world formed as phase 18's: step-1 loss and gradients in
+    float32 at batch 1 a rank and in bf16 at 4 a rank against phase 11's
+    single process at the global batch (each leaf within its limit of
+    the dense f32 softmax path's), B3/B4/B5 48/24/24 launches a step a
+    rank, ms a step, the all-reduce's ms, tokens/s and peak memory a
+    rank; the world re-formed 2 -> 1 -> 2 in place (parameters and AdamW
+    moments kept bit for bit, a joiner with other weights adopting rank
+    0's); then zero1=False and zero1=True, CLM_ZERO_STEPS steps each
+    (the zero1=False leg reproduces the bf16 leg's steps, and ZeRO-1
+    equals both bit for bit: losses, parameters, the whole AdamW state),
+    the AdamW state a rank, ms a step both ways and the parameter
+    all-gather's ms; then the port's wrap-your-own-loop example
+    (``models/mnist_torch.py``: an ElasticDataset, 16 batches of 32, a
+    port master in this process) on the card;
+21. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
@@ -230,7 +246,8 @@ Tolerances (|got - ref| <= atol + rtol * |ref|):
  - sequence parallelism: PARTIAL_TOL, SP2_ATTENTION's comment,
    ``sp1_reference`` and SP_LOSS_RTOL below;
  - the collective path: COLL_FLOOR_X, COLL_GRAD_MIN and COLL_LOSS_RTOL
-   below.
+   below; the collective LM: ``sp1_reference``'s limits and
+   CLM_LOSS_RTOL below.
 """
 
 import argparse
@@ -3793,29 +3810,41 @@ def collective_phase(torch):
 ZERO_STEPS = COLL_TIMED_STEPS + 1      # a first step, then the timed ones
 
 
-def _arrays_digest(named):
-    """sha256 over ``{name: array}`` in name order."""
-    import hashlib
+def _fingerprint(torch, tensors):
+    """Each tensor's bits, summed on its device into two position-weighted
+    sums modulo 2**64: two tensors that differ in one element never share
+    them, and in several almost never."""
+    mod, sums = 2 ** 64, []
+    for t in tensors:
+        flat = t.detach().contiguous().reshape(-1)
+        bits = flat.view({1: torch.uint8, 2: torch.int16, 4: torch.int32,
+                          8: torch.int64}[flat.element_size()])
+        s1 = s2 = 0
+        for lo in range(0, bits.numel(), 1 << 24):
+            b = bits[lo:lo + (1 << 24)].to(torch.int64)
+            i = torch.arange(lo, lo + b.numel(), device=b.device,
+                             dtype=torch.int64)
+            s1 = (s1 + int((b * (2 * i + 1)).sum())) % mod
+            s2 = (s2 + int((b * (i * 6364136223846793005 + 1442695040888963407
+                                 | 1)).sum())) % mod
+        sums.append((s1, s2))
+    return sums
 
-    h = hashlib.sha256()
-    for k in sorted(named):
-        h.update(k.encode())
-        h.update(np.ascontiguousarray(named[k]).tobytes())
-    return h.hexdigest()
 
-
-def _zero1_state(torch, trainer):
-    """(digest of the parameters and buffers, digest of the whole
-    optimizer state, its largest |slot|); the state is gathered from the
-    ranks' shards under ZeRO-1, so every member of the world calls it."""
-    state = {k: (v.detach().cpu().numpy() if isinstance(v, torch.Tensor)
-                 else np.asarray(v))
-             for k, v in trainer._whole_state().items()}
-    params = {k: v.detach().cpu().numpy()
-              for k, v in trainer.module.state_dict().items()}
-    biggest = max(float(np.abs(v).max()) for v in state.values()
-                  if v.ndim)
-    return _arrays_digest(params), _arrays_digest(state), biggest
+def _state_print(torch, trainer):
+    """(fingerprint of the parameters and buffers, fingerprint of the
+    whole optimizer state with its counts, its largest |slot|), compared
+    with ``==``; the state is gathered from the ranks' shards under
+    ZeRO-1, so every member of the world calls it."""
+    state = trainer._whole_state()
+    names = sorted(state)
+    slots = [state[k] for k in names if isinstance(state[k], torch.Tensor)]
+    counts = [(k, int(np.asarray(state[k]))) for k in names
+              if not isinstance(state[k], torch.Tensor)]
+    params = trainer.module.state_dict()
+    biggest = max(float(t.abs().max()) for t in slots if t.ndim)
+    return (_fingerprint(torch, [params[k] for k in sorted(params)]),
+            (_fingerprint(torch, slots), counts), biggest)
 
 
 def zero_rank(role, epochs, named):
@@ -3902,7 +3931,7 @@ def zero_rank(role, epochs, named):
         first, _ = steps(t, data[:1])
         rest, ms = steps(t, data[1:ZERO_STEPS])
         timed["on"] = False
-        return first + rest, ms, _zero1_state(torch, t)
+        return first + rest, ms, _state_print(torch, t)
 
     out = {}
     z = trainer(True)
@@ -3925,18 +3954,18 @@ def zero_rank(role, epochs, named):
         torch.cuda.empty_cache()
     # 2 -> 3: the joiner brings no shard; the old two bring both.
     out["grow_s"] = reform(z, rank, 3, epochs[1])
-    out["state_3"] = _zero1_state(torch, z)
+    out["state_3"] = _state_print(torch, z)
     out["counters_3"] = counters(z)
     out["report_3"] = z.zero1_report()
     out["loss_3"] = steps(z, data[ZERO_STEPS:ZERO_STEPS + 1])[0][0]
-    out["stepped_3"] = _zero1_state(torch, z)
+    out["stepped_3"] = _state_print(torch, z)
     # 3 -> 2: rank 1 leaves with its shard.
     if rank == 1:
         z.snapshot_to_host()
         tdist.reset_single_process()
         return out
     out["shrink_s"] = reform(z, {0: 0, 2: 1}[rank], 2, epochs[2])
-    out["state_2"] = _zero1_state(torch, z)
+    out["state_2"] = _state_print(torch, z)
     out["counters_2"] = counters(z)
     out["loss_2"] = steps(z, data[ZERO_STEPS + 1:])[0][0]
     tdist.reset_single_process()
@@ -4056,6 +4085,430 @@ def zero1_phase(torch):
             "cli": collective_cli_leg(torch, zero1=True)}
 
 
+# The collective LM (phase 20).  Leg 1: the flagship LM at full width and
+# depth (LM_PARAMS, remat) trained by two ranks spawned on the card, each a
+# CollectiveTrainer at half the global batch over a data mesh, the world
+# formed as phase 18's (MasterCoordinationService and
+# initialize_from_rendezvous on gloo, host-staged transfers): step-1 loss
+# and gradients in float32 (TF32 off) at CLM_GRAD_BATCH a rank and in bf16
+# at CLM_BATCH a rank against the single process's at the global batch
+# (phase 11's references, ``sp1_reference``: each leaf within its limit of
+# the dense f32 softmax path's gradients, the loss within CLM_LOSS_RTOL of
+# the kernel path's), B3/B4/B5 48/24/24 launches a step a rank,
+# CLM_ZERO_STEPS timed steps; then 2 -> 1 -> 2 in place, a third process
+# joining with other weights (rank 0 broadcasts the parameters and the
+# AdamW moments, 5.2 GB, through the host); then, in the world of rank 0
+# and the joiner, CLM_ZERO_STEPS steps with zero1=False and the same with
+# zero1=True, each from seed 0 (the zero1=False leg against the bf16
+# leg's steps, in another world of other processes, shows whether a step
+# reproduces bit for bit on the card).  States are compared by
+# ``_state_print`` on the card.  The ranks' groups wait
+# CLM_RANKS_TIMEOUT_S for a peer (the joiner waits for rank 0's first
+# legs).  Leg 2: the port's wrap-your-own-loop example
+# (models/mnist_torch.py) on the card against a port master in this
+# process.  The LoRA CLI job with a kill -9 is not driven here (ROADMAP
+# A4c): the script's time limit holds no fourth CLI job.
+CLM_BATCH = LM_TRAIN_BATCH // 2
+CLM_GRAD_BATCH = LM_GRAD_BATCH // 2
+# Steps a leg, each timed: the second reads the moments of the first.
+CLM_ZERO_STEPS = 2
+CLM_RANKS_TIMEOUT_S = 900
+# The ranks' step-1 loss against the single process's at the global batch:
+# the same sequences through the same kernels, the matmuls' rows split in
+# two.  SP_LOSS_RTOL bounds the same kind of gap (one loss computed along
+# two paths of bf16 rounding on the same parameters).
+CLM_LOSS_RTOL = SP_LOSS_RTOL
+LM_LAYERS = int(re.search(r"num_layers=(\d+)", LM_PARAMS).group(1))
+MNIST_TORCH_RECORDS = 512
+MNIST_TORCH_BATCH = 32
+
+
+def clm_rank(role, epochs, legs):
+    """One process of phase 20's leg 1: ``role`` "rank0" (rank 0 of the
+    worlds 2, 1, 2), "rank1" (rank 1 of the first) or "joiner" (rank 1 of
+    the last, its own init from another seed).  ``legs``: the f32 and
+    bf16 references (tokens, model params, rank 0's gradients file and
+    limits).  Returns its readings."""
+    import datetime
+
+    import torch
+
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.ops import flash_attention as fa
+    from elasticdl_tpu_torch.parallel import distributed as tdist
+    from elasticdl_tpu_torch.parallel import transport
+    from elasticdl_tpu_torch.parallel.mesh import data_mesh
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    use_float32_numerics()
+    build = tdist.data_mesh_builder(DEVICE, CLM_RANKS_TIMEOUT_S)
+    rank = 0 if role == "rank0" else 1
+    times = {"reduce": [], "gather": []}
+    real = {"reduce": transport.all_reduce_grads_,
+            "gather": transport.all_gather_flat_}
+
+    def timing(kind):
+        def wrapped(*args):
+            # A step's host-staged collective, synchronised on both ends.
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            real[kind](*args)
+            torch.cuda.synchronize()
+            times[kind].append(time.perf_counter() - t0)
+        return wrapped
+
+    transport.all_reduce_grads_ = timing("reduce")
+    transport.all_gather_flat_ = timing("gather")
+    specs = {k: load_model_spec("transformer", leg["params"])
+             for k, leg in legs.items()}
+
+    def rows(name, batch):
+        toks = legs[name]["tokens"][rank * batch:(rank + 1) * batch]
+        return toks, toks
+
+    def step(trainer, batch):
+        return float(trainer.train_minibatch(*batch)[0])
+
+    def timed_steps(trainer, n):
+        """n steps on this rank's bf16 rows: (losses, ms of each)."""
+        losses, ms = [], []
+        for _ in range(n):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            losses.append(step(trainer, rows("bf16", CLM_BATCH)))
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return losses, ms
+
+    def fingerprint(trainer):
+        return _state_print(torch, trainer) + (trainer.version,)
+
+    def mesh():
+        return data_mesh(backend=tdist.BACKEND, device=DEVICE,
+                         timeout=datetime.timedelta(
+                             seconds=CLM_RANKS_TIMEOUT_S))
+
+    def reform(trainer, world_rank, world, addr):
+        trainer.snapshot_to_host()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        trainer.rebuild(build(world_rank, world, addr))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0
+
+    def check_grads(name, trainer):
+        """Rank 0's step-1 gradients against the reference's: {leaf:
+        norm-relative error}."""
+        ref = torch.load(legs[name]["grads_path"])
+        errs = {}
+        for n, p in trainer.module.named_parameters():
+            if p.grad is None or not bool(p.grad.isfinite().all()):
+                raise RuntimeError("%s: the gradient of %s is missing or "
+                                   "not finite" % (name, n))
+            errs[n] = norm_rel(p.grad, ref[n].to(p.device))
+        return errs
+
+    out = {}
+    if role == "joiner":
+        trainer = CollectiveTrainer(specs["bf16"], batch_size=CLM_BATCH,
+                                    device=DEVICE, rng_seed=7)
+        out["own"] = fingerprint(trainer)
+        out["join_s"] = reform(trainer, 1, 2, epochs[2])
+        out["adopted"] = fingerprint(trainer)
+        out["loss_joint"] = step(trainer, rows("bf16", CLM_BATCH))
+        out["after"] = fingerprint(trainer)
+    else:
+        # f32 (TF32 off), one sequence a rank: step 1 and its launches.
+        trainer = CollectiveTrainer(specs["f32"], batch_size=CLM_GRAD_BATCH,
+                                    device=DEVICE)
+        out["form_s"] = reform(trainer, rank, 2, epochs[0])
+        zero_flash_counts(fa)
+        out["f32"] = {"loss": step(trainer, rows("f32", CLM_GRAD_BATCH))}
+        torch.cuda.synchronize()
+        out["f32"]["launches"] = flash_counts(fa)
+        if rank == 0:
+            out["f32"]["errs"] = check_grads("f32", trainer)
+        del trainer
+        torch.cuda.empty_cache()
+        # bf16, the main path: CLM_ZERO_STEPS timed steps, the launches of
+        # the first counted.
+        trainer = CollectiveTrainer(specs["bf16"], batch_size=CLM_BATCH,
+                                    device=DEVICE, mesh=mesh())
+        out["start"] = fingerprint(trainer)
+        torch.cuda.reset_peak_memory_stats()
+        times["reduce"].clear()
+        zero_flash_counts(fa)
+        losses, ms = timed_steps(trainer, 1)
+        out["bf16"] = {"loss": losses[0], "launches": flash_counts(fa)}
+        if rank == 0:
+            out["bf16"]["errs"] = check_grads("bf16", trainer)
+        more, more_ms = timed_steps(trainer, CLM_ZERO_STEPS - 1)
+        out["losses"], out["step_ms"] = losses + more, ms + more_ms
+        out["allreduce_ms"] = [s * 1e3 for s in times["reduce"]]
+        out["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        out["world2"] = fingerprint(trainer)
+        if role == "rank1":
+            trainer.snapshot_to_host()
+            tdist.reset_single_process()
+            return out
+        out["shrink_s"] = reform(trainer, 0, 1, epochs[1])
+        out["shrunk"] = fingerprint(trainer)
+        out["alone"] = (trainer.process_count, trainer.max_window)
+        _, (out["alone_step_ms"],) = timed_steps(trainer, 1)
+        out["before_join"] = fingerprint(trainer)
+        out["grow_s"] = reform(trainer, 0, 2, epochs[2])
+        out["grown"] = fingerprint(trainer)
+        out["loss_joint"] = step(trainer, rows("bf16", CLM_BATCH))
+        out["after"] = fingerprint(trainer)
+    del trainer
+    torch.cuda.empty_cache()
+
+    # ZeRO-1 off and on in the world of rank 0 and the joiner, each leg a
+    # fresh trainer from seed 0 over a mesh of its own.
+    def zero_leg(zero1):
+        trainer = CollectiveTrainer(specs["bf16"], batch_size=CLM_BATCH,
+                                    device=DEVICE, zero1=zero1, mesh=mesh())
+        times["gather"].clear()
+        losses, ms = timed_steps(trainer, CLM_ZERO_STEPS)
+        leg = {"losses": losses, "step_ms": ms,
+               "report": trainer.zero1_report(),
+               "all_gather_ms": [s * 1e3 for s in times["gather"]],
+               "state": fingerprint(trainer)}
+        del trainer
+        torch.cuda.empty_cache()
+        return leg
+
+    out["off"] = zero_leg(False)
+    out["on"] = zero_leg(True)
+    out["zero_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    tdist.reset_single_process()
+    return out
+
+
+def clm_ranks_leg(torch, lm_refs):
+    """Leg 1 of phase 20 (see CLM_BATCH)."""
+    from elasticdl_tpu_torch.parallel import distributed as tdist
+    from elasticdl_tpu_torch.parallel import launch
+
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        legs = {}
+        for name in ("f32", "bf16"):
+            ref = lm_refs[name]
+            path = os.path.join(tmp.name, name + ".pt")
+            torch.save(ref["grads"], path)
+            legs[name] = {"params": ref["params"], "tokens": ref["tokens"],
+                          "grads_path": path}
+        svcs = [tdist.MasterCoordinationService(
+            reap_secs=CLM_RANKS_TIMEOUT_S) for _ in range(3)]
+        epochs = [svc.start_epoch(n) for svc, n in zip(svcs, (2, 1, 2))]
+        roles = ("rank0", "rank1", "joiner")
+        t0 = time.perf_counter()
+        try:
+            r0, r1, joiner = launch.run(
+                [(clm_rank, (role, epochs, legs)) for role in roles],
+                timeout=CLM_RANKS_TIMEOUT_S)
+        except RuntimeError as e:
+            fail("collective LM, leg 1: %s" % e)
+        ranks_s = time.perf_counter() - t0
+    finally:
+        tmp.cleanup()
+    want = (2 * LM_LAYERS, LM_LAYERS, LM_LAYERS)
+    readings = {}
+    for name in ("f32", "bf16"):
+        ref, got = lm_refs[name], r0[name]
+        errs = got["errs"]
+        over = {n: (errs[n], ref["limit"][n]) for n in errs
+                if not errs[n] <= ref["limit"][n]}
+        if over:
+            fail("collective LM, leg 1, %s: 2-rank step-1 gradients past "
+                 "their limits (norm-relative error, limit): %s"
+                 % (name, dict(sorted(over.items())[:8])))
+        gap = abs(got["loss"] - ref["loss"]) / abs(ref["loss"])
+        if not gap <= CLM_LOSS_RTOL or got["loss"] != r1[name]["loss"]:
+            fail("collective LM, leg 1, %s: step-1 loss %r / %r against "
+                 "the single process's %r (limit %g relative)" % (
+                     name, got["loss"], r1[name]["loss"], ref["loss"],
+                     CLM_LOSS_RTOL))
+        for r in (r0, r1):
+            if tuple(r[name]["launches"]) != want:
+                fail("collective LM, leg 1, %s: a rank launched (B3, B4, "
+                     "B5) %s in step 1, want %s" % (
+                         name, r[name]["launches"], want))
+        worst = max(errs, key=lambda n: errs[n] / ref["limit"][n])
+        readings[name] = {"loss_ranks": got["loss"],
+                          "loss_single": ref["loss"], "loss_rel_gap": gap,
+                          "worst_leaf": worst,
+                          "err_over_limit_max": errs[worst]
+                          / ref["limit"][worst],
+                          "grad_rel_err_max": max(errs.values())}
+    on, off = r0["on"], r0["off"]
+    checks = {
+        "rank 1 adopted rank 0's state": r0["start"] == r1["start"],
+        "replicas equal after the steps": r0["world2"] == r1["world2"]
+        and r0["losses"] == r1["losses"],
+        "2 -> 1 kept parameters, moments and version bitwise": (
+            r0["shrunk"] == r0["world2"]),
+        "alone at world 1": tuple(r0["alone"]) == (1, None),
+        "1 -> 2 kept rank 0's state bitwise": (
+            r0["grown"] == r0["before_join"]),
+        "the joiner started elsewhere": joiner["own"] != r0["before_join"],
+        "the joiner adopted rank 0's parameters, moments and version": (
+            joiner["adopted"] == r0["before_join"]),
+        "one joint step, one loss": (
+            joiner["loss_joint"] == r0["loss_joint"]),
+        "replicas equal after it": joiner["after"] == r0["after"],
+        "a zero1=False leg reproduces the bf16 leg bit for bit": (
+            off["losses"] == r0["losses"] and off["state"] == r0["world2"]
+            == joiner["off"]["state"]),
+        "ZeRO-1 on = off bit for bit (losses, parameters, AdamW state)": (
+            on["losses"] == off["losses"] and on["state"] == off["state"]
+            == joiner["on"]["state"]),
+        "one world, one loss": on["losses"] == joiner["on"]["losses"],
+        "half the AdamW state a rank": on["report"]["mode"] == "zero1"
+        and off["report"]["mode"] == "replicated"
+        and 2 * on["report"]["per_device_bytes"]
+        <= 1.01 * off["report"]["per_device_bytes"],
+        "finite losses": all(map(math.isfinite, [
+            r0["loss_joint"]] + r0["losses"] + on["losses"])),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad:
+        fail("collective LM, leg 1: %s (losses of the bf16 leg %s, ZeRO-1 "
+             "on %s, off %s)" % (bad, r0["losses"], on["losses"],
+                                 off["losses"]))
+    ar = r0["allreduce_ms"]
+    ag = on["all_gather_ms"]
+    step_ms = float(np.mean(r0["step_ms"]))
+    tokens = 2 * CLM_BATCH * lm_refs["bf16"]["tokens"].shape[1]
+    out = {"batch_per_rank": CLM_BATCH, "f32": readings["f32"],
+           "bf16": readings["bf16"],
+           "launches_per_step": [r0["bf16"]["launches"],
+                                 r1["bf16"]["launches"]],
+           "losses": r0["losses"], "step_ms": r0["step_ms"],
+           "step_ms_rank1": r1["step_ms"], "step_ms_mean": step_ms,
+           "tokens_per_s": tokens / step_ms * 1e3,
+           "allreduce_ms": ar, "allreduce_ms_mean": float(np.mean(ar)),
+           "peak_gb": [r0["peak_gb"], r1["peak_gb"]],
+           "form_s": r0["form_s"], "shrink_s": r0["shrink_s"],
+           "alone_step_ms": r0["alone_step_ms"], "grow_s": r0["grow_s"],
+           "join_s": joiner["join_s"],
+           "zero1": {"losses": on["losses"], "step_ms_on": on["step_ms"],
+                     "step_ms_off": off["step_ms"],
+                     "step_ms_on_joiner": joiner["on"]["step_ms"],
+                     "all_gather_ms": ag,
+                     "all_gather_ms_mean": float(np.mean(ag)),
+                     "report_on": on["report"], "report_off": off["report"],
+                     "peak_gb": [r0["zero_peak_gb"],
+                                 joiner["zero_peak_gb"]]},
+           "ranks_s": ranks_s, "checks": sorted(checks)}
+    z = out["zero1"]
+
+    def each(ms):
+        return ", ".join("%.1f" % t for t in ms)
+
+    print("collective LM, leg 1 (the flagship, %d layers, 2 ranks on the "
+          "card, gloo through the host): step-1 loss f32 batch %d a rank "
+          "%.6f (single process at %d: %.6f, gap %.3g), bf16 batch %d a rank "
+          "%.6f (single process at %d: %.6f, gap %.3g; limit %g); gradients "
+          "within their limits (worst %.3g of its limit at %s in f32, %.3g "
+          "at %s in bf16); B3/B4/B5 launches in a step, rank 0 %s, rank 1 "
+          "%s; bf16 ms a step %s (rank 1 %s), %.0f tokens/s, the all-reduce "
+          "of %.1f MB %.1f ms a step (%s); peak %.1f / %.1f GB; world formed "
+          "in %.2f s, 2 -> 1 in %.2f s, a step alone %.1f ms, 1 -> 2 with a "
+          "joiner in %.2f s (joiner %.2f s)" % (
+              LM_LAYERS, CLM_GRAD_BATCH, readings["f32"]["loss_ranks"],
+              2 * CLM_GRAD_BATCH, readings["f32"]["loss_single"],
+              readings["f32"]["loss_rel_gap"], CLM_BATCH,
+              readings["bf16"]["loss_ranks"], 2 * CLM_BATCH,
+              readings["bf16"]["loss_single"],
+              readings["bf16"]["loss_rel_gap"], CLM_LOSS_RTOL,
+              readings["f32"]["err_over_limit_max"],
+              readings["f32"]["worst_leaf"],
+              readings["bf16"]["err_over_limit_max"],
+              readings["bf16"]["worst_leaf"], *out["launches_per_step"],
+              each(out["step_ms"]), each(out["step_ms_rank1"]),
+              out["tokens_per_s"],
+              sum(g.numel() for g in lm_refs["bf16"]["grads"].values())
+              * 4 / 1e6, out["allreduce_ms_mean"], each(ar),
+              *out["peak_gb"], out["form_s"], out["shrink_s"],
+              out["alone_step_ms"], out["grow_s"], out["join_s"]))
+    print("collective LM, ZeRO-1 (rank 0 and the joiner, bf16 batch %d a "
+          "rank, %d steps a leg): zero1=False equal to the bf16 leg of the "
+          "ranks above and zero1=True equal to both, bit for bit (losses "
+          "%s); AdamW state a rank %.1f MB zero1 (%d shards) vs %.1f MB "
+          "replicated; ms a step on %s (joiner %s) vs off %s, the parameter "
+          "all-gather %.1f ms a step (%s); peak %.1f / %.1f GB; %s" % (
+              CLM_BATCH, CLM_ZERO_STEPS, z["losses"],
+              z["report_on"]["per_device_bytes"] / 1e6,
+              z["report_on"]["num_shards"],
+              z["report_off"]["per_device_bytes"] / 1e6,
+              each(z["step_ms_on"]), each(z["step_ms_on_joiner"]),
+              each(z["step_ms_off"]), z["all_gather_ms_mean"], each(ag),
+              *z["peak_gb"], ", ".join(sorted(checks))))
+    return out
+
+
+def mnist_torch_leg(torch):
+    """Leg 2 of phase 20: the port's stock-loop example on the card,
+    against a port master (a rendezvous server, no gradient sync between
+    workers, as the JAX example) in this process."""
+    from elasticdl_tpu_torch.master.master import Master
+    from elasticdl_tpu_torch.master.rendezvous import RendezvousServer
+    from elasticdl_tpu_torch.master.task_manager import TaskManager
+    from elasticdl_tpu_torch.models import mnist_torch
+    from elasticdl_tpu_torch.utils import grpc_utils
+    from elasticdl_tpu_torch.worker.master_client import MasterClient
+
+    master = Master(TaskManager(
+        training_shards=[("mem", 0, MNIST_TORCH_RECORDS)],
+        records_per_task=64, num_epochs=1),
+        rendezvous_server=RendezvousServer(grace_secs=0.1))
+    master.prepare()
+    models = []
+    build = mnist_torch.build_torch_model
+
+    def keep(seed=0):
+        models.append(build(seed))
+        return models[-1]
+
+    mnist_torch.build_torch_model = keep
+    try:
+        channel = grpc_utils.build_channel("localhost:%d" % master.port)
+        grpc_utils.wait_for_channel_ready(channel)
+        mc = MasterClient(channel, worker_id=0)
+        t0 = time.perf_counter()
+        loss, batches = mnist_torch.train(
+            mc, n_records=MNIST_TORCH_RECORDS, batch_size=MNIST_TORCH_BATCH,
+            device=DEVICE)
+        loop_s = time.perf_counter() - t0
+        finished = master.task_manager.finished()
+    finally:
+        mnist_torch.build_torch_model = build
+        master.stop()
+    on_card = [p.device.type == "cuda" for m in models
+               for p in m.parameters()]
+    want = MNIST_TORCH_RECORDS // MNIST_TORCH_BATCH
+    if not (batches == want and math.isfinite(loss) and finished
+            and on_card and all(on_card)):
+        fail("collective LM, leg 2 (mnist_torch): %d batches (want %d), "
+             "loss %r, master finished %s, parameters on the card %s" % (
+                 batches, want, loss, finished, on_card))
+    print("collective LM, leg 2 (mnist_torch, the wrap-your-own-loop API): "
+          "%d batches of %d over %d records on %s in %.2f s, final loss "
+          "%.4f, the master's tasks finished, every parameter on the card"
+          % (batches, MNIST_TORCH_BATCH, MNIST_TORCH_RECORDS,
+             torch.cuda.get_device_name(0), loop_s, loss))
+    return {"batches": batches, "loss": loss, "loop_s": loop_s}
+
+
+def collective_lm_phase(torch, lm_refs):
+    return {"ranks": clm_ranks_leg(torch, lm_refs),
+            "mnist_torch": mnist_torch_leg(torch)}
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -4147,7 +4600,6 @@ def main():
         exports.cleanup()
     t0 = time.perf_counter()
     sp = sp_phase(torch, fa, lm_refs)
-    del lm_refs
     phase_s["sequence parallelism"] = time.perf_counter() - t0
     t0 = time.perf_counter()
     proc = process_phase(torch, fa)
@@ -4158,6 +4610,10 @@ def main():
     t0 = time.perf_counter()
     zero = zero1_phase(torch)
     phase_s["ZeRO-1 path"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    clm = collective_lm_phase(torch, lm_refs)
+    del lm_refs
+    phase_s["collective LM"] = time.perf_counter() - t0
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -4240,6 +4696,8 @@ def main():
                                 for k, v in remat.items()},
         "launches_process_path_step":
             proc["in_process"]["launches_per_step"][0],
+        "launches_collective_lm_step_per_rank": [
+            n[0] for n in clm["ranks"]["launches_per_step"]],
         "d128": {key: flash_timed["bfloat16 d128"][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }]
@@ -4259,6 +4717,8 @@ def main():
                                     for k, v in remat.items()},
             "launches_process_path_step":
                 proc["in_process"]["launches_per_step"][1 + i],
+            "launches_collective_lm_step_per_rank": [
+                n[1 + i] for n in clm["ranks"]["launches_per_step"]],
             "max_abs_err": flash_bwd_err["bfloat16"][0],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -4327,6 +4787,7 @@ def main():
                        "process_path": proc,
                        "collective_path": coll,
                        "zero1_path": zero,
+                       "collective_lm": clm,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -13,8 +13,9 @@ remainder (pytorch/controller.py:186-198).
 
 The managed worker (``worker/worker.py``) drives it per step
 (``step_check``, ``await_new_epoch``, ``leave_world``/``rejoin_world``);
-``elastic_run`` wraps a loop of the caller's own (its dataset half,
-``ElasticDataset``, is ROADMAP A4b).
+``elastic_run`` wraps a loop of the caller's own, whose records come
+from ``api/dataset.ElasticDataset`` (``models/mnist_torch.py`` is the
+worked example).
 """
 
 import functools

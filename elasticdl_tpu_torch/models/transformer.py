@@ -31,10 +31,12 @@ at RoPE positions offset by the rank's place along ``sp``, attention as
 ring attention (B3p; ``attention_impl="ring"``) or Ulysses (B3/B4/B5 on
 the gathered sequence; ``"ulysses"``) over the ``sp`` group.  Parameters
 are replicated; ``parallel/spmd_trainer.py`` reduces their gradients.
-Not ported yet: ``tp``/``pp``/``ep`` sharding, MoE under ``sp`` > 1 and
-``forward_pipelined`` (ROADMAP A18), and the zoo entry's mesh, which is
-the collective trainer's for an LM (A4b); each raises
-``NotImplementedError`` naming its ROADMAP item.
+Not ported yet: ``tp``/``pp``/``ep`` sharding, MoE under ``sp`` > 1,
+``forward_pipelined`` and the zoo entry's ``mesh`` argument, which
+shards the parameters and feeds the forward in the JAX package (ROADMAP
+A18); each raises ``NotImplementedError`` naming its ROADMAP item.  The
+collective trainer trains the LM over a world with no mesh in the spec
+(its gradients are all-reduced, ``worker/collective_trainer.py``).
 """
 
 import dataclasses
@@ -702,17 +704,20 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
     and ``moe_experts`` (> 0: top-``moe_top_k`` experts; training adds
     ``moe_aux_weight`` x the mean per-layer aux loss to the loss) as in
     the JAX entry; the optimizer is AdamW at ``learning_rate`` with weight
-    decay 0.01 (``optax.adamw``'s).  A mesh (the collective trainer's,
-    A4b) and pipelining (A18) raise ``NotImplementedError`` naming their
-    ROADMAP item.
+    decay 0.01 (``optax.adamw``'s).  A ``mesh`` (which in the JAX entry
+    shards the parameters and feeds the forward) and pipelining raise
+    ``NotImplementedError`` naming their ROADMAP item (A18).  The
+    collective strategy needs neither: its trainer takes the spec as it
+    is and all-reduces the gradients over the world.
     ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
     serves generation exports.
     """
     if mesh is not None:
         raise NotImplementedError(
-            "the zoo entry's mesh is the collective trainer's, not ported "
-            "for the LM yet (ROADMAP A4b); train over a mesh with "
-            "parallel.spmd_trainer.SPMDTrainer")
+            "the zoo entry's mesh (parameters sharded by it, the forward "
+            "over it) is not ported yet (ROADMAP A18); train over a dp/sp "
+            "mesh with parallel.spmd_trainer.SPMDTrainer, or over a "
+            "collective world with no mesh in the spec")
     if pipeline_microbatches:
         raise NotImplementedError(
             "pipelining is not ported yet (ROADMAP A18)")

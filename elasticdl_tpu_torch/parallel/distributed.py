@@ -38,7 +38,7 @@ a gloo group.  NCCL waits for a machine with a card per rank.
 Single-process worlds skip distributed init entirely, so the same code
 path runs in tests and single-worker jobs.  Not ported: the reference's
 bare ``host:port`` address (worker 0 hosting the service) and the
-``elastic_mesh_builder`` axes other than dp (ROADMAP A4b).
+``elastic_mesh_builder`` axes other than dp (ROADMAP A4c).
 """
 
 import datetime

@@ -107,7 +107,7 @@ every rank of the world (``checkpoint_writer`` says which one writes),
 and move between ZeRO-1 on, off and the JAX package.
 
 Left for later slices: the servable exporter (A11) and meshes with axes
-other than dp (A4b); the constructor's ``exporter`` accepts only its
+other than dp (A4c); the constructor's ``exporter`` accepts only its
 default and otherwise raises ``NotImplementedError`` naming the item, as
 does such a mesh.
 """
@@ -372,7 +372,7 @@ class CollectiveTrainer(Trainer):
                       if axis != "dp" and n > 1}
             if others:
                 raise not_ported(
-                    "a CollectiveTrainer over mesh axes %s" % others, "A4b")
+                    "a CollectiveTrainer over mesh axes %s" % others, "A4c")
         self._mesh = mesh
         # Read once: a world the controller has left is destroyed under
         # the mesh, which rebuild() replaces before the next step.

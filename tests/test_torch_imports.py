@@ -59,7 +59,9 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  # the managed elastic-collective path
                  "api.controller", "parallel.distributed",
                  # ZeRO-1 weight-update sharding
-                 "worker.zero"):
+                 "worker.zero",
+                 # the wrap-your-own-loop API
+                 "api.dataset", "models.mnist_torch"):
         assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 

@@ -348,8 +348,8 @@ def test_prepare_batch_touches_no_device(monkeypatch):
 
 
 @pytest.mark.parametrize("kwargs,item", [
-    # A mesh of dp alone is ported; other axes under the trainer are A4b.
-    ({"mesh": SimpleNamespace(shape={"dp": 1, "sp": 2})}, "A4b"),
+    # A mesh of dp alone is ported; other axes under the trainer are A4c.
+    ({"mesh": SimpleNamespace(shape={"dp": 1, "sp": 2})}, "A4c"),
     # Continuous export asked for by its cadence alone.
     ({"export_steps": 4}, "A11"),
     ({"exporter": object(), "export_steps": 4}, "A11")])

@@ -294,6 +294,37 @@ def test_collective_kill_9_shrinks_and_grows_back(job_env):
     assert re.search(r"job finished: .*'failed': \{0: 0", log), log
 
 
+@pytest.mark.parametrize("zero1", [False, True])
+def test_managed_collective_lora_finetune(job_env, zero1):
+    """The port of tests/test_worker_e2e.py's managed collective LoRA job,
+    with its flags: the LoRA zoo entry (a frozen base, two AdamW groups)
+    under a 2-worker collective world completes with no failed task;
+    with ``--zero1 true`` both workers shard the adapters' optimizer
+    state over the world of 2."""
+    cwd, env = job_env
+    env = dict(env, ELASTICDL_COLLECTIVE_HEARTBEAT="5")
+    flags = ["--model_zoo", "lora", "--model_params",
+             "rank=4;vocab_size=128;dim=32;num_heads=4;num_layers=2;"
+             "seq_len=16;dtype=float32",
+             "--data_origin", "synthetic_lm:512:16:128",
+             "--batch_size", "8", "--num_workers", "2",
+             "--num_minibatches_per_task", "4",
+             "--distribution_strategy", "collective"]
+    if zero1:
+        flags += ["--zero1", "true"]
+    job = Job(flags, cwd, env)
+    rc = job.finish(timeout=120)
+    log = job.log
+    assert rc == 0, log
+    assert "job finished" in log
+    assert "'failed': {0: 0" in log, log
+    assert "collective world joined: rank 0 / 2" in log
+    assert "LoRA r=4" in log
+    placed = [re.search(r"\[worker-%d\] .*zero1: optimizer state sharded 2 "
+                        r"ways" % w, log) for w in (0, 1)]
+    assert all(placed) == zero1 and any(placed) == zero1, log
+
+
 def test_process_backend_sets_no_device_variable(monkeypatch):
     launched = {}
 

@@ -196,7 +196,7 @@ def test_config_and_export_validation(tmp_path):
         ttfm.model_spec(vocab_size=64, dim=32, num_heads=4, num_layers=2,
                         seq_len=16, num_kv_heads=3)
     for kwargs, item in (({"pipeline_microbatches": 2}, "A18"),
-                         ({"mesh": object()}, "A4")):
+                         ({"mesh": object()}, "A18")):
         with pytest.raises(NotImplementedError, match=item):
             ttfm.model_spec(vocab_size=64, dim=32, num_heads=2,
                             num_layers=1, seq_len=16, **kwargs)
