@@ -213,7 +213,29 @@ Phases, in order; any failure exits non-zero:
     all-gather's ms; then the port's wrap-your-own-loop example
     (``models/mnist_torch.py``: an ElasticDataset, 16 batches of 32, a
     port master in this process) on the card;
-21. one JSON line of kernels, then the card's name and power limit, then
+21. MobileNetV2 and the job types: MobileNetV2 (2,236,682 parameters,
+    the CIFAR-10 stem, flax's GroupNorm in plain torch ops) through the
+    port's CollectiveTrainer at batch 128, float32 with TF32 off and
+    bf16, 10 steps each on one batch (the loss must fall): step-1 loss
+    and every gradient leaf against the port's CPU run from the same
+    weights and batch (each leaf by its distance from the CPU's float64
+    run, within a multiple of the CPU's own run at that dtype), ms a
+    step, images/s, peak memory; then, in this process, a
+    resnet50_cifar10 checkpoint written by one step, and three
+    ``--job_type predict`` jobs over 1,024 synthetic CIFAR records (4
+    tasks of 2 x 128) built by the master and worker entry points
+    (``build_master``, ``start_status_server`` on ``--status_port 0``,
+    ``build_worker``), the second one's run under ``device_trace`` and
+    the others' not (the profiler's cost, on the same job): every
+    record's row once, within JOB_ROW_TOL of the in-process forward of
+    the restored checkpoint, B1 53 launches a forward, /healthz, /status
+    and /metrics (the same task counts) mid-job, /profilez refused
+    while the device trace runs and capturing after it, the trace
+    holding CUDA kernel events, B1's among them; then a ``--job_type
+    evaluate`` job over the same records whose accuracy equals the
+    in-process metric; rows/s, the trace's size and export seconds;
+    the phase fails past PHASE21_BUDGET_S;
+22. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
@@ -247,7 +269,9 @@ Tolerances (|got - ref| <= atol + rtol * |ref|):
    ``sp1_reference`` and SP_LOSS_RTOL below;
  - the collective path: COLL_FLOOR_X, COLL_GRAD_MIN and COLL_LOSS_RTOL
    below; the collective LM: ``sp1_reference``'s limits and
-   CLM_LOSS_RTOL below.
+   CLM_LOSS_RTOL below;
+ - MobileNetV2 and the jobs: MB_LOSS_RTOL, MB_FLOOR_X, MB_GRAD_MIN and
+   JOB_ROW_TOL below.
 """
 
 import argparse
@@ -263,6 +287,7 @@ import sys
 import tempfile
 import threading
 import time
+from types import SimpleNamespace
 
 import numpy as np
 
@@ -4509,6 +4534,441 @@ def collective_lm_phase(torch, lm_refs):
             "mnist_torch": mnist_torch_leg(torch)}
 
 
+# MobileNetV2, the predict and evaluate jobs, and the job's observability
+# surfaces (phase 21).  Leg 1: MobileNetV2 (2,236,682 parameters, the
+# CIFAR-10 stem, seeded weights) through the port's CollectiveTrainer at
+# batch MB_BATCH, float32 (TF32 off) and bf16, MB_STEPS steps each on one
+# seeded batch; its norms are flax's GroupNorm in plain torch ops (no
+# kernel).  Step 1 is held against the port's CPU runs from the same
+# weights and batch: the loss against the CPU's float32 at MB_LOSS_RTOL;
+# each gradient leaf by its relative distance (norm_rel) from the CPU's
+# float64 run's gradient, within MB_FLOOR_X x the distance of the CPU's
+# own run at the same dtype (float32, or bf16 autocast) from it, at least
+# MB_GRAD_MIN.  The float64 reference stays on the CPU: a backward that
+# is wrong on the card at every dtype would move a float64 run there with
+# it.  A fixed limit would not do: this model's gradients at
+# init are ill-conditioned (at batch 128 on a CPU the float32 leaves sit
+# up to 0.9 % from float64, the bf16 ones up to 89 %: GroupNorm scale
+# gradients are sums that nearly cancel; tests/test_torch_mobilenet.py
+# has the float32 case leaf by leaf).  Leg 2:
+# the job types and surfaces in this process, as phase 17's leg 1: a
+# resnet50_cifar10 checkpoint written by one step, then a
+# ``--job_type predict`` master (``master.main.build_master``, its status
+# server from ``start_status_server`` on ``--status_port 0``) and a
+# worker (``worker.main.build_worker``) over JOB_RECORDS synthetic CIFAR
+# records, JOB_MINIBATCHES minibatches of JOB_BATCH a task, run three
+# times: untraced, under ``device_trace`` (the checked one), untraced, so
+# that the profiler's cost is read on the same job; then a ``--job_type
+# evaluate`` job over the same records.
+MB_BATCH = 128
+MB_STEPS = 10
+# Seeded random weights: the zoo's 0.05 sends the loss up over 10 steps on
+# one batch (2.57 -> 14.5 at batch 16 on a CPU), as phase 7's 1e-2 did.
+MB_LR = TRAIN_LR
+# Step-1 loss, card against the CPU's float32: float32 sums in another
+# order (a few ulp of ~2.3); bf16 rounds every activation (2^-9).
+MB_LOSS_RTOL = {"float32": 1e-5, "bfloat16": 2e-2}
+MB_FLOOR_X = 4.0
+MB_GRAD_MIN = 1e-5
+JOB_RECORDS = 1024
+JOB_BATCH = 128
+JOB_MINIBATCHES = 2
+JOB_TASKS = JOB_RECORDS // (JOB_BATCH * JOB_MINIBATCHES)
+# Predicted rows against the in-process forward of the restored
+# checkpoint on the same batches: the same module and cuDNN algorithms,
+# float32 with TF32 off; absolute, scaled by the largest |logit|.
+JOB_ROW_TOL = 1e-5
+PHASE21_BUDGET_S = 45.0
+
+
+def mobilenet_grads(module):
+    return {name: p.grad.detach().double().cpu().clone()
+            for name, p in module.named_parameters()}
+
+
+def mobilenet_leg(torch):
+    """Leg 1 of phase 21; returns its numbers."""
+    from elasticdl_tpu_torch.models import mobilenet
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    use_float32_numerics()
+    spec = mobilenet.model_spec(learning_rate=MB_LR)
+    rng = np.random.RandomState(21)
+    xs = rng.rand(MB_BATCH, 32, 32, 3).astype(np.float32)
+    ys = rng.randint(0, 10, size=MB_BATCH).astype(np.int32)
+    # Every trainer below starts from these (rng_seed 0's) weights.
+    weights = spec.init_fn("cpu", 0).state_dict()
+    cpu, cpu_error = {}, []
+
+    def references():
+        t0 = time.perf_counter()
+        try:
+            for name in ("float32", "bfloat16", "float64"):
+                trainer = CollectiveTrainer(
+                    spec, batch_size=MB_BATCH, device="cpu",
+                    use_bf16_compute=name == "bfloat16")
+                if name == "float64":
+                    trainer.module.double()
+                trainer.set_params(weights)
+                loss, _ = trainer.train_minibatch(
+                    xs.astype(np.float64 if name == "float64"
+                              else np.float32), ys)
+                cpu[name] = (float(loss), mobilenet_grads(trainer.module))
+                del trainer
+        except Exception as e:  # re-raised by the main thread
+            cpu_error.append(e)
+        cpu["seconds"] = time.perf_counter() - t0
+
+    def card_run(dtype, before_timing=None):
+        """The first step's loss and gradients, then MB_STEPS - 1 timed
+        steps; ``before_timing`` runs between the two."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        # what earlier phases still hold is not this model's
+        held = torch.cuda.memory_allocated()
+        trainer = CollectiveTrainer(spec, batch_size=MB_BATCH, device=DEVICE,
+                                    use_bf16_compute=dtype == "bfloat16")
+        trainer.set_params(weights)
+        x, y = torch.from_numpy(xs).to(DEVICE), torch.from_numpy(ys).to(
+            DEVICE)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        losses = [float(trainer.train_minibatch(x, y)[0])]
+        first_s = time.perf_counter() - t0
+        grads = mobilenet_grads(trainer.module)
+        if before_timing is not None:
+            before_timing()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(MB_STEPS - 1):
+            losses.append(trainer.train_minibatch(x, y)[0])
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3 / (MB_STEPS - 1)
+        losses = [float(v) for v in losses]
+        peak = (torch.cuda.max_memory_allocated() - held) / 1e9
+        if not all(map(math.isfinite, losses)) or not losses[-1] < losses[0]:
+            fail("phase 21, MobileNetV2 %s: the loss did not fall over %d "
+                 "steps on one batch: %s" % (dtype, MB_STEPS, losses))
+        off = [n for n, p in trainer.module.named_parameters()
+               if p.device.type != torch.device(DEVICE).type]
+        if off:
+            fail("phase 21, MobileNetV2: parameters off the card: %s"
+                 % off[:5])
+        del trainer
+        torch.cuda.empty_cache()
+        return {"losses": losses, "grads": grads, "first_s": first_s,
+                "ms": ms, "peak": peak}
+
+    # The CPU references run beside the bf16 trainer's first step (about
+    # 8 s before its kernels run) and are joined before any timed step
+    # and any check.
+    t0 = time.perf_counter()
+    card = {"float32": card_run("float32")}
+    refs = threading.Thread(target=references, daemon=True)
+    refs.start()
+    card["bfloat16"] = card_run("bfloat16", before_timing=refs.join)
+    leg_s = time.perf_counter() - t0
+    if cpu_error:
+        fail("phase 21, MobileNetV2: the CPU references failed: %r"
+             % cpu_error[0])
+    exact = cpu["float64"][1]
+    floors = {dtype: {k: norm_rel(cpu[dtype][1][k], exact[k]) for k in exact}
+              for dtype in ("float32", "bfloat16")}
+    out = {"cpu_reference_s": cpu["seconds"], "leg_s": leg_s,
+           "batch": MB_BATCH,
+           "params": sum(v.numel() for v in weights.values())}
+    for dtype, run in card.items():
+        loss1, grads, ms = run["losses"][0], run["grads"], run["ms"]
+        want = cpu["float32"][0]
+        if not abs(loss1 - want) <= MB_LOSS_RTOL[dtype] * abs(want):
+            fail("phase 21, MobileNetV2 %s: step-1 loss %.7f, the CPU's "
+                 "%.7f (rtol %g)" % (dtype, loss1, want, MB_LOSS_RTOL[dtype]))
+        worst = (0.0, None, 0.0)
+        for name, ref in exact.items():
+            err = norm_rel(grads[name], ref)
+            limit = MB_FLOOR_X * max(floors[dtype][name], MB_GRAD_MIN)
+            if not err <= limit:
+                fail("phase 21, MobileNetV2 %s: step-1 gradient of %s is "
+                     "%.3g from the CPU's float64 (limit %.3g; the CPU's "
+                     "own %s run %.3g)" % (dtype, name, err, limit, dtype,
+                                           floors[dtype][name]))
+            if err / limit > worst[0]:
+                worst = (err / limit, name, err)
+        out[dtype] = {"step1_loss": loss1, "cpu_loss": want,
+                      "worst_grad_share": worst[0], "worst_leaf": worst[1],
+                      "worst_leaf_rel": worst[2],
+                      "first_step_s": run["first_s"], "ms_per_step": ms,
+                      "images_per_s": MB_BATCH / ms * 1e3,
+                      "peak_gb": run["peak"], "losses": run["losses"]}
+        print("phase 21, leg 1: MobileNetV2 (%d parameters) %s batch %d on "
+              "%s: step-1 loss %.6f (CPU %.6f), worst gradient leaf %s at "
+              "%.3g of its limit (%.3g from float64); %.2f ms a step, %.0f "
+              "images/s, peak %.2f GB, first step %.2f s, loss %.4f -> %.4f"
+              % (out["params"], dtype, MB_BATCH,
+                 torch.cuda.get_device_name(0), loss1, want, worst[1],
+                 worst[0], worst[2], ms, MB_BATCH / ms * 1e3, run["peak"],
+                 run["first_s"], run["losses"][0], run["losses"][-1]))
+    print("phase 21, leg 1: %.1f s; the CPU references (float32, bf16, "
+          "float64) took %.1f s of it, beside the bf16 first step; the "
+          "CPU's worst leaf from its float64: float32 %.3g, bf16 %.3g" % (
+              leg_s, cpu["seconds"], max(floors["float32"].values()),
+              max(floors["bfloat16"].values())))
+    return out
+
+
+def kernel_events(path, marker):
+    """(CUDA kernel events, those whose name holds ``marker``) of a
+    Chrome-trace file."""
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    return len(kernels), sum(marker in e.get("name", "") for e in kernels)
+
+
+def jobs_leg(torch, gn):
+    """Leg 2 of phase 21; returns its numbers."""
+    with tempfile.TemporaryDirectory() as tmp:
+        return run_jobs(torch, gn, tmp)
+
+
+def run_jobs(torch, gn, tmp):
+    from elasticdl_tpu_torch.data.factory import create_data_reader
+    from elasticdl_tpu_torch.master import main as master_main
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.utils import metrics, timing, tracing
+    from elasticdl_tpu_torch.utils.args import (parse_master_args,
+                                                parse_worker_args)
+    from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
+    from elasticdl_tpu_torch.worker import main as worker_main
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    ckpt = os.path.join(tmp, "ckpt")
+    preds = os.path.join(tmp, "predictions")
+    traces = os.path.join(tmp, "traces")
+    origin = "synthetic_cifar10:%d" % JOB_RECORDS
+    spec_args = ("resnet", "variant=resnet50_cifar10")
+    reader = create_data_reader(origin, records_per_shard=JOB_RECORDS)
+    end = reader.create_shards()[-1][2]
+    records = list(reader.read_records(SimpleNamespace(shard=SimpleNamespace(
+        name=reader.create_shards()[0][0], start=0, end=end,
+        record_indices=[]))))
+    spec = load_model_spec(*spec_args)
+    xs, ys = spec.feed(records)
+    # The checkpoint: one step of seeded weights, in this process.
+    t0 = time.perf_counter()
+    writer = CollectiveTrainer(spec, batch_size=JOB_BATCH, device=DEVICE,
+                               checkpoint_saver=CheckpointSaver(ckpt))
+    writer.train_minibatch(xs[:JOB_BATCH], ys[:JOB_BATCH])
+    writer.save_checkpoint()
+    writer.flush_checkpoints()
+    del writer
+    ckpt_s = time.perf_counter() - t0
+    # The in-process forward the jobs are held to.
+    ref = CollectiveTrainer(spec, batch_size=JOB_BATCH, device=DEVICE,
+                              checkpoint_saver=CheckpointSaver(ckpt))
+    if not ref.init_from_checkpoint():
+        fail("phase 21, leg 2: no checkpoint in %s" % ckpt)
+    want = np.concatenate([ref.predict_minibatch(xs[i:i + JOB_BATCH])
+                           for i in range(0, JOB_RECORDS, JOB_BATCH)])
+    del ref
+    accuracy = metrics.Accuracy()
+    accuracy.update(want, ys)
+    want_acc = float(accuracy.result())
+    common = ["--model_zoo", spec_args[0], "--model_params", spec_args[1],
+              "--data_origin", origin, "--batch_size", str(JOB_BATCH),
+              "--num_minibatches_per_task", str(JOB_MINIBATCHES),
+              "--checkpoint_dir", ckpt]
+
+    def job(job_type, trace, outputs=preds):
+        """One job: a master with its status server, a worker; the
+        counts zeroed just before the worker's run, read just after."""
+        common_job = common + ["--prediction_outputs", outputs]
+        margs = parse_master_args(common_job + [
+            "--job_type", job_type, "--num_workers", "0",
+            "--status_port", "0"])
+        master = master_main.build_master(margs)
+        master.prepare()
+        server = master_main.start_status_server(margs, master)
+        seen = {}
+        try:
+            worker = worker_main.build_worker(parse_worker_args(
+                common_job + ["--job_type", job_type, "--worker_id", "0",
+                              "--master_addr", "localhost:%d" % master.port]))
+            trainer = worker.trainer
+            inner = trainer.predict_minibatch if job_type == "predict" \
+                else trainer.evaluate_minibatch
+
+            def probe(*args):
+                if not seen:
+                    # mid-job: the surfaces answer, /profilez refuses
+                    # while the device trace runs
+                    seen["healthz"] = http_get(server.port, "/healthz")
+                    seen["status"] = json.loads(
+                        http_get(server.port, "/status"))
+                    seen["metrics"] = http_get(server.port, "/metrics")
+                    seen["profilez_busy"] = json.loads(http_get(
+                        server.port, "/profilez?secs=0.1"))
+                return inner(*args)
+
+            if trace:
+                setattr(trainer, "predict_minibatch", probe)
+                tracing.configure_identity("worker", rank=0)
+            torch.cuda.synchronize()
+            gn.LAUNCHES = 0
+            ctx = (timing.device_trace(traces) if trace
+                   else contextlib.nullcontext())
+            with ctx:
+                t0 = time.perf_counter()
+                worker.run()
+                torch.cuda.synchronize()
+                run_s = time.perf_counter() - t0
+            launches = gn.LAUNCHES
+            counts = master.task_manager.counts()
+            finished = master.task_manager.finished()
+            if trace:
+                seen["trace"] = timing.PROFILER.last_trace
+                seen["export_s"] = timing.PROFILER.last_export_s
+                seen["profilez_after"] = json.loads(http_get(
+                    server.port, "/profilez?secs=0.2"))
+            history = list(master.evaluation_service.history) if (
+                master.evaluation_service is not None) else []
+        finally:
+            server.stop()
+            master.stop()
+        if not finished or sum(counts["failed"].values()) or counts[
+                "completed"].get(2 if job_type == "predict" else 1) != (
+                    JOB_TASKS):
+            fail("phase 21, leg 2: the %s job did not finish its %d tasks: "
+                 "%s" % (job_type, JOB_TASKS, counts))
+        want_launches = GN_PER_FORWARD * JOB_RECORDS // JOB_BATCH
+        if launches != want_launches:
+            fail("phase 21, leg 2: the %s job launched B1 %d times, want %d"
+                 % (job_type, launches, want_launches))
+        return {"run_s": run_s, "launches": launches, "counts": counts,
+                "history": history, "seen": seen,
+                "rows_per_s": JOB_RECORDS / run_s}
+
+    # /profilez writes under $ELASTICDL_TRACE_DIR: here, the leg's dir.
+    trace_env = os.environ.get(tracing.ENV_TRACE_DIR)
+    os.environ[tracing.ENV_TRACE_DIR] = traces
+    try:
+        untraced = [job("predict", trace=False,
+                        outputs=os.path.join(tmp, "untraced-0"))]
+        predict = job("predict", trace=True)
+        untraced.append(job("predict", trace=False,
+                            outputs=os.path.join(tmp, "untraced-1")))
+    finally:
+        if trace_env is None:
+            os.environ.pop(tracing.ENV_TRACE_DIR)
+        else:
+            os.environ[tracing.ENV_TRACE_DIR] = trace_env
+    seen = predict["seen"]
+    rows = np.load(os.path.join(preds, "predictions-worker-0.npz"))[
+        "predictions"]
+    if rows.shape != want.shape:
+        fail("phase 21, leg 2: %s prediction rows, want %s"
+             % (rows.shape, want.shape))
+    dist = np.abs(rows[:, None, :] - want[None, :, :]).max(-1)
+    match = dist.argmin(1)
+    if sorted(match.tolist()) != list(range(JOB_RECORDS)):
+        fail("phase 21, leg 2: the prediction rows are not each record once")
+    row_err = float(np.abs(rows - want[match]).max())
+    row_tol = JOB_ROW_TOL * float(np.abs(want).max())
+    if not row_err <= row_tol:
+        fail("phase 21, leg 2: prediction rows %.3g from the in-process "
+             "forward (limit %.3g)" % (row_err, row_tol))
+    status, text = seen["status"], seen["metrics"]
+    prom = dict(line.rsplit(" ", 1) for line in text.strip().splitlines()
+                if not line.startswith("#"))
+    same = (prom.get("elasticdl_tasks_todo") == str(status["tasks"]["todo"])
+            and prom.get("elasticdl_tasks_doing")
+            == str(status["tasks"]["doing"])
+            and all(prom.get('elasticdl_tasks_completed{type="%s"}' % k)
+                    == str(v)
+                    for k, v in status["tasks"]["completed"].items()))
+    if seen["healthz"] != "ok\n" or not same:
+        fail("phase 21, leg 2: /healthz %r; /status %s against /metrics %s"
+             % (seen["healthz"], status["tasks"], text[:400]))
+    busy, after = seen["profilez_busy"], seen["profilez_after"]
+    if busy.get("ok") is not False or "already running" not in busy.get(
+            "error", ""):
+        fail("phase 21, leg 2: /profilez during the device trace: %s" % busy)
+    if not after.get("ok") or not os.path.exists(after.get("file", "")):
+        fail("phase 21, leg 2: /profilez after the device trace: %s" % after)
+    trace_path = seen["trace"]
+    if os.path.dirname(trace_path) != traces:
+        fail("phase 21, leg 2: the device trace went to %s" % trace_path)
+    n_kernels, n_b1 = kernel_events(trace_path, "gn_fwd")
+    if not n_b1:
+        fail("phase 21, leg 2: the device trace %s holds %d CUDA kernel "
+             "events, none of B1's" % (trace_path, n_kernels))
+    evaluate = job("evaluate", trace=False)
+    got_acc = evaluate["history"][-1][1]["accuracy"] if evaluate[
+        "history"] else None
+    if got_acc != want_acc:
+        fail("phase 21, leg 2: the evaluate job's accuracy %r, the "
+             "in-process metric %r" % (got_acc, want_acc))
+    out = {"checkpoint_s": ckpt_s, "rows": int(rows.shape[0]),
+           "row_max_abs_err": row_err, "row_tol": row_tol,
+           "predict_rows_per_s": predict["rows_per_s"],
+           "predict_run_s": predict["run_s"],
+           "predict_untraced_rows_per_s": [u["rows_per_s"]
+                                           for u in untraced],
+           "launches_predict_job": predict["launches"],
+           "launches_evaluate_job": evaluate["launches"],
+           "evaluate_rows_per_s": evaluate["rows_per_s"],
+           "accuracy": got_acc, "status_mid_job": status["tasks"],
+           "profilez_busy": busy["error"],
+           "profilez_after_bytes": os.path.getsize(after["file"]),
+           "trace_bytes": os.path.getsize(trace_path),
+           "trace_export_s": seen["export_s"],
+           "trace_kernel_events": n_kernels, "trace_b1_events": n_b1}
+    print("phase 21, leg 2: resnet50_cifar10 checkpoint in %.2f s; predict "
+          "job of %d records (%d tasks of %d x %d) on %s under device_trace: "
+          "%d rows, %.3g from the in-process forward (limit %.3g), %.0f "
+          "rows/s, B1 %d launches; /healthz, /status and /metrics agree "
+          "mid-job (%s), /profilez refused mid-trace (%s) and captured "
+          "after (%d bytes); trace %d bytes, exported in %.2f s, %d CUDA "
+          "kernel events, %d of B1; evaluate job: accuracy %.6f = the "
+          "in-process metric, %.0f rows/s, B1 %d launches; the same "
+          "predict job untraced before and after: %.0f and %.0f rows/s" % (
+              ckpt_s, JOB_RECORDS, JOB_TASKS, JOB_MINIBATCHES, JOB_BATCH,
+              torch.cuda.get_device_name(0), rows.shape[0], row_err, row_tol,
+              predict["rows_per_s"], predict["launches"], status["tasks"],
+              busy["error"], out["profilez_after_bytes"], out["trace_bytes"],
+              out["trace_export_s"], n_kernels, n_b1, got_acc,
+              evaluate["rows_per_s"], evaluate["launches"],
+              *out["predict_untraced_rows_per_s"]))
+    return out
+
+
+def http_get(port, path):
+    conn = http.client.HTTPConnection("127.0.0.1", port, timeout=60)
+    try:
+        conn.request("GET", path)
+        resp = conn.getresponse()
+        body = resp.read().decode()
+        if resp.status != 200:
+            fail("phase 21: GET %s answered %d: %s" % (path, resp.status,
+                                                       body[:200]))
+        return body
+    finally:
+        conn.close()
+
+
+def jobs_phase(torch, gn):
+    t0 = time.perf_counter()
+    out = {"mobilenet": mobilenet_leg(torch), "jobs": jobs_leg(torch, gn)}
+    out["seconds"] = time.perf_counter() - t0
+    if out["seconds"] > PHASE21_BUDGET_S:
+        fail("phase 21 took %.1f s, over its %.0f s budget" % (
+            out["seconds"], PHASE21_BUDGET_S))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -4614,6 +5074,9 @@ def main():
     clm = collective_lm_phase(torch, lm_refs)
     del lm_refs
     phase_s["collective LM"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    jobs = jobs_phase(torch, gn)
+    phase_s["MobileNetV2, job types, surfaces"] = time.perf_counter() - t0
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -4636,6 +5099,7 @@ def main():
         "launches_zero1_job": {
             w: c["group_norm_fwd"]
             for w, c in zero["cli"]["launches"].items()},
+        "launches_predict_job": jobs["jobs"]["launches_predict_job"],
         "max_abs_err": max_err["float32"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -4788,6 +5252,7 @@ def main():
                        "collective_path": coll,
                        "zero1_path": zero,
                        "collective_lm": clm,
+                       "jobs_phase": jobs,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -6,12 +6,15 @@ Builds the control plane from flags, optionally launches/manages workers
 ``local`` and ``collective`` strategies over process workers
 (``python -m elasticdl_tpu_torch.worker.main``); for ``collective`` the
 master also hosts the rendezvous and one ``torch.distributed`` store
-per membership epoch (``parallel/distributed.py``).  Flag values that
-select another path (k8s workers, the PS strategy, the multi-tenant
-scheduler, the status server, predict and evaluate jobs) raise
-``NotImplementedError`` naming their ROADMAP item
-(``utils.args.check_ported``).  The model spec the master loads to size
-its work is the port's, so no process of a port job imports JAX.
+per membership epoch (``parallel/distributed.py``).  ``--job_type``
+``train``, ``predict`` and ``evaluate`` run as in the JAX package, and
+``--status_port`` serves ``/healthz``, ``/status``, ``/metrics``,
+``/tracez``, ``/alertz`` and ``/profilez`` (``master/status_server.py``).
+Flag values that select another path (k8s workers, the PS strategy, the
+multi-tenant scheduler) raise ``NotImplementedError`` naming their
+ROADMAP item (``utils.args.check_ported``).  The model spec the master
+loads to size its work is the port's, so no process of a port job
+imports JAX.
 """
 
 from elasticdl_tpu_torch.data.factory import create_data_reader
@@ -129,16 +132,22 @@ def build_master(args):
         task_timeout_secs=args.task_timeout_secs,
         seed=args.seed,
     )
-    # Predict and evaluate jobs were refused by check_ported (ROADMAP
-    # A21): a train job, with evaluation tasks when a validation origin
-    # is given.
-    task_manager = TaskManager(
-        training_shards=reader.create_shards(),
-        evaluation_shards=(
-            eval_reader.create_shards() if eval_reader else None
-        ),
-        **common,
-    )
+    if args.job_type == "predict":
+        task_manager = TaskManager(
+            prediction_shards=reader.create_shards(), **common
+        )
+    elif args.job_type == "evaluate":
+        task_manager = TaskManager(
+            evaluation_shards=reader.create_shards(), **common
+        )
+    else:
+        task_manager = TaskManager(
+            training_shards=reader.create_shards(),
+            evaluation_shards=(
+                eval_reader.create_shards() if eval_reader else None
+            ),
+            **common,
+        )
     journal = None
     if args.journal_dir:
         from elasticdl_tpu_torch.master.journal import JournalWriter
@@ -179,7 +188,16 @@ def build_master(args):
     spec = load_model_spec(args.model_zoo,
                            model_params=args.model_params)
     evaluation_service = None
-    if (
+    if args.job_type == "evaluate":
+        if spec.eval_metrics_fn is None:
+            raise ValueError(
+                "evaluate job requires eval_metrics_fn in the model spec"
+            )
+        evaluation_service = EvaluationService(
+            task_manager, spec.eval_metrics_fn, evaluation_steps=1
+        )
+        evaluation_service.add_evaluation_task_if_needed(0)
+    elif (
         args.evaluation_steps
         and eval_reader is not None
         and spec.eval_metrics_fn is not None
@@ -273,19 +291,40 @@ def _arm_master_slo(servicers):
     wd.arm_from_env()
 
 
+def start_status_server(args, master):
+    """The master's status server on ``--status_port`` (0 picks a free
+    port), started; None when the flag is negative (off)."""
+    if args.status_port < 0:
+        return None
+    from elasticdl_tpu_torch.master.status_server import StatusServer
+
+    status_server = StatusServer(
+        master.task_manager,
+        worker_manager=master.worker_manager,
+        rendezvous_server=master.rendezvous_server,
+        servicer=master.servicer,
+        port=args.status_port,
+    )
+    status_server.start()
+    return status_server
+
+
 def main(argv=None):
     args = parse_master_args(argv)
     tracing.configure_identity("master")
     tracing.arm_crash_dump()
     logger.info("master starting: %s", vars(args))
-    # build_master refuses --jobs_spec (ROADMAP A20), --status_port (A15)
-    # and every other unported path before anything starts.
+    # build_master refuses --jobs_spec (ROADMAP A20) and every other
+    # unported path before anything starts.
     master = build_master(args)
     master.prepare()
     _arm_master_slo(lambda: [master.servicer])
+    status_server = start_status_server(args, master)
     try:
         return master.run()
     finally:
+        if status_server is not None:
+            status_server.stop()
         if master.journal is not None:
             master.journal.close()
 

@@ -63,12 +63,13 @@ def _pad_same(x, kernel, stride, value=0.0):
 
 class Conv(nn.Conv2d):
     """flax ``nn.Conv`` without bias: ``padding`` is "SAME" (TF rule) or
-    explicit ((top, bottom), (left, right)) pairs."""
+    explicit ((top, bottom), (left, right)) pairs; ``groups`` is flax's
+    ``feature_group_count``."""
 
     def __init__(self, in_channels, out_channels, kernel, stride=1,
-                 padding="SAME"):
+                 padding="SAME", groups=1):
         super().__init__(in_channels, out_channels, kernel, stride=stride,
-                         padding=0, bias=False)
+                         padding=0, bias=False, groups=groups)
         self.same = padding == "SAME"
         self.pairs = None if self.same else padding
 

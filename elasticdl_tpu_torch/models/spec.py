@@ -28,7 +28,11 @@ In the port:
  - ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
    serves a generation export (language models only);
  - ``callbacks`` lists training callbacks for the worker's task loop
-   (empty by default).
+   (empty by default);
+ - ``prediction_outputs_processor`` receives a predict job's outputs
+   (``process(outputs, worker_id)``, then ``flush()`` at each task's
+   end); the worker installs ``NpzPredictionWriter`` where a spec sets
+   none.
 
 The functions below implement those maps for modules whose submodules
 carry flax's call-order names (``Conv_0``, ``Dense_1``): conv kernels
@@ -100,6 +104,8 @@ class ModelSpec:
     # the master schedule a train-end task.  No zoo model of the port
     # sets any yet (``models/callbacks.py`` is ROADMAP A11).
     callbacks: list = dataclasses.field(default_factory=list)
+    # A predict job's output sink (worker/prediction_outputs_processor).
+    prediction_outputs_processor: typing.Any = None
 
 
 def params_from_jax(named):

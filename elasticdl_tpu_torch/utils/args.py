@@ -98,8 +98,9 @@ def add_common_args(parser):
                              "the export/ingest hot path)")
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--profile_dir", default="",
-                        help="write a device trace of the worker run to "
-                             "this directory (not ported: A15)")
+                        help="write a torch.profiler trace (Chrome-trace "
+                             "JSON, <role>-<worker id>-<pid>.pt.trace.json) "
+                             "of the worker run to this directory")
 
 
 def build_master_parser():
@@ -293,11 +294,6 @@ _UNPORTED = (
     ("worker_backend", lambda v: v == "k8s",
      "the k8s worker backend", "A19"),
     ("jobs_spec", bool, "the multi-tenant scheduler", "A20"),
-    ("job_type", lambda v: v in ("predict", "evaluate"),
-     "predict and evaluate jobs", "A21"),
-    ("status_port", lambda v: v is not None and v >= 0,
-     "the master's status server", "A15"),
-    ("profile_dir", bool, "device traces", "A15"),
     ("export_base", bool, "continuous servable export", "A11"),
 )
 

@@ -1,10 +1,13 @@
 """Per-phase timing accumulators (counterpart of
-``elasticdl_tpu/utils/timing.py``, copied but for ``device_trace``).
+``elasticdl_tpu/utils/timing.py``; ``device_trace`` runs over
+``torch.profiler`` where the JAX package runs ``jax.profiler``).
 
 Built-in observability from day one (SURVEY.md §5.1): the reference only has
 a DEBUG-level Timing helper (elasticdl/python/common/timing_utils.py:17-48);
-here timing is always on, cheap, and reportable.  Device traces are not
-ported yet: ``device_trace`` raises, naming ROADMAP A15.
+here timing is always on, cheap, and reportable, and ``TorchProfiler``
+gives device traces (Chrome-trace JSON) behind the ``start_trace(dir)`` /
+``stop_trace()`` interface the JAX package's callers use on
+``jax.profiler``.
 
 Thread model: phases and counters are written by training/executor
 threads while /statz, /metrics, and Timing.report() readers snapshot
@@ -20,6 +23,7 @@ against every snapshot path.
 """
 
 import contextlib
+import os
 import threading
 import time
 from collections import defaultdict
@@ -221,9 +225,94 @@ class Timing:
             self._logger.info("counter[%s]: %d", name, n)
 
 
+class TorchProfiler:
+    """``torch.profiler`` behind ``start_trace(dir)`` / ``stop_trace()``.
+
+    One trace at a time per process (the profiler underneath is a
+    process-wide singleton): ``start_trace`` raises while a trace runs
+    and leaves that trace alone.  ``stop_trace`` writes one Chrome-trace
+    JSON into the directory, named by the process's role, worker id
+    (its tracing rank) and pid, and returns its path.
+
+    CUDA activity is recorded only when this process has already
+    initialised CUDA (``torch.cuda.is_initialized()``): tracing a master
+    that never touched the card must not create a CUDA context on it."""
+
+    _STARTING = object()
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self._prof = None
+        self._dir = None
+        self.last_trace = None      # path of the last trace written
+        self.last_export_s = None   # seconds its export took
+
+    def start_trace(self, log_dir):
+        import torch
+
+        with self._lock:
+            if self._prof is not None:
+                raise RuntimeError(
+                    "a device trace is already running in this process "
+                    "(into %s)" % self._dir)
+            self._prof, self._dir = self._STARTING, log_dir
+        try:
+            activities = [torch.profiler.ProfilerActivity.CPU]
+            if torch.cuda.is_initialized():
+                activities.append(torch.profiler.ProfilerActivity.CUDA)
+            prof = torch.profiler.profile(activities=activities)
+            prof.start()
+        except BaseException:
+            with self._lock:
+                self._prof = self._dir = None
+            raise
+        with self._lock:
+            self._prof = prof
+
+    def stop_trace(self):
+        with self._lock:
+            prof, log_dir = self._prof, self._dir
+            if prof is None or prof is self._STARTING:
+                raise RuntimeError("no device trace is running")
+        try:
+            prof.stop()
+            os.makedirs(log_dir, exist_ok=True)
+            path = os.path.join(log_dir, _trace_file_name())
+            t0 = time.perf_counter()
+            prof.export_chrome_trace(path)
+            self.last_export_s = time.perf_counter() - t0
+            self.last_trace = path
+            return path
+        finally:
+            with self._lock:
+                self._prof = self._dir = None
+
+
+def _trace_file_name():
+    """``<role>-<worker id>-<pid>.pt.trace.json`` from the process
+    identity (``tracing.configure_identity``); ``proc`` and ``na`` where
+    the process set none."""
+    from elasticdl_tpu_torch.utils import tracing
+
+    attrs = tracing.process_attrs()
+    rank = attrs.get("rank")
+    return "%s-%s-%d.pt.trace.json" % (
+        attrs.get("role", "proc"), "na" if rank is None else rank,
+        os.getpid())
+
+
+# The process's profiler: ``device_trace`` and ``/profilez``
+# (``tracing.profilez_capture``) share it, so one refuses while the
+# other traces.
+PROFILER = TorchProfiler()
+
+
+@contextlib.contextmanager
 def device_trace(log_dir):
-    """A device trace around a block: not ported (ROADMAP A15, a
-    ``torch.profiler`` adapter)."""
-    raise NotImplementedError(
-        "device_trace(%r): device traces are not ported to "
-        "elasticdl_tpu_torch yet (ROADMAP A15)" % (log_dir,))
+    """Capture a device trace around a block (Chrome-trace JSON in
+    ``log_dir``; ``PROFILER.last_trace`` names the file)."""
+    PROFILER.start_trace(log_dir)
+    try:
+        yield
+    finally:
+        PROFILER.stop_trace()

@@ -45,6 +45,7 @@ import os
 import random
 import signal
 import sys
+import tempfile
 import threading
 import time
 
@@ -364,6 +365,11 @@ def current():
     return _TRACER.current()
 
 
+def process_attrs():
+    """The process identity every event carries (role, rank, ...)."""
+    return _TRACER.process_attrs
+
+
 def inject(metadata=None):
     return _TRACER.inject(metadata)
 
@@ -627,9 +633,9 @@ def is_tracez_path(path):
     return path.split("?", 1)[0] == "/tracez"
 
 
-# -- /profilez: jax.profiler capture on demand --------------------------------
+# -- /profilez: torch.profiler capture on demand ------------------------------
 
-# One capture at a time per process (jax.profiler is a process-global
+# One capture at a time per process (the profiler is a process-global
 # singleton); the flag flip is the only thing under the lock — the
 # capture itself (a sleep) runs outside every lock.
 _PROFILE_MAX_SECS = 60.0
@@ -646,15 +652,13 @@ def profilez_capture(secs, trace_dir=None, profiler=None,
     /tracez trace that requested it (docs/observability.md).
 
     ``profiler`` is an object with ``start_trace(dir)`` and
-    ``stop_trace()``.  The JAX package defaults it to ``jax.profiler``;
-    the port has no default yet (ROADMAP A15, a ``torch.profiler``
-    adapter), so a call without one raises.  Past that check a
-    missing/failing backend returns an error dict, never raises — this
-    runs on status-server request threads."""
-    if profiler is None:
-        raise NotImplementedError(
-            "profilez_capture needs a profiler: the port has no default "
-            "device profiler yet (ROADMAP A15)")
+    ``stop_trace()``; it defaults to the process's ``torch.profiler``
+    adapter (``utils.timing.PROFILER``, which ``device_trace`` shares:
+    a capture asked for while a device trace runs gets the error dict
+    and leaves that trace alone).  Where ``stop_trace`` returns the
+    file it wrote, the reply names it (``file``).  A missing, failing
+    or busy backend returns an error dict, never raises — this runs on
+    status-server request threads."""
     tracer = tracer or _TRACER
     secs = max(0.0, min(float(secs), _PROFILE_MAX_SECS))
     with _profile_lock:
@@ -665,7 +669,12 @@ def profilez_capture(secs, trace_dir=None, profiler=None,
         _profile_state["captures"] += 1
         n = _profile_state["captures"]
     try:
-        base = trace_dir or os.environ.get(ENV_TRACE_DIR) or "/tmp"
+        if profiler is None:
+            from elasticdl_tpu_torch.utils import timing
+
+            profiler = timing.PROFILER
+        base = (trace_dir or os.environ.get(ENV_TRACE_DIR)
+                or tempfile.gettempdir())
         role = tracer.process_attrs.get("role", "proc")
         out_dir = os.path.join(
             base, "profile-%s-%d-%d" % (role, os.getpid(), n))
@@ -676,10 +685,13 @@ def profilez_capture(secs, trace_dir=None, profiler=None,
         try:
             time.sleep(secs)
         finally:
-            profiler.stop_trace()
-        return {"ok": True, "dir": out_dir, "secs": secs,
-                "trace": trace_id,
-                "process": tracer.process_attrs}
+            written = profiler.stop_trace()
+        result = {"ok": True, "dir": out_dir, "secs": secs,
+                  "trace": trace_id,
+                  "process": tracer.process_attrs}
+        if written:
+            result["file"] = written
+        return result
     except Exception as e:  # noqa: BLE001 — profiling is best-effort
         # observability; a backend without profiler support answers
         # with the error instead of a dropped connection

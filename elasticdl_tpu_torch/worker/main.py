@@ -15,8 +15,11 @@ its ``torch.distributed`` world and data mesh at every epoch
 (``parallel/distributed.py``), gloo on the same card for every rank;
 ``--zero1 true`` shards the optimizer state over that world (the
 trainer's ZeRO-1; under ``local`` it trains alone, unsharded, as the JAX
-worker does).  The PS trainer (ROADMAP A8), continuous export (A11),
-device traces (A15) and predict jobs (A21) raise
+worker does).  A predict job's outputs go to the spec's
+``prediction_outputs_processor``, by default an ``NpzPredictionWriter``
+into ``--prediction_outputs``; ``--profile_dir`` wraps the run in a
+``torch.profiler`` trace (``utils.timing.device_trace``).  The PS
+trainer (ROADMAP A8) and continuous export (A11) raise
 ``NotImplementedError`` naming their item (``utils.args.check_ported``).
 At exit the worker logs its kernel launches (``kernel launches: {...}``)
 with the forward and backward passes its trainer ran.
@@ -108,6 +111,15 @@ def build_worker(args):
     reader = create_data_reader(
         args.data_origin, records_per_shard=records_per_task
     )
+    if args.job_type == "predict" and spec.prediction_outputs_processor \
+            is None:
+        from elasticdl_tpu_torch.worker.prediction_outputs_processor import (
+            NpzPredictionWriter,
+        )
+
+        spec.prediction_outputs_processor = NpzPredictionWriter(
+            args.prediction_outputs
+        )
     trainer = _build_collective_trainer(args, mc, spec, worker_id, device)
     logger.info("worker %d training on %s", worker_id, device)
     mem = trainer.zero1_report()
@@ -196,7 +208,13 @@ def main(argv=None):
     # dump-ring-then-graceful-preempt ($ELASTICDL_TRACE_DIR gates it).
     tracing.arm_crash_dump()
     try:
-        worker.run()
+        if args.profile_dir:
+            from elasticdl_tpu_torch.utils.timing import device_trace
+
+            with device_trace(args.profile_dir):
+                worker.run()
+        else:
+            worker.run()
     finally:
         logger.info("kernel launches: %s",
                     json.dumps(kernel_launches(worker.trainer)))

@@ -61,7 +61,13 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  # ZeRO-1 weight-update sharding
                  "worker.zero",
                  # the wrap-your-own-loop API
-                 "api.dataset", "models.mnist_torch"):
+                 "api.dataset", "models.mnist_torch",
+                 # MobileNetV2 and the MLP; predict and evaluate jobs;
+                 # the status server, /metrics and the profiler adapter
+                 "models.mobilenet", "models.mlp",
+                 "worker.prediction_outputs_processor",
+                 "master.status_server", "utils.prom",
+                 "utils.metric_registry", "utils.jsonline"):
         assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 

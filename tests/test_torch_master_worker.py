@@ -16,6 +16,8 @@ tests/test_fused_driver.py).  Against the JAX harness, losses agree at
 rtol 2e-4, the tolerance of tests/test_torch_trainer.py.
 """
 
+import json
+import os
 from types import SimpleNamespace
 
 import numpy as np
@@ -387,8 +389,22 @@ def test_timing_matches_the_reference_on_one_call_sequence():
     with got.timeit("batch_prep"):
         pass
     assert got.summary()["batch_prep"]["count"] == 1
-    with pytest.raises(NotImplementedError, match="A15"):
-        ttiming.device_trace("/nonexistent")
+
+
+def test_device_trace_writes_a_chrome_trace(tmp_path):
+    """``device_trace`` is the reference's context manager over the port's
+    ``torch.profiler`` adapter: one Chrome-trace JSON in the directory,
+    named by role, worker id and pid, holding the block's ops."""
+    with ttiming.device_trace(str(tmp_path)):
+        torch.ones(8, 8) @ torch.ones(8, 8)
+    path = ttiming.PROFILER.last_trace
+    assert os.path.dirname(path) == str(tmp_path)
+    assert os.path.basename(path).endswith("-%d.pt.trace.json"
+                                           % os.getpid())
+    with open(path) as f:
+        names = {e.get("name") for e in json.load(f)["traceEvents"]}
+    assert "aten::mm" in names
+    assert ttiming.PROFILER.last_export_s >= 0
 
 
 @pytest.mark.parametrize("origin", [

@@ -194,11 +194,6 @@ def test_unknown_model_exits_1_fast(job_env):
     (["--distribution_strategy", "ps"], "A8"),
     (["--worker_backend", "k8s"], "A19"),
     (["--jobs_spec", "[]"], "A20"),
-    (["--job_type", "predict"], "A21"),
-    (["--job_type", "evaluate"], "A21"),
-    (["--status_port", "0"], "A15"),
-    (["--profile_dir", "/tmp/p"], "A15"),
-    (["--profile_dir", "/tmp/p", "--zero1", "true"], "A15"),
     (["--export_base", "/tmp/e", "--export_steps", "4"], "A11"),
 ])
 def test_unported_flag_values_name_their_item(flags, item):
@@ -208,6 +203,20 @@ def test_unported_flag_values_name_their_item(flags, item):
         # A worker flag (master-only flags are not forwarded).
         with pytest.raises(NotImplementedError, match=item):
             check_ported(parse_worker_args(flags))
+
+
+@pytest.mark.parametrize("flags", [
+    ["--job_type", "predict"], ["--job_type", "evaluate"],
+    ["--status_port", "0"], ["--profile_dir", "/tmp/p"],
+    ["--profile_dir", "/tmp/p", "--zero1", "true"],
+    ["--distribution_strategy", "collective", "--job_type", "predict",
+     "--status_port", "0", "--profile_dir", "/tmp/p"]])
+def test_ported_flag_values_pass_the_check(flags):
+    """Predict and evaluate jobs (A21), the status server and device
+    traces (A15) are ported: neither parser's check refuses them."""
+    check_ported(parse_master_args(flags))
+    if "--status_port" not in flags:      # a master-only flag
+        check_ported(parse_worker_args(flags))
 
 
 def test_master_cli_refuses_an_unported_path(job_env):
