@@ -137,17 +137,18 @@ Phases, in order; any failure exits non-zero:
     transport stages tensors through the host, joins under a time limit):
     at sp=2, ring attention at the flagship's attention shape in bf16
     (and f32 at batch 2) against attention_local on one rank and the dense
-    f32 softmax; the flagship LM (24 layers, full width, batch 8 x 2048,
-    bf16, AdamW, remat) through the port's SPMDTrainer: step-1 loss and
-    gradients against the sp=1 path (f32 at batch 2, bf16 at batch 8),
-    one counted step (B3p 48 launches on rank 0, 96 on rank 1; B3, B4 and
-    B5 none), SP_TIMED_STEPS timed steps (the loss must fall; ms per step,
-    tokens/s and peak memory per rank) and a checkpoint saved at sp=2,
-    restored at sp=1 in this process (the same loss before and after one
-    more step); at sp=4 (ring distances 2 and 3), ring attention causal
-    and with a window that bands two blocks and skips the third, and a
-    4-layer full-width LM's step-1 gradients (rank r launches B3p 8 (r +
-    1) times);
+    f32 softmax; the flagship's widths at MULTI_RANK_LAYERS (4) layers
+    (batch 8 x 2048, bf16, AdamW, remat) through the port's SPMDTrainer:
+    step-1 loss and gradients against the sp=1 path at that depth
+    (``multi_rank_refs``: f32 at batch 2, bf16 at batch 8), one counted
+    step (B3p 2 L launches on rank 0, 4 L on rank 1 for L layers; B3, B4
+    and B5 none), SP_TIMED_STEPS timed steps (the loss must fall; ms per
+    step, tokens/s and peak memory per rank) and a checkpoint saved at
+    sp=2, restored at sp=1 in this process (the same loss before and
+    after one more step); at sp=4 (ring distances 2 and 3), ring
+    attention causal and with a window that bands two blocks and skips
+    the third, and the same model's step-1 gradients (rank r launches
+    B3p 2 L (r + 1) times);
 17. the master/worker process path: in this process, the flagship LM at
     full width and depth (remat) trained through the port's master
     (TaskManager and gRPC servicer) and Worker task loop, two jobs of 4
@@ -197,13 +198,13 @@ Phases, in order; any failure exits non-zero:
     CLI job with ``--zero1 true`` and a kill -9: the ZeRO-1 placement
     logged at a world of 2, the survivor's moment restart at the shrink,
     exit 0 with no failed task;
-20. the collective LM: the flagship LM at full width and depth (bf16,
-    AdamW, remat) trained by two ranks spawned on the card at batch 4
-    each, the world formed as phase 18's: step-1 loss and gradients in
-    float32 at batch 1 a rank and in bf16 at 4 a rank against phase 11's
-    single process at the global batch (each leaf within its limit of
-    the dense f32 softmax path's), B3/B4/B5 48/24/24 launches a step a
-    rank, ms a step, the all-reduce's ms, tokens/s and peak memory a
+20. the collective LM: the flagship's widths at MULTI_RANK_LAYERS (4)
+    layers (bf16, AdamW, remat) trained by two ranks spawned on the card
+    at batch 4 each, the world formed as phase 18's: step-1 loss and
+    gradients in float32 at batch 1 a rank and in bf16 at 4 a rank
+    against the single process at the global batch and the same depth
+    (``multi_rank_refs``; each leaf within its limit of the dense f32
+    softmax path's), B3/B4/B5 2 L/L/L launches a step a rank, ms a step, the all-reduce's ms, tokens/s and peak memory a
     rank; the world re-formed 2 -> 1 -> 2 in place (parameters and AdamW
     moments kept bit for bit, a joiner with other weights adopting rank
     0's); then zero1=False and zero1=True, CLM_ZERO_STEPS steps each
@@ -235,8 +236,32 @@ Phases, in order; any failure exits non-zero:
     evaluate`` job over the same records whose accuracy equals the
     in-process metric; rows/s, the trace's size and export seconds;
     the phase fails past PHASE21_BUDGET_S;
-22. one JSON line of kernels, then the card's name and power limit, then
+22. DeepFM on the parameter-server path: in this process, the port's
+    ParameterServerTrainer on the card against two PS shard processes
+    (``python -m elasticdl_tpu_torch.ps.server``, Adam on the native
+    kernels) at bench_deepfm.py's shape (batch 512, vocab 100,000, 10
+    fields, dimension 8, 4 dense features, hidden (128, 64)): step 1 on
+    the card held against the same step on the CPU on the same pulled
+    rows (loss, every dense gradient, both tables' row gradients), then
+    PS_TIMED_STEPS steps under atomic sync, under async shards with the
+    push serialized (bench_deepfm.py's settings) and under async push
+    window 1 with the next batch's rows prefetched, a fleet each (the
+    loss must fall): DeepFM steps/s and the ms of dense pull, embedding
+    pull, device step, push and push drain a step, with the card's name
+    and power limit; no kernel of
+    ops/ launches.  Then the master CLI with ``--distribution_strategy ps
+    --num_ps 2 --num_workers 2 --model_zoo deepfm --data_origin
+    synthetic_ctr:N`` (workers on the card), PS shard 0 killed -9 once a
+    checkpoint label is committed: the master relaunches it on its port,
+    it restores the label, the workers ride the outage and reconcile, and
+    the job ends exit 0 with no failed task, no worker relaunched and a
+    newer committed label; recovery seconds.  The phase fails past
+    PHASE22_BUDGET_S;
+23. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
+
+Each phase prints its seconds on a line of its own as it ends (``phase
+<name>: <s> s``).
 
 Tolerances (|got - ref| <= atol + rtol * |ref|):
  - forward kernel vs plain, float32: 2e-5 / 2e-5, the JAX package's own
@@ -271,7 +296,9 @@ Tolerances (|got - ref| <= atol + rtol * |ref|):
    below; the collective LM: ``sp1_reference``'s limits and
    CLM_LOSS_RTOL below;
  - MobileNetV2 and the jobs: MB_LOSS_RTOL, MB_FLOOR_X, MB_GRAD_MIN and
-   JOB_ROW_TOL below.
+   JOB_ROW_TOL below;
+ - DeepFM on the PS path, the card against the CPU: PS_LOSS_RTOL and
+   PS_GRAD_RTOL below.
 """
 
 import argparse
@@ -406,6 +433,7 @@ LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 128
 # Teacher forcing: the plain path's logit of each token the kernel path
 # chose lies within 2 x 2e-2 of the plain row max (each of the two
 # logits may be off by the prefill tolerance).
+LM_LAYERS = int(re.search(r"num_layers=(\d+)", LM_PARAMS).group(1))
 LM_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LM_FLOOR_X = 1.5
 LM_TF_TOL = 4e-2
@@ -1957,9 +1985,8 @@ def lm_grad_phase(torch, fa, rng):
     module = specs["remat"].init_fn(DEVICE, seed=0)
     toks = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, size=(LM_GRAD_BATCH, cfg.max_seq_len))).to(DEVICE)
-    unrounded = {}
     out, grads_k, limit = lm_grads_vs_plain(
-        torch, fa, specs["remat"], module, toks, "f32 (TF32 off)", unrounded)
+        torch, fa, specs["remat"], module, toks, "f32 (TF32 off)")
     loss_k = out["loss_kernels"]
 
     gaps = {}
@@ -1981,7 +2008,6 @@ def lm_grad_phase(torch, fa, rng):
               "%.3g relative, worst leaf gradient gap %.3g norm-relative"
               % (name, gaps[name]["loss_rel"], gaps[name]["grad_rel_max"]))
     out["settings_gaps"] = gaps
-    refs = {"f32": sp1_reference(toks, out, unrounded, params)}
     del grads_k, module
     torch.cuda.empty_cache()
 
@@ -1989,9 +2015,8 @@ def lm_grad_phase(torch, fa, rng):
     module = spec.init_fn(DEVICE, seed=0)
     toks = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, size=(LM_TRAIN_BATCH, cfg.max_seq_len))).to(DEVICE)
-    unrounded = {}
     bf16, grads_k, limit = lm_grads_vs_plain(torch, fa, spec, module, toks,
-                                             "bf16 compute", unrounded)
+                                             "bf16 compute")
     loss_k = bf16["loss_kernels"]
     gaps = {}
     for remat in ("false", "dots", "attn"):
@@ -2018,10 +2043,9 @@ def lm_grad_phase(torch, fa, rng):
                   gaps[remat]["grad_rel_max"], LM_GRAD_MIN, LM_FLOOR_X,
                   *counts))
     bf16["remat_gaps"] = gaps
-    refs["bf16"] = sp1_reference(toks, bf16, unrounded, LM_PARAMS)
     del grads_k, module
     torch.cuda.empty_cache()
-    return {"f32": out, "bf16": bf16}, refs
+    return {"f32": out, "bf16": bf16}
 
 
 def sp1_reference(toks, check, unrounded, params):
@@ -2036,6 +2060,39 @@ def sp1_reference(toks, check, unrounded, params):
                       for n, f in check["floor_kernels"].items()}}
 
 
+def multi_rank_refs(torch, fa):
+    """The sp=1 references of the multi-rank LM phases (16 and 20): the
+    flagship's widths at MULTI_RANK_LAYERS layers, step-1 gradients with
+    the kernels held against the plain Function (``lm_grads_vs_plain``)
+    and the dense f32 softmax path's kept, in float32 with TF32 off at
+    batch LM_GRAD_BATCH and in bf16 at LM_TRAIN_BATCH, on seeded tokens
+    (``sp1_reference``)."""
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+
+    use_float32_numerics()
+    rng = np.random.RandomState(11)
+    params = LM_PARAMS.replace("num_layers=%d" % LM_LAYERS,
+                               "num_layers=%d" % MULTI_RANK_LAYERS)
+    refs = {}
+    for name, p, batch in (
+            ("f32", params.replace("dtype=bfloat16", "dtype=float32"),
+             LM_GRAD_BATCH), ("bf16", params, LM_TRAIN_BATCH)):
+        spec = load_model_spec("transformer", p + ";remat=true")
+        cfg = spec.config
+        module = spec.init_fn(DEVICE, seed=0)
+        toks = torch.from_numpy(rng.randint(
+            0, cfg.vocab_size, size=(batch, cfg.max_seq_len))).to(DEVICE)
+        unrounded = {}
+        check, grads_k, _ = lm_grads_vs_plain(
+            torch, fa, spec, module, toks, "%d-layer %s" % (
+                MULTI_RANK_LAYERS, name), unrounded)
+        refs[name] = sp1_reference(toks, check, unrounded, p)
+        del module, grads_k, unrounded
+        torch.cuda.empty_cache()
+    return refs
+
+
 def lm_training_phase(torch, fa):
     """The flagship LM trained through the port's CollectiveTrainer at
     bench_transformer.py's shape (see the module docstring, phase 11)."""
@@ -2045,8 +2102,7 @@ def lm_training_phase(torch, fa):
         CollectiveTrainer)
 
     rng = np.random.RandomState(9)
-    grad_check, refs = lm_grad_phase(torch, fa, rng)
-    out = {"grad_check": grad_check}
+    out = {"grad_check": lm_grad_phase(torch, fa, rng)}
 
     spec = load_model_spec("transformer", LM_PARAMS + ";remat=true")
     cfg = spec.config
@@ -2149,7 +2205,7 @@ def lm_training_phase(torch, fa):
     finally:
         tmp.cleanup()
     torch.cuda.empty_cache()
-    return out, refs
+    return out
 
 
 def timed_steps(torch, fa, trainer, tokens, steps):
@@ -2547,7 +2603,12 @@ SP2_ATTENTION = [(21, "bfloat16", 8, 0), (22, "float32", 2, 0)]
 # distances 1 and 2 (``_partial_banded``) and skips distance 3.
 SP4_ATTENTION = [(23, "bfloat16", 8, 0), (24, "bfloat16", 8, 768)]
 SP_TIMED_STEPS = 3
-SP4_LAYERS = 4
+# The multi-rank LM phases (16 and 20) run the flagship's widths at this
+# depth (phase 11 trains all 24 layers in one process): every check stays,
+# launch counts scale with the depth (B3p 2 L and 4 L a step on the sp=2
+# ranks, B3/B4/B5 2 L/L/L), and ``multi_rank_refs`` computes the sp=1
+# references at this depth.
+MULTI_RANK_LAYERS = 4
 # A checkpoint saved at sp=2 and restored at sp=1: the loss, and the loss
 # after one more step, within SP_LOSS_RTOL of the sp=2 trainer's.  The two
 # paths' attention rounds differently in bf16: their step-1 losses on the
@@ -2871,7 +2932,8 @@ def sp_leg(name, ref, tmp, train, ckpt_dir):
 
 
 def sp_phase(torch, fa, lm_refs):
-    """Sequence parallelism on the card (module docstring, phase 16)."""
+    """Sequence parallelism on the card (module docstring, phase 16);
+    ``lm_refs``: ``multi_rank_refs``."""
     from elasticdl_tpu_torch.models.spec import load_model_spec
     from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
     from elasticdl_tpu_torch.worker.collective_trainer import (
@@ -2883,19 +2945,7 @@ def sp_phase(torch, fa, lm_refs):
         partial_phase(torch, fa))
     out["partial_s"] = time.perf_counter() - t0
 
-    # The 4-layer model's sp=1 reference, as the flagship's (lm_grad_phase).
-    params4 = LM_PARAMS.replace("num_layers=24", "num_layers=%d" % SP4_LAYERS)
-    spec4 = load_model_spec("transformer", params4 + ";remat=true")
-    module = spec4.init_fn(DEVICE, seed=0)
     toks = torch.from_numpy(lm_refs["bf16"]["tokens"]).to(DEVICE)
-    unrounded = {}
-    check, grads_k, _ = lm_grads_vs_plain(torch, fa, spec4, module, toks,
-                                          "%d-layer bf16" % SP4_LAYERS,
-                                          unrounded)
-    ref4 = sp1_reference(toks, check, unrounded, params4)
-    del module, grads_k, unrounded
-    torch.cuda.empty_cache()
-
     tmp = tempfile.TemporaryDirectory()
     try:
         ckpt_dir = os.path.join(tmp.name, "ckpt")
@@ -2903,8 +2953,8 @@ def sp_phase(torch, fa, lm_refs):
         for sp, cases, leg_refs in (
                 (2, SP2_ATTENTION, [("f32 batch 2", lm_refs["f32"], False),
                                     ("bf16 batch 8", lm_refs["bf16"], True)]),
-                (4, SP4_ATTENTION, [("%d-layer bf16 batch 8" % SP4_LAYERS,
-                                     ref4, False)])):
+                (4, SP4_ATTENTION, [("bf16 batch 8", lm_refs["bf16"],
+                                     False)])):
             legs = [sp_leg(name, ref, tmp.name, train, ckpt_dir)
                     for name, ref, train in leg_refs]
             refs = [sp_attention_reference(torch, fa, c) for c in cases]
@@ -2992,8 +3042,10 @@ def sp_phase(torch, fa, lm_refs):
 # card, the flagship's widths at CLI_LAYERS layers (100.7 M parameters,
 # a 1.21 GB checkpoint of parameters and AdamW moments), worker 0
 # killed -9 after its first checkpoint; both workers start from an empty
-# kernel cache (ELASTICDL_TORCH_BUILD_DIR), so they build B3-B5 side by
-# side, and the replacement loads the cached libraries.
+# kernel cache (ELASTICDL_TORCH_BUILD_DIR): each starts every build in the
+# background as it starts, one compiles each source while the other waits
+# for it (ops/build.py's lock), and the replacement loads the cached
+# libraries.
 PROC_MINIBATCHES = 4
 PROC_TASKS = 4
 PROC_DIRECT_STEPS = 5
@@ -4143,7 +4195,6 @@ CLM_RANKS_TIMEOUT_S = 900
 # two.  SP_LOSS_RTOL bounds the same kind of gap (one loss computed along
 # two paths of bf16 rounding on the same parameters).
 CLM_LOSS_RTOL = SP_LOSS_RTOL
-LM_LAYERS = int(re.search(r"num_layers=(\d+)", LM_PARAMS).group(1))
 MNIST_TORCH_RECORDS = 512
 MNIST_TORCH_BATCH = 32
 
@@ -4313,7 +4364,7 @@ def clm_rank(role, epochs, legs):
 
 
 def clm_ranks_leg(torch, lm_refs):
-    """Leg 1 of phase 20 (see CLM_BATCH)."""
+    """Leg 1 of phase 20 (see CLM_BATCH); ``lm_refs``: ``multi_rank_refs``."""
     from elasticdl_tpu_torch.parallel import distributed as tdist
     from elasticdl_tpu_torch.parallel import launch
 
@@ -4340,7 +4391,7 @@ def clm_ranks_leg(torch, lm_refs):
         ranks_s = time.perf_counter() - t0
     finally:
         tmp.cleanup()
-    want = (2 * LM_LAYERS, LM_LAYERS, LM_LAYERS)
+    want = (2 * MULTI_RANK_LAYERS, MULTI_RANK_LAYERS, MULTI_RANK_LAYERS)
     readings = {}
     for name in ("f32", "bf16"):
         ref, got = lm_refs[name], r0[name]
@@ -4444,7 +4495,8 @@ def clm_ranks_leg(torch, lm_refs):
           "of %.1f MB %.1f ms a step (%s); peak %.1f / %.1f GB; world formed "
           "in %.2f s, 2 -> 1 in %.2f s, a step alone %.1f ms, 1 -> 2 with a "
           "joiner in %.2f s (joiner %.2f s)" % (
-              LM_LAYERS, CLM_GRAD_BATCH, readings["f32"]["loss_ranks"],
+              MULTI_RANK_LAYERS, CLM_GRAD_BATCH,
+              readings["f32"]["loss_ranks"],
               2 * CLM_GRAD_BATCH, readings["f32"]["loss_single"],
               readings["f32"]["loss_rel_gap"], CLM_BATCH,
               readings["bf16"]["loss_ranks"], 2 * CLM_BATCH,
@@ -4969,6 +5021,384 @@ def jobs_phase(torch, gn):
     return out
 
 
+# Phase 22: DeepFM on the parameter-server path (ROADMAP A8, A9).  Leg 1,
+# in this process: the port's ParameterServerTrainer on the card against
+# two PS shard processes (``python -m elasticdl_tpu_torch.ps.server``,
+# the spec's Adam on the native kernels) at bench_deepfm.py's shape
+# (bench_deepfm.py:46-48: batch 512, vocab 100,000, 10 fields, embedding
+# dim 8, 4 dense features; DeepFM's hidden (128, 64)).  Leg 2: the master
+# CLI with --distribution_strategy ps, two shards and two workers on the
+# card, shard 0 killed -9 once the checkpoint holds a committed label.
+PS_BATCH = 512
+PS_VOCAB = 100_000
+PS_FIELDS = 10
+PS_DIM = 8
+PS_DENSE = 4
+PS_HIDDEN = (128, 64)
+PS_BATCHES = 4                 # the timed steps cycle over these
+PS_TIMED_STEPS = 20            # a sync mode, after one warm-up step
+# Step 1 on the card against the same step on the CPU (the same pulled
+# rows, float32, TF32 off): the loss within PS_LOSS_RTOL relative, each
+# dense gradient and each table's row gradients within PS_GRAD_RTOL
+# norm-relative.  Both sum the same float32 terms in other orders (the
+# batch's 512 examples into a weight gradient, the 10 fields into a row's):
+# a few float32 ulps, 1e-7 to 1e-6; 1e-5 leaves room for that and none for
+# a wrong term.
+PS_LOSS_RTOL = 1e-5
+PS_GRAD_RTOL = 1e-5
+PS_CLI_RECORDS = PS_BATCH * 192
+PS_CLI_CHECKPOINT_STEPS = 16
+PS_CLI_TIMEOUT_S = 100
+PHASE22_BUDGET_S = 120
+
+
+class _Shards:
+    """``n`` PS shard processes of the port, each logging to a file."""
+
+    def __init__(self, n, opt, use_async, env, tmp, name):
+        from elasticdl_tpu_torch.utils.grpc_utils import find_free_port
+
+        self.ports = [find_free_port() for _ in range(n)]
+        self.logs = [os.path.join(tmp, "%s-%d.log" % (name, i))
+                     for i in range(n)]
+        self.procs = []
+        for i, (port, log) in enumerate(zip(self.ports, self.logs)):
+            with open(log, "w") as f:
+                self.procs.append(subprocess.Popen(
+                    [sys.executable, "-m", "elasticdl_tpu_torch.ps.server",
+                     "--port", str(port), "--ps_id", str(i), "--num_ps",
+                     str(n), "--opt_type", opt[0], "--opt_args", opt[1],
+                     "--use_async", str(use_async)],
+                    env=env, stdout=subprocess.DEVNULL, stderr=f))
+
+    @property
+    def addrs(self):
+        return ",".join("localhost:%d" % p for p in self.ports)
+
+    def tail(self):
+        out = []
+        for log in self.logs:
+            with open(log) as f:
+                out.append("".join(f.readlines()[-10:]))
+        return "\n".join(out)
+
+    def stop(self):
+        for p in self.procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait(timeout=30)
+
+
+def _ps_batches(spec):
+    from elasticdl_tpu_torch.models import deepfm
+
+    dense, ids, labels = deepfm.synthetic_data(
+        n=PS_BATCH * PS_BATCHES, num_dense=PS_DENSE, num_fields=PS_FIELDS,
+        vocab_size=PS_VOCAB, seed=0)
+    return [spec.feed([(dense[j], ids[j], labels[j])
+                       for j in range(i, i + PS_BATCH)])
+            for i in range(0, len(labels), PS_BATCH)]
+
+
+def _ps_step1(torch, card, cpu, batch):
+    """Step 1 of the card trainer against the CPU trainer's on the same
+    prepared inputs (the rows pulled once): readings, or a failure."""
+    from elasticdl_tpu_torch.worker.ps_trainer import _pad_host_batch
+
+    (features, labels), weights = _pad_host_batch(batch, PS_BATCH)
+    feats, emb, _ = card._prepare_embeddings(features)
+    got = card.grad_step(feats, labels, weights, emb)
+    torch.cuda.synchronize()
+    ref = cpu.grad_step(feats, labels, weights, emb)
+    loss_gap = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+    errs = {}
+    names = [name for _, name, _ in card._params] + [
+        "rows:" + t for t in sorted(emb)]
+    for name, g, r in zip(names, got[1] + got[2], ref[1] + ref[2]):
+        if not bool(g.isfinite().all()):
+            fail("PS path, leg 1: the card's step-1 gradient of %s is not "
+                 "finite" % name)
+        errs[name] = norm_rel(g.cpu(), r)
+    bad = {n: e for n, e in errs.items() if not e <= PS_GRAD_RTOL}
+    if bad or not loss_gap <= PS_LOSS_RTOL:
+        fail("PS path, leg 1: step 1 on the card against the CPU: loss %r "
+             "vs %r (gap %.3g, limit %g), gradients past %g norm-relative: "
+             "%s" % (float(got[0]), float(ref[0]), loss_gap, PS_LOSS_RTOL,
+                     PS_GRAD_RTOL, bad))
+    return {"loss": float(got[0]), "loss_cpu": float(ref[0]),
+            "loss_rel_gap": loss_gap, "grad_rel_err": errs,
+            "grad_rel_err_max": max(errs.values())}
+
+
+def _ps_timed(torch, trainer, data, what):
+    """One warm-up step, then PS_TIMED_STEPS timed steps cycling over the
+    batches (the next batch's rows prefetched, as the worker loop does):
+    losses, steps/s and the trainer's per-phase ms."""
+    float(trainer.train_minibatch(*data[0])[0])
+    trainer.timing.reset()
+    losses = []
+    t0 = time.perf_counter()
+    for s in range(PS_TIMED_STEPS):
+        trainer.prefetch_embeddings(data[(s + 2) % len(data)][0])
+        losses.append(float(trainer.train_minibatch(
+            *data[(s + 1) % len(data)])[0]))
+    trainer.drain_pushes()
+    wall = time.perf_counter() - t0
+    first, last = (np.mean(losses[:PS_BATCHES]),
+                   np.mean(losses[-PS_BATCHES:]))
+    if not all(map(math.isfinite, losses)) or not last < first:
+        fail("PS path, leg 1, %s: the loss did not fall over %d steps: %s"
+             % (what, PS_TIMED_STEPS, losses))
+    summary = trainer.timing.summary()
+    # ms a step of each part (the embedding pull is one a table); the
+    # push is its RPC when inline, its hand-off to the push thread when
+    # pipelined, and the wait for it before the next dense pull is the
+    # drain; the rest is host work (padding, unique ids, the batch).
+    ms = {name: summary[key]["total_s"] * 1e3 / PS_TIMED_STEPS
+          if key in summary else 0.0
+          for name, key in (("dense_pull", "get_model"),
+                            ("embedding_pull", "pull_embedding"),
+                            ("device_step", "batch_process"),
+                            ("push", "report_gradient"),
+                            ("push_drain", "push_drain"))}
+    step_ms = wall * 1e3 / PS_TIMED_STEPS
+    ms["other"] = step_ms - sum(ms.values())
+    return {"losses": losses, "steps_per_s": PS_TIMED_STEPS / wall,
+            "step_ms": step_ms, "ms": ms,
+            "embedding_pulls_per_step": summary.get(
+                "pull_embedding", {}).get("count", 0) / PS_TIMED_STEPS,
+            "counters": trainer.timing.counters()}
+
+
+def ps_trainer_leg(torch, fa, gn, env, tmp):
+    """Leg 1 of phase 22 (see PS_BATCH)."""
+    from elasticdl_tpu_torch.models import deepfm
+    from elasticdl_tpu_torch.utils.retry import ps_rpc_policy
+    from elasticdl_tpu_torch.worker.ps_client import build_ps_client
+    from elasticdl_tpu_torch.worker.ps_trainer import ParameterServerTrainer
+
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+
+    use_float32_numerics()
+    spec = deepfm.model_spec(num_dense=PS_DENSE, num_fields=PS_FIELDS,
+                             vocab_size=PS_VOCAB, embedding_dim=PS_DIM,
+                             hidden=PS_HIDDEN)
+    data = _ps_batches(spec)
+    t0 = time.perf_counter()
+    # A fleet a mode: atomic sync, bench_deepfm.py's settings (async
+    # shards, the push serialized) and async push window 1.
+    fleets = {k: _Shards(2, spec.ps_optimizer, k != "sync", env, tmp, k)
+              for k in ("sync", "serial", "window")}
+    try:
+        clients = {k: build_ps_client(f.addrs, retry=ps_rpc_policy(),
+                                      dedicated_push_channels=k == "window")
+                   for k, f in fleets.items()}
+        shards_s = time.perf_counter() - t0
+        zero_flash_counts(fa)
+        gn.LAUNCHES = gn.BWD_LAUNCHES = fa.PARTIAL_LAUNCHES = 0
+        card = ParameterServerTrainer(spec, clients["sync"], PS_BATCH,
+                                      atomic_sync=True, rng_seed=0,
+                                      device=DEVICE)
+        # The CPU trainer finds the shards initialized: it pulls the card
+        # trainer's initial parameters.
+        cpu = ParameterServerTrainer(
+            spec, build_ps_client(fleets["sync"].addrs), PS_BATCH,
+            atomic_sync=True, rng_seed=1, device="cpu")
+        same = all(np.array_equal(a, b) for a, b in zip(
+            card.export_parameters().values(),
+            cpu.export_parameters().values()))
+        if not same or card.device.type != torch.device(DEVICE).type:
+            fail("PS path, leg 1: the CPU trainer's parameters are not the "
+                 "card trainer's pushed ones (or the card trainer is on "
+                 "%s)" % card.device)
+        step1 = _ps_step1(torch, card, cpu, data[0])
+        cpu.close()
+        timed = {"atomic sync": _ps_timed(torch, card, data, "atomic sync")}
+        card.close()
+        for key, what, push_window in (
+                ("serial", "async, push serialized", 0),
+                ("window", "async push window 1", 1)):
+            card = ParameterServerTrainer(spec, clients[key], PS_BATCH,
+                                          async_push_window=push_window,
+                                          rng_seed=0, device=DEVICE)
+            timed[what] = _ps_timed(torch, card, data, what)
+            card.close()
+        # Each kernel's launches over the phase's DeepFM steps, by the
+        # name of its row in the kernels line.
+        launches = {
+            "group_norm_fwd": gn.LAUNCHES,
+            "group_norm_bwd": gn.BWD_LAUNCHES,
+            "flash_attention_fwd": fa.LAUNCHES,
+            "flash_attention_partial_fwd": fa.PARTIAL_LAUNCHES,
+            "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES,
+            "flash_attention_bwd_dkv": fa.BWD_DKV_LAUNCHES}
+        if any(launches.values()):
+            fail("PS path, leg 1: the DeepFM steps launched kernels of "
+                 "ops/: %s" % launches)
+    except BaseException:
+        for f in fleets.values():
+            print(f.tail(), file=sys.stderr)
+        raise
+    finally:
+        for f in fleets.values():
+            f.stop()
+    smi = nvidia_smi_line()
+    for what, r in timed.items():
+        print("PS path, leg 1 (DeepFM, batch %d, vocab %d, %d fields, dim "
+              "%d, hidden %s, Adam on 2 PS shards; %s): %s: %.1f DeepFM "
+              "steps/s (%.2f ms a step over %d steps); ms a step: dense "
+              "pull %.3f, embedding pull %.3f (%.1f pulls), device step "
+              "%.3f, push %.3f, push drain %.3f, other host work %.3f; "
+              "loss %.4f -> %.4f" % (
+                  PS_BATCH, PS_VOCAB, PS_FIELDS, PS_DIM, PS_HIDDEN, smi,
+                  what, r["steps_per_s"], r["step_ms"], PS_TIMED_STEPS,
+                  r["ms"]["dense_pull"], r["ms"]["embedding_pull"],
+                  r["embedding_pulls_per_step"], r["ms"]["device_step"],
+                  r["ms"]["push"], r["ms"]["push_drain"], r["ms"]["other"],
+                  r["losses"][0], r["losses"][-1]))
+    print("PS path, leg 1: step 1 on the card against the CPU on the same "
+          "pulled rows (float32, TF32 off): loss %.7f vs %.7f (gap %.3g, "
+          "limit %g), worst gradient %.3g norm-relative (limit %g); shards "
+          "up in %.2f s; ops/ kernels launched: none" % (
+              step1["loss"], step1["loss_cpu"], step1["loss_rel_gap"],
+              PS_LOSS_RTOL, step1["grad_rel_err_max"], PS_GRAD_RTOL,
+              shards_s))
+    return {"step1": step1, "timed": timed, "shards_s": shards_s,
+            "launches": launches, "card": smi}
+
+
+def ps_cli_leg(torch, env, tmp):
+    """Leg 2 of phase 22: the master CLI under --distribution_strategy
+    ps, two shards and two workers on the card, shard 0 killed -9 once a
+    label is committed; returns the leg's numbers."""
+    from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
+
+    ckpt = os.path.join(tmp, "ps_ckpt")
+    args = ["--model_zoo", "deepfm",
+            "--data_origin", "synthetic_ctr:%d" % PS_CLI_RECORDS,
+            "--batch_size", str(PS_BATCH),
+            "--num_minibatches_per_task", "4", "--num_workers", "2",
+            "--distribution_strategy", "ps", "--num_ps", "2",
+            "--checkpoint_dir", ckpt,
+            "--checkpoint_steps", str(PS_CLI_CHECKPOINT_STEPS),
+            "--log_loss_steps", "16"]
+    job = _MasterProcess(args, env, tmp, what="PS path, leg 2")
+    deadline = job.t0 + PS_CLI_TIMEOUT_S
+    saver = CheckpointSaver(ckpt)
+    try:
+        launched = {w: job.wait_for(r"launched worker %d\b" % w,
+                                    deadline)[0] for w in (0, 1)}
+        ready = {w: job.wait_for(r"worker %d training on (\S+) against PS"
+                                 % w, deadline) for w in (0, 1)}
+        while not saver.latest_resumable_version(2):
+            if job.proc.poll() is not None or time.perf_counter() > deadline:
+                fail("PS path, leg 2: no committed checkpoint; tail:\n%s"
+                     % job.tail())
+            time.sleep(0.05)
+        committed = saver.latest_resumable_version(2)
+        # A process's threads may be listed among the children: one
+        # thread group is one shard.
+        pids = sorted({_tgid(pid) for pid in job.children()
+                       if _is_shard(pid, 0)})
+        if len(pids) != 1:
+            fail("PS path, leg 2: %d children serve PS 0" % len(pids))
+        os.kill(pids[0], signal.SIGKILL)
+        t_kill = time.perf_counter()
+        job.wait_for(r"PS 0 died \(code -9\); relaunching with restore",
+                     deadline, after=t_kill)
+        t_restored, m = job.wait_for(
+            r"restored PS shard 0 from version (\d+)", deadline,
+            after=t_kill)
+        restored = int(m.group(1))
+        t_rec, _ = job.wait_for(r"\[worker-\d\] .*reconciled PS restart",
+                                deadline, after=t_kill)
+        try:
+            rc = job.proc.wait(timeout=max(1.0, deadline
+                                           - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            fail("PS path, leg 2: the job did not finish within %d s; its "
+                 "tail:\n%s" % (PS_CLI_TIMEOUT_S, job.tail()))
+        t_end = time.perf_counter()
+    finally:
+        job.stop()
+    log = "".join(line for _, line in job.lines)
+    finished = re.search(r"job finished: .*'failed': \{0: 0, ", log)
+    latest = saver.latest_resumable_version(2)
+    devices = {m.group(1).split(":")[0] for _, m in ready.values()}
+    if (rc != 0 or not finished or "launched worker 2" in log
+            or not restored >= committed or not latest
+            or not latest > restored
+            or devices != {torch.device(DEVICE).type}):
+        fail("PS path, leg 2: rc %s, finished with no failed task %s, a "
+             "worker relaunched %s, restored version %d (committed %d), "
+             "newest committed label %s, workers on %s; tail:\n%s" % (
+                 rc, bool(finished), "launched worker 2" in log, restored,
+                 committed, latest, devices, job.tail()))
+    out = {"records": PS_CLI_RECORDS, "batch": PS_BATCH,
+           "launched_s": {w: t - job.t0 for w, t in launched.items()},
+           "ready_s": {w: t - job.t0 for w, (t, _) in ready.items()},
+           "committed_before_kill": committed,
+           "kill_after_start_s": t_kill - job.t0,
+           "shard_restored_s": t_restored - t_kill,
+           "recovery_s": t_rec - t_kill, "restored_version": restored,
+           "final_committed_version": latest, "job_s": t_end - job.t0,
+           "rc": rc}
+    print("PS path, leg 2 (CLI, 2 PS shards, 2 workers on the card, "
+          "DeepFM batch %d over %d records): workers launched %.1f s and "
+          "%.1f s after the master started, ready at %.1f s and %.1f s; "
+          "PS 0 killed -9 at %.1f s (label %d committed); the relaunched "
+          "shard restored version %d %.2f s after the kill, a worker "
+          "reconciled %.2f s after it (recovery); job finished exit 0 in "
+          "%.1f s with no failed task and no worker relaunched, newest "
+          "committed label %d" % (
+              PS_BATCH, PS_CLI_RECORDS, out["launched_s"][0],
+              out["launched_s"][1], out["ready_s"][0], out["ready_s"][1],
+              out["kill_after_start_s"], committed, restored,
+              out["shard_restored_s"], out["recovery_s"], out["job_s"],
+              latest))
+    return out
+
+
+def _tgid(pid):
+    with open("/proc/%d/status" % pid) as f:
+        for line in f:
+            if line.startswith("Tgid:"):
+                return int(line.split()[1])
+    return pid
+
+
+def _is_shard(pid, ps_id):
+    try:
+        with open("/proc/%d/cmdline" % pid, "rb") as f:
+            argv = f.read().split(b"\0")
+    except OSError:
+        return False
+    return (b"elasticdl_tpu_torch.ps.server" in argv and b"--ps_id" in argv
+            and argv[argv.index(b"--ps_id") + 1] == str(ps_id).encode())
+
+
+def ps_phase(torch, fa, gn):
+    """DeepFM on the parameter-server path (module docstring, phase 22);
+    fails past PHASE22_BUDGET_S."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("ELASTICDL_TORCH_DEVICE", None)     # the workers' default: cuda
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        out = {"trainer": ps_trainer_leg(torch, fa, gn, env, tmp.name)}
+        out["cli"] = ps_cli_leg(torch, env, tmp.name)
+    finally:
+        tmp.cleanup()
+    out["phase_s"] = time.perf_counter() - t0
+    if out["phase_s"] > PHASE22_BUDGET_S:
+        fail("PS path: the phase took %.1f s, past its budget of %d s"
+             % (out["phase_s"], PHASE22_BUDGET_S))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -4998,9 +5428,18 @@ def main():
     print("build: %d kernel sources in %.1f s" % (len(outputs), build_s))
 
     phase_s = {"build": build_s}
-    t0 = time.perf_counter()
-    rows, max_err, totals = kernel_phase(torch, gn)
-    phase_s["forward kernel"] = time.perf_counter() - t0
+    print("phase build: %.1f s" % build_s, flush=True)
+
+    def run(name, fn, *fn_args):
+        """Run one phase; its seconds go into phase_s and on a line of
+        their own as it ends."""
+        t0 = time.perf_counter()
+        result = fn(*fn_args)
+        phase_s[name] = time.perf_counter() - t0
+        print("phase %s: %.1f s" % (name, phase_s[name]), flush=True)
+        return result
+
+    rows, max_err, totals = run("forward kernel", kernel_phase, torch, gn)
     for (batch, name, _), tot in zip(GN_TIMED, totals.values()):
         print("kernel per ResNet-50 forward at batch %d (53 calls, %s): "
               "kernel %.4f ms, plain %.4f ms, F.group_norm %.4f ms, bound "
@@ -5008,9 +5447,8 @@ def main():
                   batch, name, tot["ms"], tot["plain_ms"],
                   tot["library_ms"], tot["bound_ms"], tot["bound_by"],
                   100 * tot["share_of_bound"]))
-    t0 = time.perf_counter()
-    bwd_rows, bwd_err, bwd_totals = backward_phase(torch, gn)
-    phase_s["backward kernel"] = time.perf_counter() - t0
+    bwd_rows, bwd_err, bwd_totals = run("backward kernel", backward_phase,
+                                        torch, gn)
     for (batch, name, _), tot in zip(GN_TIMED, bwd_totals.values()):
         print("backward kernel per ResNet-50 step at batch %d (53 calls, "
               "%s): kernel %.4f ms, plain %.4f ms, F.group_norm backward "
@@ -5019,64 +5457,35 @@ def main():
                   tot["library_ms"], tot["bound_ms"], tot["bound_by"],
                   100 * tot["share_of_bound"]))
 
-    t0 = time.perf_counter()
-    module, serve_launches, latencies, serve_err = serving_phase(torch, gn)
-    phase_s["serving"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    forward = forward_phase(torch, gn, module)
+    module, serve_launches, latencies, serve_err = run(
+        "serving", serving_phase, torch, gn)
+    forward = run("forward", forward_phase, torch, gn, module)
     del module
-    phase_s["forward"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    train = training_phase(torch, gn)
-    phase_s["training"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    flash_err, flash_timed = flash_phase(torch, fa)
-    phase_s["flash kernel"] = time.perf_counter() - t0
+    train = run("training", training_phase, torch, gn)
+    flash_err, flash_timed = run("flash kernel", flash_phase, torch, fa)
     # Exports of the LM phases: the dense LM's stays for the LoRA phase.
     exports = tempfile.TemporaryDirectory()
     try:
-        t0 = time.perf_counter()
-        lm = transformer_phase(torch, fa, exports.name)
-        phase_s["transformer serving"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        flash_bwd_err, bwd_timed = flash_bwd_phase(torch, fa)
-        phase_s["flash backward kernels"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        lm_train, lm_refs = lm_training_phase(torch, fa)
-        phase_s["transformer training"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        moe = moe_serving_phase(torch, fa, exports.name)
-        phase_s["moe serving"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        moe_train = moe_training_phase(torch, fa)
-        phase_s["moe training"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        remat = remat_phase(torch, fa)
-        phase_s["remat policies"] = time.perf_counter() - t0
-        t0 = time.perf_counter()
-        lora_out = lora_phase(torch, fa, lm["export_dir"])
-        phase_s["lora"] = time.perf_counter() - t0
+        lm = run("transformer serving", transformer_phase, torch, fa,
+                 exports.name)
+        flash_bwd_err, bwd_timed = run("flash backward kernels",
+                                       flash_bwd_phase, torch, fa)
+        lm_train = run("transformer training", lm_training_phase, torch, fa)
+        moe = run("moe serving", moe_serving_phase, torch, fa, exports.name)
+        moe_train = run("moe training", moe_training_phase, torch, fa)
+        remat = run("remat policies", remat_phase, torch, fa)
+        lora_out = run("lora", lora_phase, torch, fa, lm["export_dir"])
     finally:
         exports.cleanup()
-    t0 = time.perf_counter()
-    sp = sp_phase(torch, fa, lm_refs)
-    phase_s["sequence parallelism"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    proc = process_phase(torch, fa)
-    phase_s["process path"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    coll = collective_phase(torch)
-    phase_s["collective path"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    zero = zero1_phase(torch)
-    phase_s["ZeRO-1 path"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    clm = collective_lm_phase(torch, lm_refs)
-    del lm_refs
-    phase_s["collective LM"] = time.perf_counter() - t0
-    t0 = time.perf_counter()
-    jobs = jobs_phase(torch, gn)
-    phase_s["MobileNetV2, job types, surfaces"] = time.perf_counter() - t0
+    refs = run("multi-rank references", multi_rank_refs, torch, fa)
+    sp = run("sequence parallelism", sp_phase, torch, fa, refs)
+    proc = run("process path", process_phase, torch, fa)
+    coll = run("collective path", collective_phase, torch)
+    zero = run("ZeRO-1 path", zero1_phase, torch)
+    clm = run("collective LM", collective_lm_phase, torch, refs)
+    del refs
+    jobs = run("MobileNetV2, job types, surfaces", jobs_phase, torch, gn)
+    ps = run("PS path, DeepFM", ps_phase, torch, fa, gn)
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -5225,6 +5634,9 @@ def main():
         "float32": {key: part[("float32", True)][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by")},
     })
+    for row in kernels:
+        # Phase 22's count over its DeepFM steps (it fails unless 0).
+        row["launches_deepfm_ps"] = ps["trainer"]["launches"][row["name"]]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "device": kind,
@@ -5253,6 +5665,7 @@ def main():
                        "zero1_path": zero,
                        "collective_lm": clm,
                        "jobs_phase": jobs,
+                       "ps_path": ps,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

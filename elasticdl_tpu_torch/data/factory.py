@@ -2,11 +2,10 @@
 elasticdl/python/data/reader/data_reader_factory.py:23-79; counterpart
 of ``elasticdl_tpu/data/factory.py``).
 
-The port's copy takes ``synthetic_mnist`` from the port's
-``models/mnist.py``.  Origins whose model or reader the port has not
-ported yet raise ``NotImplementedError`` naming their ROADMAP item:
-``synthetic_ctr`` (DeepFM, A9), ``imagefolder:`` and ``.db``/``sql:``
-(A22)."""
+The port's copy takes ``synthetic_mnist`` and ``synthetic_ctr`` from the
+port's ``models/mnist.py`` and ``models/deepfm.py``.  Origins whose
+reader the port has not ported yet raise ``NotImplementedError`` naming
+their ROADMAP item: ``imagefolder:`` and ``.db``/``sql:`` (A22)."""
 
 import os
 
@@ -51,9 +50,16 @@ def create_data_reader(data_origin, records_per_shard=256, **kwargs):
             (toks.astype(np.int32),), records_per_shard=records_per_shard
         )
     if data_origin.startswith("synthetic_ctr"):
-        raise NotImplementedError(
-            "data origin %r needs models/deepfm.py, not ported to "
-            "elasticdl_tpu_torch yet (ROADMAP A9)" % data_origin)
+        from elasticdl_tpu_torch.data.reader import ArrayDataReader
+        from elasticdl_tpu_torch.models import deepfm
+
+        _, _, n = data_origin.partition(":")
+        dense, ids, labels = deepfm.synthetic_data(
+            n=int(n) if n else 4096
+        )
+        return ArrayDataReader(
+            (dense, ids, labels), records_per_shard=records_per_shard
+        )
     if data_origin.startswith("tokens:"):
         # "tokens:<path>:<seq_len>[:<dtype>]" — flat binary token file
         # (GPT-style pretraining data), memory-mapped windows.

@@ -150,6 +150,10 @@ def convert_csv(csv_path, output_dir, label_column=-1,
 def convert_ctr(output_dir, n=65536, records_per_file=4096, **kwargs):
     """Synthetic CTR (dense, ids, label) records — the frappe/dac_ctr
     converter shape (reference frappe_recordio_gen.py)."""
-    raise NotImplementedError(
-        "convert_ctr needs models/deepfm.py, not ported to "
-        "elasticdl_tpu_torch yet (ROADMAP A9)")
+    from elasticdl_tpu_torch.models.deepfm import synthetic_data
+
+    dense, ids, labels = synthetic_data(n=n, **kwargs)
+    return convert_arrays(
+        output_dir, (dense, ids, labels),
+        records_per_file=records_per_file, names=("dense", "ids", "y"),
+    )

@@ -3,19 +3,27 @@ counterpart of ``elasticdl_tpu/master/main.py``).
 
 Builds the control plane from flags, optionally launches/manages workers
 (local-process backend), runs the job to completion.  The port runs the
-``local`` and ``collective`` strategies over process workers
+``local``, ``collective`` and ``ps`` strategies over process workers
 (``python -m elasticdl_tpu_torch.worker.main``); for ``collective`` the
 master also hosts the rendezvous and one ``torch.distributed`` store
-per membership epoch (``parallel/distributed.py``).  ``--job_type``
+per membership epoch (``parallel/distributed.py``), and for ``ps`` it
+launches, watches and relaunches ``--num_ps`` parameter-server shards
+(``master/ps_manager.py``, ``python -m elasticdl_tpu_torch.ps.server``)
+and hands their addresses to the workers.  ``--job_type``
 ``train``, ``predict`` and ``evaluate`` run as in the JAX package, and
 ``--status_port`` serves ``/healthz``, ``/status``, ``/metrics``,
 ``/tracez``, ``/alertz`` and ``/profilez`` (``master/status_server.py``).
-Flag values that select another path (k8s workers, the PS strategy, the
-multi-tenant scheduler) raise ``NotImplementedError`` naming their
+Flag values that select another path (k8s workers, the multi-tenant
+scheduler, continuous export) raise ``NotImplementedError`` naming their
 ROADMAP item (``utils.args.check_ported``).  The model spec the master
 loads to size its work is the port's, so no process of a port job
-imports JAX.
+imports JAX.  The master launches its workers before it builds its data
+readers and loads that spec (both import torch), on a port it holds
+reserved, so their start-ups overlap; they wait for its service.
 """
+
+import importlib.util
+import socket
 
 from elasticdl_tpu_torch.data.factory import create_data_reader
 from elasticdl_tpu_torch.master.evaluation_service import EvaluationService
@@ -25,7 +33,6 @@ from elasticdl_tpu_torch.master.worker_manager import (
     ProcessWorkerBackend,
     WorkerManager,
 )
-from elasticdl_tpu_torch.models.spec import load_model_spec
 from elasticdl_tpu_torch.utils import tracing
 from elasticdl_tpu_torch.utils.args import (
     build_arguments_from_parsed_result,
@@ -88,6 +95,41 @@ def _build_worker_backend(args, worker_args):
     return ProcessWorkerBackend(worker_args=worker_args)
 
 
+def _reserve_port():
+    """A free port, held by a bound socket that does not listen
+    (``SO_REUSEPORT``, which gRPC's server sets too) until the master's
+    gRPC server has bound it: workers launched before the master serves
+    dial it, and no other process can take it meanwhile.  Returns (port,
+    socket); close the socket once the server is up."""
+    sock = socket.socket(socket.AF_INET6, socket.SOCK_STREAM)
+    sock.setsockopt(socket.SOL_SOCKET, socket.SO_REUSEPORT, 1)
+    sock.bind(("::", 0))
+    return sock.getsockname()[1], sock
+
+
+def _check_zoo_module(name):
+    """Fail before any worker starts when ``--model_zoo`` names no
+    module (found without importing it: importing a zoo module imports
+    torch)."""
+    module = name if "." in name else "elasticdl_tpu_torch.models." + name
+    if importlib.util.find_spec(module) is None:
+        raise ModuleNotFoundError("No module named %r" % module,
+                                  name=module)
+
+
+def _build_worker_manager(args, ps_manager=None):
+    worker_args = build_arguments_from_parsed_result(
+        args, filter_args=_MASTER_ONLY_ARGS
+    )
+    if ps_manager is not None:
+        worker_args += ["--ps_addrs", ps_manager.addrs]
+    return WorkerManager(
+        _build_worker_backend(args, worker_args),
+        num_workers=args.num_workers,
+        max_relaunch_count=args.relaunch_on_worker_failure,
+    )
+
+
 def build_master(args):
     check_ported(args)
     records_per_task = args.batch_size * args.num_minibatches_per_task
@@ -115,6 +157,58 @@ def build_master(args):
                 # replay_span is None when tracing is disabled
                 link_trace=getattr(replay_span, "trace", None),
             )
+    # The master's data and model spec import torch (seconds), and the
+    # workers need neither: they start first, so their own start-up
+    # overlaps it, and wait for the master's service, which serves only
+    # once the master is whole (prepare()).  Under the PS strategy they
+    # are given the shards' addresses now; the shards, which need the
+    # spec's optimizer, start after prepare() (main).
+    worker_manager = ps_manager = reservation = None
+    port = args.port
+    if args.distribution_strategy == "ps" and args.num_ps > 0:
+        from elasticdl_tpu_torch.master.ps_manager import PSManager
+
+        # The optimizer comes from the spec, once it is loaded.
+        ps_manager = PSManager(
+            args.num_ps, None, None,
+            checkpoint_dir=args.checkpoint_dir,
+            checkpoint_steps=args.checkpoint_steps,
+            evaluation_steps=args.evaluation_steps,
+            use_async=args.use_async,
+            grads_to_wait=args.grads_to_wait,
+            sync_version_tolerance=args.sync_version_tolerance,
+            # Worker->PS drills: each shard arms this as its own
+            # --rpc_fault_spec.
+            ps_fault_spec=args.ps_rpc_fault_spec,
+        )
+    if args.num_workers > 0:
+        _check_zoo_module(args.model_zoo)
+        if not port:
+            port, reservation = _reserve_port()
+        worker_manager = _build_worker_manager(args, ps_manager)
+        worker_manager.set_master_addr("localhost:%d" % port)
+        worker_manager.start()
+    try:
+        master = _build_master(args, records_per_task, journal_state,
+                               worker_manager, port)
+    except BaseException:
+        # Workers launched early must not outlive a master that failed
+        # to come up (they would wait for its service).
+        if worker_manager is not None:
+            worker_manager.stop()
+        if reservation is not None:
+            reservation.close()
+        raise
+    master.ps_manager = ps_manager
+    master.port_reservation = reservation
+    if ps_manager is not None:
+        ps_manager._opt_type, ps_manager._opt_args = (
+            master.model_spec.ps_optimizer)
+    return master
+
+
+def _build_master(args, records_per_task, journal_state, worker_manager,
+                  port):
     reader = create_data_reader(
         args.data_origin, records_per_shard=records_per_task
     )
@@ -179,12 +273,16 @@ def build_master(args):
             # continues where the previous run stopped.
             from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
 
-            # The dense single-writer saver: its newest complete
-            # version is the resumable one (the PS fleet's committed
-            # mark, latest_resumable_version, is ROADMAP A8).
-            latest = CheckpointSaver(args.checkpoint_dir).latest_version()
+            # The newest committed label: the one a PS fleet restores
+            # (one consistent version for every shard), and the dense
+            # saver's newest complete version.
+            latest = CheckpointSaver(
+                args.checkpoint_dir
+            ).latest_resumable_version(max(args.num_ps, 1))
             if latest:
                 task_manager.skip_records(latest * args.batch_size)
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+
     spec = load_model_spec(args.model_zoo,
                            model_params=args.model_params)
     evaluation_service = None
@@ -238,17 +336,8 @@ def build_master(args):
             # the crash) so reconnecting workers re-form at a fresh id.
             initial_epoch=(
                 journal_state.rendezvous_id + 1 if journal_state else 0),
-        )
-    # The PS strategy's PSManager (A8) was refused by check_ported.
-    worker_manager = None
-    if args.num_workers > 0:
-        worker_args = build_arguments_from_parsed_result(
-            args, filter_args=_MASTER_ONLY_ARGS
-        )
-        worker_manager = WorkerManager(
-            _build_worker_backend(args, worker_args),
-            num_workers=args.num_workers,
-            max_relaunch_count=args.relaunch_on_worker_failure,
+            # The job's first world is the one it launched.
+            initial_world=args.num_workers,
         )
     interceptors = None
     if args.rpc_fault_spec:
@@ -265,12 +354,13 @@ def build_master(args):
         rendezvous_server=rendezvous,
         evaluation_service=evaluation_service,
         worker_manager=worker_manager,
-        port=args.port,
+        port=port,
         journal=journal,
         interceptors=interceptors,
     )
     if journal_state is not None:
         master.servicer.restore_from_journal(journal_state)
+    master.model_spec = spec
     return master
 
 
@@ -318,11 +408,20 @@ def main(argv=None):
     # unported path before anything starts.
     master = build_master(args)
     master.prepare()
+    if master.port_reservation is not None:
+        master.port_reservation.close()  # the gRPC server holds the port
     _arm_master_slo(lambda: [master.servicer])
     status_server = start_status_server(args, master)
+    if master.ps_manager is not None:
+        # The shards report their versions to the master's service,
+        # which serves since prepare().
+        master.ps_manager._master_addr = "localhost:%d" % master.port
+        master.ps_manager.start()
     try:
         return master.run()
     finally:
+        if master.ps_manager is not None:
+            master.ps_manager.stop()
         if status_server is not None:
             status_server.stop()
         if master.journal is not None:

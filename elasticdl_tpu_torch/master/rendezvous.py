@@ -8,6 +8,10 @@ observing a new id tear down their collective world (a
 ``torch.distributed`` process group, ``parallel/distributed.py``) and
 re-form it for the new world.  Joins are batched behind a short grace
 window so a burst of relaunched workers triggers one re-form, not many.
+The first commit also waits, up to INITIAL_WORLD_WAIT_SECS after the
+first join, for the ``initial_world`` workers the master launched:
+workers start seconds apart under load, and a short job would otherwise
+run to its end in a world of the first worker alone.
 """
 
 import threading
@@ -18,10 +22,15 @@ from elasticdl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
 
+# Longer than a worker's start-up on the card from a cold kernel cache
+# (20-36 s to a first step); a launched worker that never joins delays
+# the first world by this much, once.
+INITIAL_WORLD_WAIT_SECS = 60.0
+
 
 class RendezvousServer:
     def __init__(self, grace_secs=2.0, coordinator_factory=None,
-                 journal=None, initial_epoch=0, name=""):
+                 journal=None, initial_epoch=0, name="", initial_world=0):
         """``coordinator_factory(world_size) -> addr`` (optional): run
         at every epoch commit to stand up that epoch's coordination
         plane — in production ``MasterCoordinationService.start_epoch``
@@ -59,6 +68,11 @@ class RendezvousServer:
         # write outside the lock); blocks a second concurrent stage
         # from minting a colliding id.
         self._commit_inflight = False
+        # The first commit waits for this many joins, or for
+        # INITIAL_WORLD_WAIT_SECS after the first one.
+        self._initial_world = int(initial_world)
+        self._first_join = None
+        self._committed = False
 
     def set_coordinator_addr(self, addr):
         with self._lock:
@@ -79,6 +93,8 @@ class RendezvousServer:
             if host not in self._next_hosts:
                 self._next_hosts.append(host)
                 self._last_change = time.time()
+                if self._first_join is None:
+                    self._first_join = self._last_change
                 logger.info("rendezvous: worker %s joining", host)
 
     def remove_worker(self, host):
@@ -100,6 +116,7 @@ class RendezvousServer:
             self._next_hosts != self._cur_hosts
             and self._last_change is not None
             and time.time() - self._last_change >= self._grace_secs
+            and self._initial_world_ready_locked()
         ):
             new_hosts = list(self._next_hosts)
             addr = self._coordinator_addr
@@ -125,6 +142,13 @@ class RendezvousServer:
                 "addr": addr,
             }
         return None
+
+    def _initial_world_ready_locked(self):
+        """Whether the first commit may go ahead: the initial world has
+        joined, or its wait ran out.  Later commits never wait."""
+        if self._committed or len(self._next_hosts) >= self._initial_world:
+            return True
+        return time.time() - self._first_join >= INITIAL_WORLD_WAIT_SECS
 
     def get_comm_rank(self, host):
         """Return (rank, world_size, rendezvous_id, coordinator_addr).
@@ -162,6 +186,7 @@ class RendezvousServer:
                 self._rendezvous_id = staged["n"]
                 self._coordinator_addr = staged["addr"]
                 self._commit_inflight = False
+                self._committed = True
                 logger.info(
                     "rendezvous%s epoch %d: world=%s coordinator=%s",
                     " [%s]" % self._name if self._name else "",

@@ -104,6 +104,7 @@ class WorkerManager:
         self._watchers = []
         self._stopped = threading.Event()
         self._preempted = set()     # worker ids killed by preemption drill
+        self._started = False
 
     # -- wiring -------------------------------------------------------------
 
@@ -120,6 +121,12 @@ class WorkerManager:
     # -- lifecycle ----------------------------------------------------------
 
     def start(self):
+        """Launch the initial workers, once: a master that launches them
+        before it loads the model spec calls this again in prepare()."""
+        with self._lock:
+            if self._started:
+                return
+            self._started = True
         for _ in range(self._num_workers):
             self._launch_worker()
 

@@ -32,7 +32,11 @@ In the port:
  - ``prediction_outputs_processor`` receives a predict job's outputs
    (``process(outputs, worker_id)``, then ``flush()`` at each task's
    end); the worker installs ``NpzPredictionWriter`` where a spec sets
-   none.
+   none;
+ - ``ps_embedding_infos`` names the embedding tables the parameter
+   servers hold (``{"name", "dim", "initializer"}`` each; empty for a
+   dense model), and ``ps_optimizer`` is the shards' optimizer as
+   ``(opt_type, opt_args)`` flag strings, as in the JAX package.
 
 The functions below implement those maps for modules whose submodules
 carry flax's call-order names (``Conv_0``, ``Dense_1``): conv kernels
@@ -106,6 +110,10 @@ class ModelSpec:
     callbacks: list = dataclasses.field(default_factory=list)
     # A predict job's output sink (worker/prediction_outputs_processor).
     prediction_outputs_processor: typing.Any = None
+    # The parameter-server path: the tables the shards hold, and the
+    # shards' optimizer as (opt_type, opt_args) flag strings.
+    ps_embedding_infos: list = dataclasses.field(default_factory=list)
+    ps_optimizer: tuple = ("sgd", "learning_rate=0.1")
 
 
 def params_from_jax(named):

@@ -7,9 +7,10 @@ seconds.  Libraries land in ``ops/_build/`` (or in
 ``$ELASTICDL_TORCH_BUILD_DIR``) under a name that carries a hash of the
 flags and of every source and header in ``csrc/``: editing a source
 rebuilds it, an unchanged one is reused.  A library is written to a
-temporary name of its process and thread and renamed into place, so two
-processes that build it together (two workers starting on a cold cache)
-never load a torn file.
+temporary name of its process and thread and renamed into place, so no
+process loads a torn file.  A lock file beside each library makes one
+process build it while the others (two workers starting on a cold cache)
+wait for that build and load what it wrote.
 
 ``build_all()`` starts one ``nvcc`` per source, all together, and waits
 for them; ``library(name)`` builds one on demand.  Both raise on any
@@ -17,6 +18,7 @@ compiler failure with the compiler's output.
 """
 
 import ctypes
+import fcntl
 import glob
 import hashlib
 import os
@@ -68,16 +70,31 @@ def library_path(name):
 
 
 class _Build:
-    """One nvcc run; ``proc`` is None when the library is up to date."""
+    """One nvcc run; ``proc`` is None when the library is up to date or
+    another process holds its lock (``finish`` then waits for it)."""
 
     def __init__(self, name):
         self.name = name
         self.path = library_path(name)
         self.proc = None
         self.output = ""
+        self._lock_fd = None
+        self._waiting = False
         if os.path.isfile(self.path):
             return
         os.makedirs(BUILD_DIR, exist_ok=True)
+        self._lock_fd = os.open(self.path + ".lock",
+                                os.O_CREAT | os.O_RDWR, 0o644)
+        try:
+            fcntl.flock(self._lock_fd, fcntl.LOCK_EX | fcntl.LOCK_NB)
+        except BlockingIOError:
+            self._waiting = True  # another process is building it
+            return
+        self._start()
+
+    def _start(self):
+        if os.path.isfile(self.path):
+            return  # built by the process whose lock we waited for
         self.tmp = "%s.tmp-%d-%d" % (self.path, os.getpid(),
                                      threading.get_ident())
         cmd = [nvcc_path()] + NVCC_FLAGS + [
@@ -85,22 +102,36 @@ class _Build:
         self.proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
                                      stderr=subprocess.STDOUT)
 
+    def _unlock(self):
+        if self._lock_fd is not None:
+            os.close(self._lock_fd)  # releases the lock
+            self._lock_fd = None
+
     def finish(self):
-        if self.proc is None:
+        try:
+            if self._waiting:
+                fcntl.flock(self._lock_fd, fcntl.LOCK_EX)
+                self._waiting = False
+                self._start()  # builds only if that process failed
+            if self.proc is None:
+                return self.path
+            self.output = self.proc.communicate()[0].decode(
+                errors="replace")
+            if self.proc.returncode != 0:
+                if os.path.exists(self.tmp):
+                    os.remove(self.tmp)
+                raise RuntimeError("nvcc failed for %s.cu (exit %d):\n%s" % (
+                    self.name, self.proc.returncode, self.output))
+            os.replace(self.tmp, self.path)
             return self.path
-        self.output = self.proc.communicate()[0].decode(errors="replace")
-        if self.proc.returncode != 0:
-            if os.path.exists(self.tmp):
-                os.remove(self.tmp)
-            raise RuntimeError("nvcc failed for %s.cu (exit %d):\n%s" % (
-                self.name, self.proc.returncode, self.output))
-        os.replace(self.tmp, self.path)
-        return self.path
+        finally:
+            self._unlock()
 
     def kill(self):
         if self.proc is not None and self.proc.poll() is None:
             self.proc.kill()
             self.proc.wait()
+        self._unlock()
 
 
 def build_all():

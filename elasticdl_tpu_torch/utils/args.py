@@ -1,8 +1,9 @@
 """Command-line flags of the port's entry points (counterpart of
-``elasticdl_tpu/utils/args.py``).  Flags keep the JAX package's names
-and defaults, so the master re-serializes its parsed args into worker
-command lines (``build_arguments_from_parsed_result``) and a worker of
-either package parses a master's flags.  A flag value that selects a
+``elasticdl_tpu/utils/args.py``): the master, worker, PS shard and
+serving parsers.  Flags keep the JAX package's names and defaults, so
+the master re-serializes its parsed args into worker command lines
+(``build_arguments_from_parsed_result``) and a worker of either package
+parses a master's flags.  A flag value that selects a
 path the port has not ported yet raises ``NotImplementedError`` naming
 its ROADMAP item (``check_ported``); none is silently ignored.  The
 serving parser holds only the flags the port's server implements so
@@ -237,6 +238,46 @@ def build_worker_parser():
     return parser
 
 
+def build_ps_parser():
+    parser = argparse.ArgumentParser("elasticdl_tpu_torch.ps")
+    parser.add_argument("--port", type=int, default=0)
+    parser.add_argument("--ps_id", type=int, default=0)
+    parser.add_argument("--num_ps", type=int, default=1)
+    parser.add_argument("--master_addr", default="")
+    parser.add_argument("--opt_type", default="sgd")
+    parser.add_argument("--opt_args", default="learning_rate=0.1",
+                        help="k=v;k=v optimizer arguments")
+    parser.add_argument("--use_async", type=_str2bool, default=True)
+    parser.add_argument("--grads_to_wait", type=int, default=1)
+    parser.add_argument("--sync_version_tolerance", type=int, default=0)
+    parser.add_argument("--lr_staleness_modulation", type=_str2bool,
+                        default=False)
+    parser.add_argument("--checkpoint_dir", default="")
+    parser.add_argument("--checkpoint_steps", type=int, default=0)
+    parser.add_argument("--keep_checkpoint_max", type=int, default=3)
+    parser.add_argument("--checkpoint_dir_for_init", default="")
+    parser.add_argument("--generation", type=int, default=0,
+                        help="restart-generation hint from the "
+                             "launcher (PSManager passes its per-shard "
+                             "launch count); the shard serves as "
+                             "max(persisted+1, hint, 1) — see "
+                             "docs/ps_recovery.md")
+    parser.add_argument("--evaluation_steps", type=int, default=0)
+    parser.add_argument("--status_port", type=int, default=-1,
+                        help="HTTP observability port (/healthz "
+                             "/status /metrics); 0 = any free port, "
+                             "-1 (default) = disabled")
+    parser.add_argument("--rpc_delay_ms", type=float, default=0.0,
+                        help="benchmark aid: add fixed latency to every "
+                             "RPC to emulate a cross-host link on a "
+                             "single-host rig (0 = off)")
+    parser.add_argument("--rpc_fault_spec", default="",
+                        help="deterministic RPC fault injection on the "
+                             "PS service (same grammar as the master "
+                             "flag; docs/master_recovery.md)")
+    return parser
+
+
 def build_serving_parser():
     parser = argparse.ArgumentParser("elasticdl_tpu_torch.serving.server")
     parser.add_argument("--export_dir", required=True,
@@ -274,6 +315,10 @@ def parse_worker_args(argv=None):
     return build_worker_parser().parse_args(argv)
 
 
+def parse_ps_args(argv=None):
+    return build_ps_parser().parse_args(argv)
+
+
 def build_arguments_from_parsed_result(args, filter_args=(), defaults=None):
     """Re-serialize a Namespace into a flag list (reference
     elasticdl_client/api.py:128-139 round-trip pattern)."""
@@ -289,8 +334,6 @@ def build_arguments_from_parsed_result(args, filter_args=(), defaults=None):
 # flag value whose path the port has not ported.  Master-only flags are
 # absent from a worker's Namespace and read as their defaults.
 _UNPORTED = (
-    ("distribution_strategy", lambda v: v == "ps",
-     "the parameter-server strategy", "A8"),
     ("worker_backend", lambda v: v == "k8s",
      "the k8s worker backend", "A19"),
     ("jobs_spec", bool, "the multi-tenant scheduler", "A20"),

@@ -18,15 +18,21 @@ trainer's ZeRO-1; under ``local`` it trains alone, unsharded, as the JAX
 worker does).  A predict job's outputs go to the spec's
 ``prediction_outputs_processor``, by default an ``NpzPredictionWriter``
 into ``--prediction_outputs``; ``--profile_dir`` wraps the run in a
-``torch.profiler`` trace (``utils.timing.device_trace``).  The PS
-trainer (ROADMAP A8) and continuous export (A11) raise
-``NotImplementedError`` naming their item (``utils.args.check_ported``).
-At exit the worker logs its kernel launches (``kernel launches: {...}``)
+``torch.profiler`` trace (``utils.timing.device_trace``).  Under the
+``ps`` strategy the worker trains through the ``ParameterServerTrainer``
+against the shards in ``--ps_addrs`` (pulls and pushes ride a shard's
+relaunch, ``utils.retry.ps_rpc_policy``), its step on the same device.
+Continuous export (A11) raises ``NotImplementedError`` naming its item
+(``utils.args.check_ported``).
+On the card it compiles every kernel of ``ops/`` in the background as it
+starts.  At exit the worker logs its kernel launches (``kernel launches: {...}``)
 with the forward and backward passes its trainer ran.
 """
 
 import json
 import os
+import threading
+import time
 
 from elasticdl_tpu_torch.data.factory import create_data_reader
 from elasticdl_tpu_torch.models.spec import load_model_spec
@@ -95,9 +101,37 @@ def _build_collective_trainer(args, mc, spec, worker_id, device):
     return trainer
 
 
+def _prebuild_kernels():
+    """Compile every kernel of ``ops/`` in the background (one ``nvcc``
+    per source, together), so that a worker on a cold build directory
+    finds them built at its first step instead of building each on first
+    use; libraries already built are loaded as they are, and a build
+    another process holds is waited for (``ops/build.py``).  A failure
+    is logged: the step that needs the kernel raises it again."""
+    from elasticdl_tpu_torch.ops import build
+
+    def run():
+        start = time.perf_counter()
+        try:
+            outputs = build.build_all()
+        except Exception as e:  # noqa: BLE001 — see the docstring
+            logger.warning("kernel build failed: %s", e)
+            return
+        logger.info("kernels ready in %.1f s (%d of %d built by this "
+                    "process)", time.perf_counter() - start,
+                    sum(1 for text in outputs.values() if text),
+                    len(outputs))
+
+    thread = threading.Thread(target=run, name="kernel-build", daemon=True)
+    thread.start()
+    return thread
+
+
 def build_worker(args):
     check_ported(args)
     device = worker_device()
+    if device.type == "cuda":
+        _prebuild_kernels()
     use_float32_numerics()
     master_addr = args.master_addr or os.environ.get("MASTER_ADDR", "")
     worker_id = resolve_worker_id(args)
@@ -120,6 +154,8 @@ def build_worker(args):
         spec.prediction_outputs_processor = NpzPredictionWriter(
             args.prediction_outputs
         )
+    if args.distribution_strategy == "ps":
+        return _build_ps_worker(args, mc, spec, reader, worker_id, device)
     trainer = _build_collective_trainer(args, mc, spec, worker_id, device)
     logger.info("worker %d training on %s", worker_id, device)
     mem = trainer.zero1_report()
@@ -161,6 +197,44 @@ def build_worker(args):
         log_loss_steps=args.log_loss_steps,
         join_rendezvous=collective,
         elastic_controller=elastic,
+        fused_steps=args.fused_steps,
+        device_prefetch=args.device_prefetch,
+    )
+
+
+def _build_ps_worker(args, mc, spec, reader, worker_id, device):
+    """A worker of the parameter-server strategy (the JAX worker's PS
+    branch): the client rides a relaunched shard on its port, and the
+    pipelined trainer pushes on connections of their own."""
+    from elasticdl_tpu_torch.utils.retry import ps_rpc_policy
+    from elasticdl_tpu_torch.worker.ps_client import build_ps_client
+    from elasticdl_tpu_torch.worker.ps_trainer import ParameterServerTrainer
+
+    ps_client = build_ps_client(
+        args.ps_addrs, wire_dtype=args.ps_wire_dtype,
+        dedicated_push_channels=(
+            args.use_async and args.async_push_window > 0
+        ),
+        retry=ps_rpc_policy(),
+    )
+    trainer = ParameterServerTrainer(
+        spec, ps_client,
+        batch_size=args.batch_size,
+        master_client=mc,
+        rng_seed=args.seed,
+        atomic_sync=not args.use_async,
+        async_push_window=args.async_push_window,
+        # Every dense pull drains the push pipeline; a cadence > 1 is
+        # what gives the async push room to overlap compute.
+        get_model_steps=args.get_model_steps,
+        device=device,
+    )
+    logger.info("worker %d training on %s against PS %s", worker_id,
+                device, args.ps_addrs)
+    return Worker(
+        mc, reader, spec, trainer,
+        batch_size=args.batch_size,
+        log_loss_steps=args.log_loss_steps,
         fused_steps=args.fused_steps,
         device_prefetch=args.device_prefetch,
     )

@@ -12,6 +12,10 @@ the card across a re-formed world and gathers nothing before it, so the
 shards are lost when the new world lacks one, and the moments then
 restart from the parameters.
 
+``test_first_world_waits_for_the_launched_workers`` is the port's own:
+its rendezvous commits the first world once the master's launched
+workers have joined.
+
 The master is the port's in-process one (``master/master.py``, real gRPC
 on a localhost port) with the port's ``RendezvousServer``; everything is
 exact (epochs, ranks, counts), so no tolerance applies.
@@ -459,3 +463,27 @@ def test_controller_reannounces_at_unchanged_restart_epoch():
     assert ctrl.init_world_if_needed(force=True)
     assert ctrl._rendezvous.rank == 0
     assert ctrl._rendezvous.rendezvous_id > glimpsed
+
+
+def test_first_world_waits_for_the_launched_workers(monkeypatch):
+    """The master launches ``num_workers`` workers; the first epoch
+    commits their world, not the first arrival's (a short job would run
+    to its end in a world of one), and only after INITIAL_WORLD_WAIT_SECS
+    without the rest does it commit the workers it has.  Later epochs do
+    not wait."""
+    from elasticdl_tpu_torch.master import rendezvous
+
+    rs = RendezvousServer(grace_secs=0.0, initial_world=2)
+    rs.add_worker("h0")
+    assert rs.get_comm_rank("h0")[:3] == (-1, 0, 0)
+    rs.add_worker("h1")
+    assert rs.get_comm_rank("h0")[:3] == (0, 2, 1)
+    assert rs.get_comm_rank("h1")[:3] == (1, 2, 1)
+    rs.remove_worker("h1")
+    assert rs.get_comm_rank("h0")[:3] == (0, 1, 2)
+
+    late = RendezvousServer(grace_secs=0.0, initial_world=3)
+    late.add_worker("h0")
+    assert late.get_comm_rank("h0")[0] == -1
+    monkeypatch.setattr(rendezvous, "INITIAL_WORLD_WAIT_SECS", 0.0)
+    assert late.get_comm_rank("h0")[:3] == (0, 1, 1)

@@ -425,8 +425,7 @@ def test_data_factory_matches_the_reference(origin):
 
 
 @pytest.mark.parametrize("origin,item", [
-    ("synthetic_ctr:64", "A9"), ("imagefolder:/x", "A22"),
-    ("sql:a.db#t", "A22")])
+    ("a.db", "A22"), ("imagefolder:/x", "A22"), ("sql:a.db#t", "A22")])
 def test_unported_data_origins_name_their_item(origin, item):
     with pytest.raises(NotImplementedError, match=item):
         create_data_reader(origin)

@@ -191,7 +191,9 @@ def test_unknown_model_exits_1_fast(job_env):
     # export on it is not.
     (["--distribution_strategy", "collective", "--export_base", "/tmp/e",
       "--export_steps", "4"], "A11"),
-    (["--distribution_strategy", "ps"], "A8"),
+    # The PS strategy is ported; continuous export on it is not.
+    (["--distribution_strategy", "ps", "--export_base", "/tmp/e",
+      "--export_steps", "4"], "A11"),
     (["--worker_backend", "k8s"], "A19"),
     (["--jobs_spec", "[]"], "A20"),
     (["--export_base", "/tmp/e", "--export_steps", "4"], "A11"),
@@ -220,11 +222,11 @@ def test_ported_flag_values_pass_the_check(flags):
 
 
 def test_master_cli_refuses_an_unported_path(job_env):
-    job = Job(["--distribution_strategy", "ps", "--num_workers",
-               "1"], *job_env)
+    job = Job(["--export_base", "/tmp/e", "--export_steps", "4",
+               "--num_workers", "1"], *job_env)
     rc = job.finish(timeout=60)
     assert rc != 0
-    assert "NotImplementedError" in job.log and "ROADMAP A8" in job.log
+    assert "NotImplementedError" in job.log and "ROADMAP A11" in job.log
     assert "launched worker" not in job.log
 
 
