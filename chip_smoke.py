@@ -11,8 +11,9 @@ Phases, in order; any failure exits non-zero:
     process per source, all started together;
  3. forward kernel against plain: the GroupNorm forward (B1) against its
     plain PyTorch version at every GroupNorm shape of ResNet-50, at the
-    served batch (4) and at batch 32 in float32 and bfloat16 and at
-    bench.py's batch (128) in bfloat16, ReLU off and on, plus a
+    served batch (4) and at batch 32 in float32 and bfloat16, at
+    bench.py's batch (128) in bfloat16 and at the serving fleet's other
+    pad buckets (1, 2, 8) in float32, ReLU off and on, plus a
     large-mean case; then, per shape at batch 32 in both dtypes and at
     batch 128 in bfloat16, the kernel's time, the plain version's,
     F.group_norm's (a yardstick the port never calls) and the bound,
@@ -257,7 +258,31 @@ Phases, in order; any failure exits non-zero:
     the job ends exit 0 with no failed task, no worker relaunched and a
     newer committed label; recovery seconds.  The phase fails past
     PHASE22_BUDGET_S;
-23. one JSON line of kernels, then the card's name and power limit, then
+23. the serving fleet: seeded ResNet-50 exports (224x224x3, 1000
+    classes), version 1 (seed 0) in a versioned base.  Leg 1, in this
+    process: the port's ModelEndpoint with the micro-batcher
+    (--max_batch_size 8: pad buckets 1, 2, 4, 8, each warmed at load,
+    5 ms window) behind ``build_server``; FLEET_CLIENTS threads send
+    FLEET_REQUESTS requests each of 1-3 images, half JSON, half binary
+    frames: every answer 200 with its own rows, each row within
+    1e-3 * max|logit| of the served module run with the plain GroupNorm,
+    fewer batches than requests, ``batcher.warmed_models`` 1 on /statz,
+    B1 launched exactly 53 x (executed batches + 4 warmed buckets) and
+    no CUDA tensor handed to the plain GroupNorm; images/s, p50 and p99
+    latency, mean batch occupancy, the queue wait's p99; then the same
+    load with batching off (53 launches a request), and the same
+    requests all as binary frames, batched (what JSON costs).  Leg 2:
+    two replica processes (``python -m elasticdl_tpu_torch.serving.server
+    --fleet_managed true``, launched by the fleet's spawner, on the
+    card) behind the port's Router in this process; version 2 (seed 2)
+    published under a storm of keyed JSON and binary requests through
+    the router: every answer 200, stamped 1 or 2 and matching its
+    version's plain-GN reference, none sent after the commit barrier
+    stamped 1; then one replica sent SIGTERM: it exits 0 within its
+    grace, the router ejects it, no client sees an error; publish to
+    commit and SIGTERM to exit seconds.  The phase fails past
+    PHASE23_BUDGET_S;
+24. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Each phase prints its seconds on a line of its own as it ends (``phase
@@ -298,7 +323,11 @@ Tolerances (|got - ref| <= atol + rtol * |ref|):
  - MobileNetV2 and the jobs: MB_LOSS_RTOL, MB_FLOOR_X, MB_GRAD_MIN and
    JOB_ROW_TOL below;
  - DeepFM on the PS path, the card against the CPU: PS_LOSS_RTOL and
-   PS_GRAD_RTOL below.
+   PS_GRAD_RTOL below;
+ - the serving fleet: each served row against the plain-GN module on
+   that row, 1e-3 * max|logit| absolute, as the served logits above
+   (rows batched into other buckets than the reference's: cuDNN may
+   pick another algorithm for each batch size, so not bitwise).
 """
 
 import argparse
@@ -361,6 +390,9 @@ BENCH_STEPS = 10
 CHECK_BATCHES = ((SERVE_BATCH, ("float32", "bfloat16")),
                  (BENCH_BATCH, ("bfloat16",)),
                  (BATCH, ("float32", "bfloat16")))
+# The serving fleet's other pad buckets (phase 23 runs B1 at 1, 2, 4
+# and 8): the forward kernel against plain there too, float32.
+BUCKET_CHECKS = ((1, ("float32",)), (2, ("float32",)), (8, ("float32",)))
 # Kernels vs plain GroupNorm in training, float32 with TF32 off on both
 # sides.  The two GroupNorms round differently (sums in other orders),
 # by about 1e-6 relative per call; 53 layers forward and back carry that
@@ -622,7 +654,8 @@ def gn_sums(tot):
 
 def kernel_phase(torch, gn):
     """Kernel against plain at every ResNet-50 GroupNorm shape, at the
-    batches of CHECK_BATCHES; times at the (batch, dtype) of GN_TIMED."""
+    batches of BUCKET_CHECKS and CHECK_BATCHES; times at the (batch,
+    dtype) of GN_TIMED."""
     import torch.nn.functional as F
 
     dev = torch.device("cuda")
@@ -632,7 +665,7 @@ def kernel_phase(torch, gn):
     totals = new_totals()
     for HW, C, model_relu, count in RESNET50_GN:
         inputs = {}
-        for batch, names in CHECK_BATCHES:
+        for batch, names in BUCKET_CHECKS + CHECK_BATCHES:
             x = torch.randn(batch, HW, C, generator=gen, device=dev)
             scale = 1 + 0.1 * torch.randn(C, generator=gen, device=dev)
             bias = 0.1 * torch.randn(C, generator=gen, device=dev)
@@ -1606,7 +1639,7 @@ def serve_lm(torch, fa, export_dir, prompts, name="lm"):
     port = server.server_address[1]
     thread = threading.Thread(target=server.serve_forever, daemon=True)
     thread.start()
-    prompt_len, new = prompts.shape[-1], endpoint._snapshot().generate[
+    prompt_len, new = prompts.shape[-1], endpoint._snapshot()[0].generate[
         "max_new_tokens"]
     try:
         code, meta = http_json(port, "GET", "/v1/models/" + name)
@@ -1630,7 +1663,7 @@ def serve_lm(torch, fa, export_dir, prompts, name="lm"):
         server.shutdown()
         server.server_close()
         thread.join(timeout=60)
-    vocab = endpoint._snapshot().module.cfg.vocab_size
+    vocab = endpoint._snapshot()[0].module.cfg.vocab_size
     for batch, seq in zip(prompts, generated):
         if seq.shape != (batch.shape[0], prompt_len + new):
             fail("%s generated shape %s" % (name, seq.shape))
@@ -1836,7 +1869,7 @@ def transformer_phase(torch, fa, tmp):
               ["%.1f" % t for t in latencies],
               out["generated_tokens_per_s"], launches, cfg.num_layers))
 
-    served = endpoint._snapshot().module
+    served = endpoint._snapshot()[0].module
     out.update(check_lm_against_plain(torch, fa, served, cfg, prompts,
                                       generated, "lm"))
     with torch.inference_mode():
@@ -2297,7 +2330,7 @@ def moe_serving_phase(torch, fa, tmp):
               export_s, serve_s, MOE_REQUESTS, LM_BATCH, LM_PROMPT, LM_NEW,
               ["%.1f" % t for t in latencies],
               out["generated_tokens_per_s"], per_request))
-    served = endpoint._snapshot().module
+    served = endpoint._snapshot()[0].module
     # The kernel on the served path's own tensors: each of the first
     # request's prefill attention calls against its plain version; then
     # the served tokens against generate in process.
@@ -5399,6 +5432,528 @@ def ps_phase(torch, fa, gn):
     return out
 
 
+# The serving fleet (phase 23).  Leg 1, in this process: ResNet-50 at
+# 224 served by the port's batching ModelEndpoint behind build_server,
+# pad buckets 1, 2, 4, 8; FLEET_CLIENTS client threads send
+# FLEET_REQUESTS requests each of 1-3 images, half JSON and half binary
+# frames; then the same load with batching off (one predict at a time),
+# and the same requests all as frames, batched.
+# Leg 2: two replica processes (``python -m
+# elasticdl_tpu_torch.serving.server --fleet_managed true``, launched by
+# the fleet's ProcessReplicaSpawner) behind the port's Router in this
+# process; version 2 is published under a storm of keyed JSON and binary
+# requests and rolled out through the prepare/commit barrier, then one
+# replica is drained by SIGTERM.  Pixel values are integers 0-255 (raw
+# pixels; short JSON numbers).
+FLEET_IMAGE = 224
+FLEET_PARAMS = "variant=resnet50;num_classes=1000;image_size=%d" % FLEET_IMAGE
+FLEET_MAX_BATCH = 8
+FLEET_BUCKETS = 4                  # 1, 2, 4, 8: every one warmed at load
+FLEET_TIMEOUT_MS = 5.0
+FLEET_CLIENTS = 16
+FLEET_REQUESTS = 4
+FLEET_STORM_CLIENTS = 4
+FLEET_GRACE_S = 20.0               # a replica's --drain_grace_secs
+FLEET_READY_S = 60.0               # a replica's start-up limit
+FLEET_ROLLOUT_S = 60.0             # publish -> commit limit
+PHASE23_BUDGET_S = 90
+
+
+def _fleet_post(conn, path, blob, binary, tc):
+    """POST one request on a keep-alive connection; (status, raw)."""
+    conn.request("POST", path, body=blob, headers={
+        "Content-Type": tc.FRAME_CONTENT_TYPE if binary
+        else "application/json"})
+    resp = conn.getresponse()
+    return resp.status, resp.read()
+
+
+def _fleet_answer(tc, status, raw, binary, what):
+    """(rows, version) of a 200 answer in either wire; fails otherwise."""
+    if status != 200:
+        fail("%s: answered %d: %s" % (what, status, raw[:300]))
+    if binary:
+        frame = tc.decode_frame(raw)
+        rows = tc.unflatten_tree(frame.meta["tree"], frame.tensors)
+        return np.asarray(rows, np.float32), frame.model_version
+    out = json.loads(raw)
+    return np.asarray(out["predictions"], np.float32), out["model_version"]
+
+
+def _fleet_check_rows(rows, ref, what):
+    """Each row within 1e-3 * max|logit| of its plain-GN reference row
+    (phase 5's tolerance); returns the worst error relative to it."""
+    if rows.shape != ref.shape or not np.isfinite(rows).all():
+        fail("%s: rows of shape %s (want %s), finite %s"
+             % (what, rows.shape, ref.shape, np.isfinite(rows).all()))
+    worst = 0.0
+    for got, want in zip(rows, ref):
+        scale = float(np.abs(want).max())
+        err = float(np.abs(got - want).max())
+        if err > 1e-3 * scale:
+            fail("%s: a row off the plain-GN module by %.3g > %.3g"
+                 % (what, err, 1e-3 * scale))
+        worst = max(worst, err / scale)
+    return worst
+
+
+def _fleet_load(tc, port, plan):
+    """One thread per client of ``plan`` (per client: [(request id,
+    body, binary)]), each on its own keep-alive connection, started
+    together; returns ({id: (status, raw, binary)}, latencies in ms,
+    wall seconds)."""
+    path = "/v1/models/resnet50:predict"
+    answers, latencies, errors = {}, [], []
+    lock = threading.Lock()
+    start = threading.Barrier(len(plan) + 1)
+
+    def client(requests):
+        conn = http.client.HTTPConnection("127.0.0.1", port, timeout=600)
+        try:
+            start.wait()
+            for rid, blob, binary in requests:
+                t0 = time.perf_counter()
+                status, raw = _fleet_post(conn, path, blob, binary, tc)
+                ms = (time.perf_counter() - t0) * 1e3
+                with lock:
+                    answers[rid] = (status, raw, binary)
+                    latencies.append(ms)
+        except Exception as e:  # noqa: BLE001 - surfaced below
+            with lock:
+                errors.append(repr(e))
+        finally:
+            conn.close()
+
+    threads = [threading.Thread(target=client, args=(requests,),
+                                daemon=True) for requests in plan]
+    for t in threads:
+        t.start()
+    start.wait()
+    t0 = time.perf_counter()
+    for t in threads:
+        t.join(timeout=600)
+    wall = time.perf_counter() - t0
+    if errors:
+        fail("serving fleet, leg 1: client errors %s" % errors[:3])
+    return answers, latencies, wall
+
+
+def _plain_refs(torch, gn, module, images):
+    """The module's logits with the plain GroupNorm, in batches of the
+    top bucket; fails if the kernel launched."""
+    from elasticdl_tpu_torch.models import resnet
+
+    before = gn.LAUNCHES
+    with plain_group_norm(resnet, gn), torch.inference_mode():
+        refs = np.concatenate([
+            module(torch.from_numpy(images[i:i + FLEET_MAX_BATCH]).to(DEVICE))
+            .float().cpu().numpy()
+            for i in range(0, len(images), FLEET_MAX_BATCH)])
+    if gn.LAUNCHES != before:
+        fail("serving fleet: the plain reference launched the kernel")
+    return refs
+
+
+def fleet_leg1(torch, gn, tc, base):
+    """Leg 1 of phase 23; returns (the leg's numbers, the served
+    version-1 module)."""
+    from elasticdl_tpu_torch.serving.batcher import BatchConfig
+    from elasticdl_tpu_torch.serving.server import ModelEndpoint, build_server
+
+    rng = np.random.RandomState(23)
+    plan, frames_only, images, sizes = [], [], [], {}
+    for c in range(FLEET_CLIENTS):
+        requests, frames = [], []
+        for j in range(FLEET_REQUESTS):
+            rid = c * FLEET_REQUESTS + j
+            x = rng.randint(0, 256, (1 + rid % 3, FLEET_IMAGE, FLEET_IMAGE,
+                                     3)).astype(np.float32)
+            frame = tc.encode_frame({"instances": x}, kind="predict")
+            if (c + j) % 2:
+                requests.append((rid, frame, True))
+            else:
+                requests.append((rid, json.dumps(
+                    {"instances": x.tolist()}).encode(), False))
+            frames.append((rid, frame, True))
+            sizes[rid] = (sum(len(i) for i in images), len(x))
+            images.append(x)
+        plan.append(requests)
+        frames_only.append(frames)
+    images = np.concatenate(images)
+
+    # No CUDA tensor may reach the plain GroupNorm on the served path.
+    plain_on_card = [0]
+    fwd_ref = gn._fwd_ref
+
+    def counted_ref(x3, *args):
+        if x3.device.type == "cuda":
+            plain_on_card[0] += 1
+        return fwd_ref(x3, *args)
+
+    out = {}
+    gn._fwd_ref = counted_ref
+    try:
+        # The mixed load batched and serialized, then the same requests
+        # all as frames, batched: what JSON costs the executor.
+        for mode, load in (("batched", plan), ("serialized", plan),
+                           ("batched frames", frames_only)):
+            gn.LAUNCHES = 0
+            batching = (BatchConfig(max_batch_size=FLEET_MAX_BATCH,
+                                    batch_timeout_ms=FLEET_TIMEOUT_MS,
+                                    warm=True)
+                        if mode != "serialized" else None)
+            t0 = time.perf_counter()
+            endpoint = ModelEndpoint(base, device=DEVICE, batching=batching)
+            load_s = time.perf_counter() - t0
+            warm_launches = gn.LAUNCHES
+            server = build_server(endpoint, port=0)
+            port = server.server_address[1]
+            thread = threading.Thread(target=server.serve_forever,
+                                      daemon=True)
+            thread.start()
+            try:
+                answers, latencies, wall = _fleet_load(tc, port, load)
+                launches = gn.LAUNCHES
+                statz = json.loads(http_get(port, "/statz"))
+            finally:
+                server.shutdown()
+                server.server_close()
+                thread.join(timeout=60)
+                endpoint.close()
+            row = {"images_per_s": len(images) / wall, "wall_s": wall,
+                   "p50_ms": float(np.percentile(latencies, 50)),
+                   "p99_ms": float(np.percentile(latencies, 99)),
+                   "load_s": load_s, "launches": launches,
+                   "warm_launches": warm_launches}
+            got = {}
+            for rid, (status, raw, binary) in answers.items():
+                rows, version = _fleet_answer(
+                    tc, status, raw, binary,
+                    "serving fleet, leg 1, %s, request %d" % (mode, rid))
+                if version != 1:
+                    fail("serving fleet, leg 1: version %s, want 1"
+                         % version)
+                got[rid] = rows
+            if len(got) != FLEET_CLIENTS * FLEET_REQUESTS:
+                fail("serving fleet, leg 1: %d answers of %d" % (
+                    len(got), FLEET_CLIENTS * FLEET_REQUESTS))
+            row["answers"] = got
+            stats = statz["models"]["resnet50"]
+            counters = stats["counters"]
+            if batching is not None:
+                batches = counters.get("batcher.batches", 0)
+                if counters.get("batcher.warmed_models") != 1:
+                    fail("serving fleet, leg 1: /statz warmed_models %s, "
+                         "want 1" % counters.get("batcher.warmed_models"))
+                if counters.get("batcher.raw_requests"):
+                    fail("serving fleet, leg 1: %d requests took the raw "
+                         "path" % counters["batcher.raw_requests"])
+                if not batches < counters.get("batcher.requests", 0):
+                    fail("serving fleet, leg 1: %d batches for %d requests:"
+                         " nothing coalesced" % (
+                             batches, counters.get("batcher.requests", 0)))
+                want = GN_PER_FORWARD * (batches + FLEET_BUCKETS)
+                if launches != want or warm_launches != (
+                        GN_PER_FORWARD * FLEET_BUCKETS):
+                    fail("serving fleet, leg 1: B1 launched %d times (%d at "
+                         "warm-up) over %d batches and %d warmed buckets, "
+                         "want %d" % (launches, warm_launches, batches,
+                                      FLEET_BUCKETS, want))
+                wait_p99 = endpoint.timing.percentile("batcher.queue_wait",
+                                                      0.99)
+                row.update(
+                    batches=batches,
+                    requests=counters["batcher.requests"],
+                    padded_rows=counters.get("batcher.padded_rows", 0),
+                    mean_occupancy=stats["mean_batch_occupancy"],
+                    queue_wait_p99_ms=1e3 * wait_p99,
+                    queue_wait_mean_ms=1e3 * stats["timing"][
+                        "batcher.queue_wait"]["mean_s"],
+                    execute_mean_ms=1e3 * stats["timing"][
+                        "batcher.execute"]["mean_s"],
+                    warmup_s=stats["timing"]["batcher.warmup"]["total_s"])
+                if mode == "batched":
+                    served = endpoint.model.module
+            elif launches != GN_PER_FORWARD * len(answers):
+                fail("serving fleet, leg 1: B1 launched %d times over %d "
+                     "serialized requests, want %d each" % (
+                         launches, len(answers), GN_PER_FORWARD))
+            out[mode] = row
+            del endpoint
+    finally:
+        gn._fwd_ref = fwd_ref
+    if plain_on_card[0]:
+        fail("serving fleet, leg 1: %d CUDA tensors reached the plain "
+             "GroupNorm" % plain_on_card[0])
+    refs = _plain_refs(torch, gn, served, images)
+    for mode in out:
+        worst = 0.0
+        for rid, rows in out[mode].pop("answers").items():
+            start, n = sizes[rid]
+            worst = max(worst, _fleet_check_rows(
+                rows, refs[start:start + n],
+                "serving fleet, leg 1, %s, request %d" % (mode, rid)))
+        out[mode]["max_rel_err"] = worst
+    out["images"] = len(images)
+    out["requests"] = FLEET_CLIENTS * FLEET_REQUESTS
+    b, s, f = out["batched"], out["serialized"], out["batched frames"]
+    print("fleet leg 1: %d requests, %d images, half JSON half binary, "
+          "%d clients; batched: %.1f images/s, p50 %.1f ms, p99 %.1f ms, "
+          "%d batches (mean occupancy %.2f, %d padded rows), queue wait "
+          "p99 %.2f ms, mean %.2f ms, execute mean %.2f ms, load %.1f s "
+          "(warm-up %.2f s), B1 %d = %d x (%d + %d); serialized: %.1f "
+          "images/s, p50 %.1f ms, p99 %.1f ms; frames only, batched: %.1f "
+          "images/s, p50 %.1f ms, p99 %.1f ms, %d batches, execute mean "
+          "%.2f ms; max err / max|logit| %.3g / %.3g / %.3g" % (
+              out["requests"], out["images"], FLEET_CLIENTS,
+              b["images_per_s"], b["p50_ms"], b["p99_ms"], b["batches"],
+              b["mean_occupancy"], b["padded_rows"], b["queue_wait_p99_ms"],
+              b["queue_wait_mean_ms"], b["execute_mean_ms"], b["load_s"],
+              b["warmup_s"], b["launches"], GN_PER_FORWARD, b["batches"],
+              FLEET_BUCKETS,
+              s["images_per_s"], s["p50_ms"], s["p99_ms"], f["images_per_s"],
+              f["p50_ms"], f["p99_ms"], f["batches"], f["execute_mean_ms"],
+              b["max_rel_err"], s["max_rel_err"], f["max_rel_err"]),
+          flush=True)
+    return out, served
+
+
+def _fleet_ready(port, proc_poll, deadline, what):
+    """Wait until a replica's /statz shows its model warmed; fails if
+    the process exits or the deadline passes."""
+    while True:
+        if proc_poll() is not None:
+            fail("%s exited with %s before it served" % (what, proc_poll()))
+        try:
+            conn = http.client.HTTPConnection("127.0.0.1", port, timeout=5)
+            try:
+                conn.request("GET", "/statz")
+                resp = conn.getresponse()
+                body = resp.read()
+            finally:
+                conn.close()
+            if resp.status == 200:
+                models = json.loads(body)["models"]
+                if all(m["counters"].get("batcher.warmed_models") == 1
+                       for m in models.values()):
+                    return models
+        except OSError:
+            pass
+        if time.perf_counter() > deadline:
+            fail("%s not ready (warmed) within %.0f s" % (what,
+                                                          FLEET_READY_S))
+        time.sleep(0.2)
+
+
+def fleet_leg2(torch, gn, tc, base, module_v1, env):
+    """Leg 2 of phase 23; returns the leg's numbers."""
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.serving.export import export_servable
+    from elasticdl_tpu_torch.serving.fleet import ProcessReplicaSpawner
+    from elasticdl_tpu_torch.serving.router import Router, build_router_server
+
+    spec = load_model_spec("resnet", FLEET_PARAMS)
+    module_v2 = spec.init_fn(DEVICE)
+    module_v2.load_state_dict(spec.params_from_jax(
+        seeded_params(spec, module_v2, seed=2)))
+    rng = np.random.RandomState(24)
+    storm = rng.randint(0, 256, (FLEET_STORM_CLIENTS, 1, FLEET_IMAGE, FLEET_IMAGE, 3)
+                        ).astype(np.float32)
+    flat = storm.reshape(-1, FLEET_IMAGE, FLEET_IMAGE, 3)
+    refs = {1: _plain_refs(torch, gn, module_v1, flat),
+            2: _plain_refs(torch, gn, module_v2, flat)}
+    spawner = ProcessReplicaSpawner(base, env=env, extra_args=[
+        "--max_batch_size", str(FLEET_MAX_BATCH),
+        "--batch_timeout_ms", str(FLEET_TIMEOUT_MS),
+        "--drain_grace_secs", str(FLEET_GRACE_S)])
+    out = {}
+    router = front = None
+    t0 = time.perf_counter()
+    addrs = [spawner.spawn() for _ in range(2)]
+    try:
+        for addr in addrs:
+            _fleet_ready(int(addr.rsplit(":", 1)[1]),
+                         lambda a=addr: spawner.poll(a),
+                         t0 + FLEET_READY_S, "replica %s" % addr)
+        out["replicas_ready_s"] = time.perf_counter() - t0
+        router = Router(addrs, export_dir=base, probe_interval=0.2,
+                        poll_interval=0.25, barrier_timeout=FLEET_ROLLOUT_S)
+        front = build_router_server(router, port=0)
+        threading.Thread(target=front.serve_forever, daemon=True).start()
+        router.start()
+        deadline = time.perf_counter() + 10
+        while (router.coordinator.committed_version != 1
+               or len(router.state.routable(1)) != 2):
+            if time.perf_counter() > deadline:
+                fail("serving fleet, leg 2: the router did not seed "
+                     "version 1 over both replicas: %s"
+                     % (router.fleet_status(),))
+            time.sleep(0.05)
+
+        port = front.server_address[1]
+        log, errors = [], []
+        lock = threading.Lock()
+        stop = threading.Event()
+
+        def client(c):
+            x = storm[c]
+            blobs = (json.dumps({"instances": x.tolist(),
+                                 "routing_key": "storm-%d" % c}).encode(),
+                     tc.encode_frame({"instances": x}, kind="predict",
+                                     routing_key="storm-%d" % c))
+            conn = http.client.HTTPConnection("127.0.0.1", port,
+                                              timeout=120)
+            k = 0
+            try:
+                while not stop.is_set():
+                    binary = (c + k) % 2 == 1
+                    t_send = time.perf_counter()
+                    status, raw = _fleet_post(
+                        conn, "/v1/models/resnet50:predict",
+                        blobs[binary], binary, tc)
+                    with lock:
+                        log.append((c, t_send, time.perf_counter(),
+                                    status, raw, binary))
+                    if status != 200:
+                        # The connection may be closed after an error.
+                        conn.close()
+                    k += 1
+            except Exception as e:  # noqa: BLE001 - surfaced below
+                with lock:
+                    errors.append(repr(e))
+            finally:
+                conn.close()
+
+        threads = [threading.Thread(target=client, args=(c,), daemon=True)
+                   for c in range(FLEET_STORM_CLIENTS)]
+        for t in threads:
+            t.start()
+        try:
+            time.sleep(1.0)
+            export_servable(os.path.join(base, "2"), "resnet", FLEET_PARAMS,
+                            module_v2, storm[0], model_name="resnet50",
+                            version=2)
+            t_publish = time.perf_counter()
+            while router.coordinator.committed_version != 2:
+                if time.perf_counter() > t_publish + FLEET_ROLLOUT_S:
+                    fail("serving fleet, leg 2: version 2 not committed "
+                         "within %.0f s: %s" % (FLEET_ROLLOUT_S,
+                                                router.fleet_status()))
+                time.sleep(0.01)
+            t_commit = time.perf_counter()
+            out["publish_to_commit_s"] = t_commit - t_publish
+            time.sleep(1.0)
+            victim = addrs[1]
+            t_term = time.perf_counter()
+            spawner.drain(victim)
+            while spawner.poll(victim) is None:
+                if time.perf_counter() > t_term + FLEET_GRACE_S + 10:
+                    fail("serving fleet, leg 2: the drained replica did "
+                         "not exit within its grace (%.0f s)"
+                         % FLEET_GRACE_S)
+                time.sleep(0.01)
+            t_exit = time.perf_counter()
+            out["drain_s"] = t_exit - t_term
+            code = spawner.poll(victim)
+            if code != 0 or out["drain_s"] > FLEET_GRACE_S:
+                fail("serving fleet, leg 2: the drained replica exited "
+                     "%s after %.1f s (want 0 within %.0f s)"
+                     % (code, out["drain_s"], FLEET_GRACE_S))
+            while router.state.snapshot()[0][victim]["healthy"]:
+                if time.perf_counter() > t_exit + 10:
+                    fail("serving fleet, leg 2: the router did not eject "
+                         "the drained replica")
+                time.sleep(0.01)
+            out["eject_after_exit_s"] = time.perf_counter() - t_exit
+            time.sleep(0.5)
+        finally:
+            stop.set()
+            for t in threads:
+                t.join(timeout=120)
+        if errors:
+            fail("serving fleet, leg 2: client errors %s" % errors[:3])
+        _, counters = router.state.snapshot()
+        out["router_counters"] = counters
+    finally:
+        if router is not None:
+            router.stop()
+        if front is not None:
+            front.shutdown()
+            front.server_close()
+        spawner.close()
+    versions, worst = {1: 0, 2: 0}, 0.0
+    after_commit = after_term = 0
+    for c, t_send, t_recv, status, raw, binary in log:
+        rows, version = _fleet_answer(tc, status, raw, binary,
+                                      "serving fleet, leg 2, client %d" % c)
+        if version not in refs:
+            fail("serving fleet, leg 2: an answer stamped version %s"
+                 % version)
+        if version == 1 and t_send > t_commit:
+            fail("serving fleet, leg 2: a request sent %.3f s after the "
+                 "commit barrier answered version 1" % (t_send - t_commit))
+        versions[version] += 1
+        after_commit += t_send > t_commit
+        after_term += t_send > t_term
+        worst = max(worst, _fleet_check_rows(
+            rows, refs[version][c:c + 1],
+            "serving fleet, leg 2, version %d, client %d" % (version, c)))
+    if not (versions[1] and versions[2] and after_term):
+        fail("serving fleet, leg 2: answers by version %s, %d sent after "
+             "the SIGTERM" % (versions, after_term))
+    out.update(answers=len(log), by_version=versions,
+               sent_after_commit=after_commit, sent_after_sigterm=after_term,
+               max_rel_err=worst)
+    print("fleet leg 2: 2 replicas ready (warmed) %.1f s after launch; %d "
+          "storm answers, all 200 (version 1: %d, version 2: %d; %d sent "
+          "after the commit, %d after the SIGTERM), max err / max|logit| "
+          "%.3g; publish -> commit %.2f s; SIGTERM -> exit 0 %.2f s, "
+          "ejected %.2f s later; router %s" % (
+              out["replicas_ready_s"], len(log), versions[1], versions[2],
+              after_commit, after_term, worst, out["publish_to_commit_s"],
+              out["drain_s"], out["eject_after_exit_s"],
+              json.dumps(out["router_counters"], sort_keys=True)),
+          flush=True)
+    return out
+
+
+def fleet_phase(torch, gn):
+    """The serving fleet (module docstring, phase 23); fails past
+    PHASE23_BUDGET_S."""
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.ops import build
+    from elasticdl_tpu_torch.serving.export import export_servable
+    from elasticdl_tpu_torch.utils import tensor_codec as tc
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+
+    t0 = time.perf_counter()
+    use_float32_numerics()   # as the serving entry point: TF32 off
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["ELASTICDL_TORCH_DEVICE"] = DEVICE
+    env["ELASTICDL_TORCH_BUILD_DIR"] = build.BUILD_DIR
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+    spec = load_model_spec("resnet", FLEET_PARAMS)
+    module = spec.init_fn(DEVICE)
+    module.load_state_dict(spec.params_from_jax(
+        seeded_params(spec, module, seed=0)))
+    with tempfile.TemporaryDirectory() as tmp:
+        base = os.path.join(tmp, "resnet50")
+        export_servable(os.path.join(base, "1"), "resnet", FLEET_PARAMS,
+                        module, np.zeros((1, FLEET_IMAGE, FLEET_IMAGE, 3), np.float32),
+                        model_name="resnet50", version=1)
+        del module
+        leg1, served = fleet_leg1(torch, gn, tc, base)
+        out = {"leg1": leg1,
+               "leg2": fleet_leg2(torch, gn, tc, base, served, env)}
+    out["phase_s"] = time.perf_counter() - t0
+    if out["phase_s"] > PHASE23_BUDGET_S:
+        fail("serving fleet: the phase took %.1f s, past its budget of %d s"
+             % (out["phase_s"], PHASE23_BUDGET_S))
+    return out
+
+
 def main():
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--out", default="",
@@ -5486,6 +6041,7 @@ def main():
     del refs
     jobs = run("MobileNetV2, job types, surfaces", jobs_phase, torch, gn)
     ps = run("PS path, DeepFM", ps_phase, torch, fa, gn)
+    fleet = run("serving fleet", fleet_phase, torch, gn)
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -5509,6 +6065,12 @@ def main():
             w: c["group_norm_fwd"]
             for w, c in zero["cli"]["launches"].items()},
         "launches_predict_job": jobs["jobs"]["launches_predict_job"],
+        "launches_serving_fleet": {
+            "total": fleet["leg1"]["batched"]["launches"],
+            "per_batch": GN_PER_FORWARD,
+            "batches": fleet["leg1"]["batched"]["batches"],
+            "warmed_buckets": FLEET_BUCKETS,
+            "per_serialized_request": GN_PER_FORWARD},
         "max_abs_err": max_err["float32"],
         "ms": f32["ms"],
         "plain_ms": f32["plain_ms"],
@@ -5666,6 +6228,7 @@ def main():
                        "collective_lm": clm,
                        "jobs_phase": jobs,
                        "ps_path": ps,
+                       "serving_fleet": fleet,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

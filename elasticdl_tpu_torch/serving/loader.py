@@ -12,7 +12,10 @@ for a JAX ``export_generate`` export the caller passes ``generate=``)
 runs the zoo entry's ``generate_fn`` on each ``predict``.
 
 Inputs and outputs are one array or a tree (dicts, lists, tuples) of
-them, as the JAX servable takes and returns.
+them, as the JAX servable takes and returns.  An export's embedding
+tables (``emb_ids/<t>``, ``emb_vals/<t>``, either package's) load into
+``ServableModel.embeddings`` and answer ``lookup_embedding``, the
+``:lookup`` surface.  int8-quantized exports are refused (ROADMAP A11).
 
 Numerics: a float32 conv on the card runs through cuDNN in TF32 by
 default, and the JAX servable computes in float32.  Loading a servable
@@ -22,34 +25,48 @@ point (``serving/server.py:main``) turns TF32 off before it loads one.
 
 import json
 import os
+import shutil
 
 import numpy as np
 import torch
 
 from elasticdl_tpu_torch.models.spec import load_model_spec
-from elasticdl_tpu_torch.serving.export import FORMAT
+from elasticdl_tpu_torch.serving.export import FORMAT, load_export
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.pytree import tree_map
 
 JAX_FORMAT = "elasticdl_tpu_servable_v2"
 
 
-def list_versions(path):
+def list_versions(path, gc_incomplete=False):
     """Complete numeric versions under a TF-Serving-style base
     (``path/<N>/`` with a manifest.json; the exporter publishes a version
     dir atomically, so the manifest marks a finished export), sorted
-    ascending.  Empty when ``path`` is a direct export dir.  Staging
-    leftovers and manifest-less dirs are skipped."""
+    ascending.  Empty when ``path`` is a direct export dir.
+
+    Incomplete dirs are always skipped; with ``gc_incomplete`` they are
+    also removed: ``*.tmp-*`` staging leftovers of a crashed writer and
+    numeric dirs without a manifest.  ``*.old-*`` dirs are never reaped
+    (after a crash mid-swap one can be the only complete copy).  Only
+    the owner of the export base passes ``gc_incomplete``: a reader must
+    not reap another writer's staging dir."""
     if os.path.isfile(os.path.join(path, "manifest.json")):
         return []
     try:
         entries = os.listdir(path)
     except OSError:
         entries = []
-    return sorted(
-        int(entry) for entry in entries
-        if entry.isdigit() and os.path.isfile(
-            os.path.join(path, entry, "manifest.json")))
+    complete = []
+    for entry in entries:
+        sub = os.path.join(path, entry)
+        if entry.isdigit():
+            if os.path.isfile(os.path.join(sub, "manifest.json")):
+                complete.append(int(entry))
+            elif gc_incomplete and os.path.isdir(sub):
+                shutil.rmtree(sub, ignore_errors=True)
+        elif gc_incomplete and ".tmp-" in entry and os.path.isdir(sub):
+            shutil.rmtree(sub, ignore_errors=True)
+    return sorted(complete)
 
 
 def resolve_export_dir(path, version=None):
@@ -70,6 +87,13 @@ def resolve_export_dir(path, version=None):
             "no manifest.json in %r and no complete numeric version "
             "subdirectory under it" % path)
     return os.path.join(path, str(versions[-1]))
+
+
+def _writable(a):
+    """``a`` as an ndarray torch may wrap: a read-only view (a binary
+    frame's payload) is copied."""
+    a = np.asarray(a)
+    return a if a.flags.writeable else a.copy()
 
 
 def is_leaf_signature(signature):
@@ -111,8 +135,20 @@ class ServableModel:
         spec = load_model_spec(*zoo)
         if generate is not None and spec.generate_fn is None:
             raise ValueError("zoo entry %r serves no generation" % (zoo[0],))
-        with np.load(os.path.join(export_dir, "model.npz")) as z:
-            named = {key: z[key] for key in z.files}
+        named, self.embeddings = load_export(export_dir)
+        # Sorted-id index per table, built once: a lookup is then
+        # O(batch log table) through searchsorted.
+        self._emb_index = {}
+        for name, (ids, _values) in self.embeddings.items():
+            ids = np.asarray(ids)
+            order = np.argsort(ids, kind="stable")
+            srt = ids[order]
+            if len(srt) > 1:
+                # A repeated id keeps its last row (last write wins).
+                keep = np.ones(len(srt), bool)
+                keep[:-1] = srt[1:] != srt[:-1]
+                srt, order = srt[keep], order[keep]
+            self._emb_index[name] = (srt, order)
         self.module = spec.init_fn(self.device)
         self.module.load_state_dict(spec.params_from_jax(named))
         self._apply = spec.apply_fn
@@ -128,7 +164,7 @@ class ServableModel:
         with torch.inference_mode():
             if self.generate is not None:
                 return self._predict_generate(inputs)
-            x = tree_map(lambda a: torch.as_tensor(np.asarray(a),
+            x = tree_map(lambda a: torch.as_tensor(_writable(a),
                                                    device=self.device),
                          inputs)
             return tree_map(lambda t: t.cpu().numpy(),
@@ -163,6 +199,23 @@ class ServableModel:
         if is_leaf_signature(sig):
             return zeros(sig)
         return {key: zeros(sub) for key, sub in sig.items()}
+
+
+    def lookup_embedding(self, table, ids, default=0.0):
+        """Host-side rows of an exported embedding table for ``ids``,
+        vectorized against the sorted-id index; unknown ids get
+        ``default`` rows."""
+        _known_ids, values = self.embeddings[table]
+        sorted_ids, order = self._emb_index[table]
+        ids = np.asarray(ids).ravel()
+        dim = values.shape[1] if values.ndim > 1 else 1
+        out = np.full((len(ids), dim), default, values.dtype)
+        if len(sorted_ids):
+            pos = np.searchsorted(sorted_ids, ids)
+            pos = np.minimum(pos, len(sorted_ids) - 1)
+            hit = sorted_ids[pos] == ids
+            out[hit] = values.reshape(len(values), dim)[order[pos[hit]]]
+        return out
 
 
 def load_servable(export_dir, device=None, zoo=None, generate=None):

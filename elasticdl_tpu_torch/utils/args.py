@@ -1,13 +1,11 @@
 """Command-line flags of the port's entry points (counterpart of
-``elasticdl_tpu/utils/args.py``): the master, worker, PS shard and
-serving parsers.  Flags keep the JAX package's names and defaults, so
-the master re-serializes its parsed args into worker command lines
-(``build_arguments_from_parsed_result``) and a worker of either package
-parses a master's flags.  A flag value that selects a
+``elasticdl_tpu/utils/args.py``): the master, worker, PS shard, serving
+and fleet-router parsers.  Flags keep the JAX package's names and
+defaults, so the master re-serializes its parsed args into worker
+command lines (``build_arguments_from_parsed_result``) and a worker of
+either package parses a master's flags.  A flag value that selects a
 path the port has not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item (``check_ported``); none is silently ignored.  The
-serving parser holds only the flags the port's server implements so
-far."""
+its ROADMAP item (``check_ported``); none is silently ignored."""
 
 import argparse
 
@@ -278,17 +276,162 @@ def build_ps_parser():
     return parser
 
 
-def build_serving_parser():
-    parser = argparse.ArgumentParser("elasticdl_tpu_torch.serving.server")
+def add_serving_args(parser):
+    """Model-server flags (serving/server.py) — the TF-Serving
+    batching-config role, in-process."""
     parser.add_argument("--export_dir", required=True,
-                        help="one export dir, or a TF-Serving-style "
-                             "versioned base <base>/<N>/")
+                        help="one export dir, or several as "
+                             "name1=dir1,name2=dir2 (the TF-Serving "
+                             "model-config role)")
     parser.add_argument("--model_name", default=None)
     parser.add_argument("--port", type=int, default=8501)
     parser.add_argument("--host", default="0.0.0.0")
     parser.add_argument("--poll_interval", type=float, default=2.0,
                         help="seconds between version re-scans of a "
                              "TF-Serving-style <base>/<N>/ export dir")
+    parser.add_argument("--enable_batching", type=_str2bool,
+                        default=True,
+                        help="dynamic request micro-batching "
+                             "(serving/batcher.py); false restores the "
+                             "serialized per-request execution path")
+    parser.add_argument("--max_batch_size", type=int, default=32,
+                        help="row cap per coalesced predict batch; 1 "
+                             "also disables batching entirely")
+    parser.add_argument("--batch_timeout_ms", type=float, default=2.0,
+                        help="max time the executor waits to fill a "
+                             "batch; a lone request is flushed after "
+                             "at most this long (the latency floor / "
+                             "throughput tradeoff knob)")
+    parser.add_argument("--pad_buckets", default="",
+                        help="comma-separated batch sizes requests are "
+                             "padded up to (bounds the compiled-shape "
+                             "set); default: powers of two up to "
+                             "max_batch_size")
+    parser.add_argument("--warm_buckets", type=_str2bool, default=True,
+                        help="run every pad bucket once at load and "
+                             "hot-swap so no live request pays cuDNN's "
+                             "set-up for a new batch size")
+    parser.add_argument("--ps_addrs", default="",
+                        help="comma-separated TRAINING parameter-server "
+                             "addresses: :lookup for tables the export "
+                             "does not embed resolves against the live "
+                             "PS shards through the per-model hot-row "
+                             "cache (serving/embedding_service.py) — "
+                             "tables larger than one server's RAM "
+                             "serve from where they live (empty = "
+                             "export-embedded tables only)")
+    parser.add_argument("--emb_cache_mb", type=float, default=64.0,
+                        help="byte budget (MiB) for the PS-backed "
+                             "embedding hot-row LRU; version-keyed, "
+                             "invalidated on model hot-swap and PS "
+                             "restart-generation change; 0 disables "
+                             "caching (every lookup pays the PS round "
+                             "trip)")
+    parser.add_argument("--fleet_managed", type=_str2bool,
+                        default=False,
+                        help="replica runs under a fleet router "
+                             "(serving/router.py): local export-dir "
+                             "polling is DISABLED and version changes "
+                             "arrive only through the coordinator's "
+                             "/fleet/prepare + /fleet/commit barrier, "
+                             "so a replica rejoining mid-rollout can "
+                             "never regress the fleet's committed "
+                             "version off its own disk scan")
+    parser.add_argument("--drain_grace_secs", type=float, default=10.0,
+                        help="SIGTERM drain budget: the replica stops "
+                             "admitting (503 + Connection: close), "
+                             "lets in-flight batches finish up to this "
+                             "long, then exits")
+    parser.add_argument("--boot_version", type=int, default=-1,
+                        help="pin the INITIAL load to one export "
+                             "version instead of the newest complete "
+                             "one on disk; the fleet autoscaler "
+                             "launches replicas pinned to the "
+                             "committed version so a fresh spawn "
+                             "mid-canary cannot race ahead of the "
+                             "fleet off its own disk scan (-1 = "
+                             "newest)")
+
+
+def build_serving_parser():
+    parser = argparse.ArgumentParser("elasticdl_tpu_torch.serving.server")
+    add_serving_args(parser)
+    return parser
+
+
+def add_router_args(parser):
+    """Fleet-router flags (serving/router.py): N replicated model
+    servers behind one routing/hot-swap-coordination process."""
+    parser.add_argument("--replicas", required=True,
+                        help="comma-separated replica addresses "
+                             "(host:port of serving/server.py "
+                             "processes, --fleet_managed true)")
+    parser.add_argument("--export_dir", default="",
+                        help="versioned export base the fleet serves; "
+                             "the coordinator scans it for new "
+                             "complete versions and rolls them out "
+                             "fleet-wide (empty = no rollout "
+                             "coordination, routing only)")
+    parser.add_argument("--port", type=int, default=8500)
+    parser.add_argument("--host", default="0.0.0.0")
+    parser.add_argument("--probe_interval", type=float, default=0.5,
+                        help="seconds between /statz health probes of "
+                             "each replica (ejected replicas are "
+                             "re-probed with jittered backoff)")
+    parser.add_argument("--poll_interval", type=float, default=2.0,
+                        help="seconds between export-dir version scans "
+                             "(rollout cadence)")
+    parser.add_argument("--probe_timeout", type=float, default=2.0,
+                        help="health-probe HTTP timeout; a replica "
+                             "that misses one probe is ejected until "
+                             "a probe succeeds again")
+    parser.add_argument("--request_timeout", type=float, default=60.0,
+                        help="per-forward HTTP timeout toward a "
+                             "replica")
+    parser.add_argument("--barrier_timeout", type=float, default=120.0,
+                        help="max seconds to wait for every healthy "
+                             "replica to pre-warm an incoming version "
+                             "before the rollout attempt is abandoned "
+                             "and retried on the next scan")
+    parser.add_argument("--auto_rollout", type=_str2bool, default=True,
+                        help="false: the export-dir scan only SEEDS "
+                             "the committed version and heals lagging "
+                             "rejoiners — rollouts arrive exclusively "
+                             "through POST /fleet/rollout (the "
+                             "aggregation tier is the one rollout "
+                             "minter; docs/serving.md 'The online "
+                             "loop')")
+    # Autoscaler (serving/fleet.py FleetAutoscaler): spawn/drain
+    # serving replicas off the router's OWN telemetry.
+    parser.add_argument("--autoscale", type=_str2bool, default=False,
+                        help="grow/shrink the replica set off router "
+                             "telemetry: sustained queue-wait breach "
+                             "spawns a replica (up to --max_replicas), "
+                             "sustained idle drains one via the "
+                             "SIGTERM graceful-drain path (down to "
+                             "--min_replicas); spawned replicas boot "
+                             "pinned to the committed version")
+    parser.add_argument("--min_replicas", type=int, default=1)
+    parser.add_argument("--max_replicas", type=int, default=4)
+    parser.add_argument("--scale_up_queue_ms", type=float, default=25.0,
+                        help="mean probed queue-wait above this for "
+                             "--breach_secs = scale up")
+    parser.add_argument("--scale_down_queue_ms", type=float,
+                        default=2.0,
+                        help="queue-wait below this (and no in-flight "
+                             "backlog) for --idle_secs = scale down")
+    parser.add_argument("--breach_secs", type=float, default=3.0)
+    parser.add_argument("--idle_secs", type=float, default=10.0)
+    parser.add_argument("--autoscale_cooldown_secs", type=float,
+                        default=5.0,
+                        help="minimum seconds between scaling moves "
+                             "(lets the previous move's effect reach "
+                             "the telemetry before the next decision)")
+
+
+def build_router_parser():
+    parser = argparse.ArgumentParser("elasticdl_tpu_torch.serving.router")
+    add_router_args(parser)
     return parser
 
 

@@ -6,8 +6,8 @@ package name normalised (``elasticdl_tpu_torch`` read as
 imports JAX, so the JAX package's own tests of these modules
 (``tests/test_task_manager.py``, ``test_tensor_codec.py``,
 ``test_pserver.py``, ``test_native_kernels.py``, ``test_sync_atomic.py``,
-``test_ps_frame_wire.py``, ``test_ps_recovery.py`` and others) cover the
-port's copies too.  A copy that must change leaves this list in the same
+``test_ps_frame_wire.py``, ``test_ps_recovery.py``,
+``test_serving_fleet.py`` and others) cover the port's copies too.  A copy that must change leaves this list in the same
 change and gets a twin of its reference tests.
 """
 
@@ -19,6 +19,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 IDENTICAL = (
+    "client/frame_client.py",
     "data/parallel_reader.py", "data/reader.py", "data/recio.py",
     "data/recio_gen.py", "data/token_reader.py",
     "master/evaluation_service.py", "master/journal.py", "master/master.py",
@@ -27,6 +28,8 @@ IDENTICAL = (
     "native/bindings.py", "native/kernels.cc",
     "proto/elastic_pb2.py", "proto/rpc.py",
     "ps/optimizer.py", "ps/parameters.py", "ps/server.py", "ps/servicer.py",
+    "serving/batcher.py", "serving/embedding_service.py",
+    "serving/fleet.py", "serving/router.py",
     "utils/grpc_utils.py", "utils/hashing.py", "utils/hist.py",
     "utils/jsonline.py", "utils/metric_registry.py", "utils/metrics.py",
     "utils/prom.py", "utils/retry.py", "utils/slo.py",

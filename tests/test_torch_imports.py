@@ -75,7 +75,11 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "native.build", "native.bindings", "ps.parameters",
                  "ps.optimizer", "ps.servicer", "ps.server",
                  "master.ps_manager", "worker.ps_client",
-                 "worker.ps_trainer", "models.deepfm"):
+                 "worker.ps_trainer", "models.deepfm",
+                 # the serving fleet
+                 "serving.batcher", "serving.embedding_service",
+                 "serving.fleet", "serving.router", "serving.export",
+                 "serving.loader", "client.frame_client"):
         assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
@@ -142,15 +146,23 @@ def test_cuda_requested_without_a_card_raises(monkeypatch):
     assert device_mod.resolve_device("cpu") == torch.device("cpu")
 
 
+# Modules the port copies unchanged whose reference entries the lint
+# baseline holds.
+_COPIED = ("ps/", "serving/batcher.py", "serving/embedding_service.py",
+           "serving/fleet.py", "serving/router.py")
+
+
 def _port_baseline(baseline, tmp_path):
-    """The repo's baseline plus, for each entry of a parameter-server
-    module the port copies unchanged (``ps/``), the same entry for the
-    port's copy: the copy's deliberate lock-free reads are the
-    reference's, with the reference's reasons."""
+    """The repo's baseline plus, for each entry of a module the port
+    copies unchanged (``ps/``, the serving batcher and fleet tier), the
+    same entry for the port's copy: the copy's deliberate lock-free
+    reads and serialized predicts are the reference's, with the
+    reference's reasons."""
     with open(baseline) as f:
         lines = f.read().splitlines()
-    copied = [line.replace("elasticdl_tpu/ps/", "elasticdl_tpu_torch/ps/")
-              for line in lines if " elasticdl_tpu/ps/" in line]
+    copied = [line.replace(" elasticdl_tpu/", " elasticdl_tpu_torch/")
+              for line in lines
+              if any(" elasticdl_tpu/" + c in line for c in _COPIED)]
     path = tmp_path / "baseline.txt"
     path.write_text("\n".join(lines + copied) + "\n")
     return str(path)

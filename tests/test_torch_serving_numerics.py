@@ -5,6 +5,8 @@ that served float32 predictions compute in float32 on the card.  Both
 run on the CPU: the flags are process-wide settings whatever the
 device."""
 
+import signal
+
 import pytest
 import torch
 
@@ -48,5 +50,14 @@ def test_serving_entry_point_turns_tf32_off(tmp_path, tf32_on, monkeypatch):
             pass
 
     monkeypatch.setattr(tserver, "build_server", lambda *a, **k: Server())
-    assert tserver.main(["--export_dir", str(tmp_path)]) == 0
+    sigterm = signal.getsignal(signal.SIGTERM)
+    try:
+        # No bucket warm-up: six CPU forwards (buckets 1-32, the
+        # serving default) that this check does not need.
+        assert tserver.main(["--export_dir", str(tmp_path),
+                             "--warm_buckets", "false"]) == 0
+    finally:
+        # main arms SIGTERM for the drain; give the test process its
+        # handler back.
+        signal.signal(signal.SIGTERM, sigterm)
     assert tf32_flags() == (False, False)
