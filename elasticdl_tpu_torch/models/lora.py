@@ -24,15 +24,15 @@ W + (alpha / r) A @ B.  As in the JAX package:
 
 ``base_export`` names an export of the base LM (``model.npz`` in the JAX
 package's names, as ``transformer.export_generate`` writes it) to adapt:
-pretrain, export, adapt, serve merged.  Not ported yet: LoRA under a mesh
-(ROADMAP A18) and an int8 base export (A11).
+pretrain, export, adapt, serve merged; an int8 base export loads
+dequantized.  Not ported yet: LoRA under a mesh (ROADMAP A18).
 """
 
 import torch
 
 from elasticdl_tpu_torch.models import transformer as tfm
 from elasticdl_tpu_torch.models.spec import ModelSpec
-from elasticdl_tpu_torch.serving.export import load_export
+from elasticdl_tpu_torch.serving.export import load_payload
 from elasticdl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -128,7 +128,7 @@ def merged_params(module, scaling):
 
 def _load_base_export(base_export, base):
     """Load an export's weights into ``base`` by their JAX names."""
-    dense, _ = load_export(base_export)
+    dense, _ = load_payload(base_export)
     names = tfm.params_to_jax(base)
     missing = sorted(set(names) - set(dense))
     if missing:

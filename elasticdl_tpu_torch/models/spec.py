@@ -75,7 +75,17 @@ def to_jax_layout(value):
 
 def from_jax_layout(value):
     """The inverse of ``to_jax_layout``: an ndarray in the JAX layout ->
-    a CPU tensor in the module's layout."""
+    a CPU tensor in the module's layout.  A tensor maps to a tensor on
+    its own device, with torch operations only, so a servable program
+    traces the map (``serving/export.py``); a conv kernel comes out in
+    ``torch.channels_last`` memory, as the zoo's modules keep theirs."""
+    if isinstance(value, torch.Tensor):
+        if value.dim() == 4:
+            return value.permute(3, 2, 0, 1).contiguous(
+                memory_format=torch.channels_last)
+        if value.dim() == 2:
+            value = value.t()
+        return value.contiguous()
     value = np.asarray(value)
     if value.ndim == 4:
         value = value.transpose(3, 2, 0, 1)
@@ -104,9 +114,8 @@ class ModelSpec:
     to_jax_layout: typing.Callable = to_jax_layout
     from_jax_layout: typing.Callable = from_jax_layout
     # Training callbacks (``on_train_batch_begin(trainer)``,
-    # ``on_train_end(trainer)``) the worker calls; a non-empty list makes
-    # the master schedule a train-end task.  No zoo model of the port
-    # sets any yet (``models/callbacks.py`` is ROADMAP A11).
+    # ``on_train_end(trainer)``; ``models/callbacks.py``) the worker
+    # calls; a non-empty list makes the master schedule a train-end task.
     callbacks: list = dataclasses.field(default_factory=list)
     # A predict job's output sink (worker/prediction_outputs_processor).
     prediction_outputs_processor: typing.Any = None

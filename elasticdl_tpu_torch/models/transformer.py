@@ -624,6 +624,8 @@ def _to_jax_layout(value):
 
 
 def _from_jax_layout(value):
+    if isinstance(value, torch.Tensor):
+        return value
     return torch.from_numpy(np.array(value))
 
 

@@ -33,7 +33,11 @@ tensor goes through the plain versions (``_flash_ref``,
 JAX wrapper's route of unfriendly shapes to jnp has no counterpart: a
 head_dim the kernels do not take raises.  ``flash_attention_ref`` runs
 the same Function on the plain versions whatever the device, so a check
-on the card can compare with them; no model path calls it.
+on the card can compare with them; no model path calls it.  Where no
+input requires a gradient, ``flash_attention`` calls the forward as the
+custom op ``flash_attention_op`` (``elasticdl_tpu_torch::
+flash_attention_fwd``) instead, which ``torch.export`` captures in a
+servable program (``serving/export.py``).
 ``LAUNCHES``, ``PARTIAL_LAUNCHES``, ``BWD_DQ_LAUNCHES`` and
 ``BWD_DKV_LAUNCHES`` count kernel launches.
 """
@@ -384,8 +388,54 @@ def _apply(q, k, v, causal, scale, window, plain):
 def flash_attention(q, k, v, causal=True, scale=None, window=0):
     """q, k, v: [batch, heads, seq, head_dim] -> attention output in the
     same layout and q's dtype, differentiable: the kernels on the card,
-    the plain versions on the CPU."""
-    return _apply(q, k, v, causal, scale, window, plain=False)
+    the plain versions on the CPU.  Where no input requires a gradient
+    (inference), the forward runs as the custom op ``flash_attention_op``
+    and saves nothing."""
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _apply(q, k, v, causal, scale, window, plain=False)
+    scale = scale if scale is not None else q.shape[-1] ** -0.5
+    _check_window(window, causal)
+    _check_device(q)
+    return flash_attention_op(q, k, v, causal, scale, window)[0]
+
+
+# The forward as one custom op: ``torch.export`` cannot trace through the
+# ctypes launch (a fake tensor has no data pointer), so inference reaches
+# the kernel through this op, and an exported program holds one node per
+# attention call.  The CUDA implementation is ``flash_forward`` (the
+# kernel), the CPU implementation the plain version.  Declared through
+# ``torch.library.Library``, as ``ops/group_norm.py``'s op.
+
+_LIB = torch.library.Library("elasticdl_tpu_torch", "FRAGMENT")
+_LIB.define("flash_attention_fwd(Tensor q, Tensor k, Tensor v, bool causal, "
+            "float scale, int window) -> (Tensor, Tensor, Tensor)")
+
+
+def _op_cpu(q, k, v, causal, scale, window):
+    return _flash_ref(q, k, v, causal, scale, window)
+
+
+def _op_cuda(q, k, v, causal, scale, window):
+    return flash_forward(q, k, v, causal=causal, scale=scale, window=window)
+
+
+_LIB.impl("flash_attention_fwd", _op_cpu, "CPU")
+_LIB.impl("flash_attention_fwd", _op_cuda, "CUDA")
+
+
+@torch.library.register_fake("elasticdl_tpu_torch::flash_attention_fwd",
+                             lib=_LIB)
+def _(q, k, v, causal, scale, window):
+    # The kernel writes out with q's strides; the plain version's out is
+    # contiguous.
+    out = (torch.empty_like(q) if q.device.type == "cuda"
+           else q.new_empty(q.shape))
+    stat = q.new_empty(q.shape[:3], dtype=torch.float32)
+    return out, stat, torch.empty_like(stat)
+
+
+# ``flash_forward`` as an operator: (out, l, m); it carries no gradient.
+flash_attention_op = torch.ops.elasticdl_tpu_torch.flash_attention_fwd.default
 
 
 def flash_attention_ref(q, k, v, causal=True, scale=None, window=0):

@@ -20,8 +20,11 @@ compute differently.
 ``_FusedGroupNorm`` is the counterpart of the ``custom_vjp`` ``_fused``:
 its forward saves x, scale, bias and the f32 mean and rstd (never y) and
 its backward is the backward kernel.  ``fused_group_norm`` goes through
-it whenever grad is enabled; under ``no_grad``/``inference_mode`` it
-calls the forward alone and saves nothing.
+it whenever grad is enabled and an input requires it; otherwise it calls
+the forward alone, as the custom op ``group_norm_op``
+(``elasticdl_tpu_torch::group_norm_fwd``), and saves nothing: that op is
+what ``torch.export`` captures in a servable program
+(``serving/export.py``).
 
 Layout: channels-last ``[..., C]``; statistics per group over
 (spatial..., C/G), as flax.linen.GroupNorm computes them, with the
@@ -394,8 +397,57 @@ def fused_group_norm(x, scale, bias, num_groups, eps=1e-6, relu=False):
             "group_norm kernel takes channels-last memory; got shape %s "
             "strides %s (keep activations in torch.channels_last)"
             % (tuple(x.shape), x.stride()))
-    if torch.is_grad_enabled():
+    if torch.is_grad_enabled() and any(
+            t.requires_grad for t in (x, scale, bias)):
         return _FusedGroupNorm.apply(x, scale, bias, num_groups, eps, relu)
-    y3 = group_norm_fwd(x.reshape(x.shape[0], -1, C), scale, bias,
-                        num_groups, eps, relu)[0]
-    return y3.view(x.shape)
+    return group_norm_op(x, scale, bias, num_groups, eps, relu)[0]
+
+
+# -- the forward as one custom op ---------------------------------------------
+#
+# ``torch.export`` cannot trace through the ctypes launch (a fake tensor has
+# no data pointer), so inference reaches the forward kernel through this op:
+# an exported program holds one node per GroupNorm, and running the program
+# on the card launches the kernel.  The CUDA implementation is the kernel,
+# the CPU implementation the plain version; both are looked up at call time.
+# It is declared through ``torch.library.Library``, not ``custom_op``,
+# whose Python wrapper imports ``torch._dynamo`` at a process's first
+# call.
+
+_LIB = torch.library.Library("elasticdl_tpu_torch", "FRAGMENT")
+_LIB.define("group_norm_fwd(Tensor x, Tensor scale, Tensor bias, "
+            "int num_groups, float eps, bool relu) -> (Tensor, Tensor, "
+            "Tensor)")
+
+
+def _op_cpu(x, scale, bias, num_groups, eps, relu):
+    B, C = x.shape[0], x.shape[-1]
+    y3, mean, rstd = _fwd_ref(x.reshape(B, -1, C), scale, bias, num_groups,
+                              eps, relu)
+    return y3.reshape(x.shape).contiguous(), mean, rstd
+
+
+def _op_cuda(x, scale, bias, num_groups, eps, relu):
+    # The [B, HW, C] view is taken here, on the tensor the program
+    # runs with, so a program holds no reshape (or copy) of x.
+    if not x.is_contiguous():
+        _check_x3(x)
+    y3, mean, rstd = _fwd_cuda(x.view(x.shape[0], -1, x.shape[-1]), scale,
+                               bias, num_groups, eps, relu)
+    return y3.view(x.shape), mean, rstd
+
+
+_LIB.impl("group_norm_fwd", _op_cpu, "CPU")
+_LIB.impl("group_norm_fwd", _op_cuda, "CUDA")
+
+
+@torch.library.register_fake("elasticdl_tpu_torch::group_norm_fwd", lib=_LIB)
+def _(x, scale, bias, num_groups, eps, relu):
+    stat = x.new_empty((x.shape[0], 1, x.shape[-1]), dtype=torch.float32)
+    return x.new_empty(x.shape), stat, torch.empty_like(stat)
+
+
+# ``group_norm_fwd`` as an operator: x [B, spatial..., C], contiguous on
+# the card -> (y like x, mean [B, 1, C] f32, rstd [B, 1, C] f32); it
+# carries no gradient.
+group_norm_op = torch.ops.elasticdl_tpu_torch.group_norm_fwd.default

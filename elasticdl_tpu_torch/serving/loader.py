@@ -1,21 +1,37 @@
 """Loader for servable exports (counterpart of
 ``elasticdl_tpu/serving/loader.py``).
 
-Reads the port's ``elasticdl_tpu_torch_servable_v1`` exports, whose
-manifest names the zoo entry that rebuilds the module, and the
-``model.npz`` of the JAX package's ``elasticdl_tpu_servable_v2`` exports
-when the caller names the zoo entry (``zoo=("resnet",
-"variant=resnet50")``): both store weights in the JAX package's flat
-names and layouts.  A generation export (a manifest with a
-``"generate"`` block, written by ``models/transformer.export_generate``;
-for a JAX ``export_generate`` export the caller passes ``generate=``)
-runs the zoo entry's ``generate_fn`` on each ``predict``.
+Three routes, chosen by the manifest:
+
+ - the program route: a port export whose manifest names a program
+   (``"program": "model.pt2"``, ``serving/export.py``) runs that
+   ``torch.export`` program on the weights of ``model.npz``.  It needs
+   no model zoo: this module imports ``serving/export.py`` (the payload
+   codec), ``utils`` and ``ops`` (which register the kernels' custom
+   ops), never ``models``, ``worker`` or ``master``.  A program written
+   on one device runs on the other (``move_to_device_pass``).  A program
+   that fails to load raises; the loader never rebuilds the module from
+   the zoo in its place;
+ - the zoo route: a port export without a program (written before the
+   program existed, or a generation export) rebuilds the module from the
+   manifest's zoo entry; a JAX package's ``elasticdl_tpu_servable_v2``
+   export loads its ``model.npz`` the same way when the caller names the
+   zoo entry (``zoo=("resnet", "variant=resnet50")``).  Both store
+   weights in the JAX package's flat names and layouts.  A generation
+   export (a manifest with a ``"generate"`` block; for a JAX
+   ``export_generate`` export the caller passes ``generate=``) runs the
+   zoo entry's ``generate_fn`` on each ``predict``.
+
+Feature prefixes on the format tag gate what this copy understands, as
+in the reference: ``int8-weights+`` and ``int8-emb+`` are dequantized at
+load; any other prefix (``frame+``, the aggregation tier's source
+carrier, among them) is refused at load.
 
 Inputs and outputs are one array or a tree (dicts, lists, tuples) of
 them, as the JAX servable takes and returns.  An export's embedding
 tables (``emb_ids/<t>``, ``emb_vals/<t>``, either package's) load into
 ``ServableModel.embeddings`` and answer ``lookup_embedding``, the
-``:lookup`` surface.  int8-quantized exports are refused (ROADMAP A11).
+``:lookup`` surface.
 
 Numerics: a float32 conv on the card runs through cuDNN in TF32 by
 default, and the JAX servable computes in float32.  Loading a servable
@@ -23,6 +39,7 @@ changes no process-wide setting (as the JAX loader); the serving entry
 point (``serving/server.py:main``) turns TF32 off before it loads one.
 """
 
+import io
 import json
 import os
 import shutil
@@ -30,8 +47,16 @@ import shutil
 import numpy as np
 import torch
 
-from elasticdl_tpu_torch.models.spec import load_model_spec
-from elasticdl_tpu_torch.serving.export import FORMAT, load_export
+from elasticdl_tpu_torch.ops import flash_attention as _fa  # noqa: F401
+from elasticdl_tpu_torch.ops import group_norm as _gn  # noqa: F401
+from elasticdl_tpu_torch.serving.export import (
+    FORMAT,
+    FORWARD_PROGRAM,
+    LAYOUT_PROGRAM,
+    PROGRAM_LOCK,
+    load_payload,
+    program_archives,
+)
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.pytree import tree_map
 
@@ -102,13 +127,87 @@ def is_leaf_signature(signature):
     return isinstance(signature.get("shape"), list)
 
 
+KNOWN_PREFIXES = ("int8-weights", "int8-emb")
+
+
+def _check_format(fmt):
+    """(base format, prefixes); refuses an unknown feature prefix."""
+    *prefixes, base = fmt.split("+")
+    if base not in (FORMAT, JAX_FORMAT) or set(prefixes) - set(
+            KNOWN_PREFIXES):
+        raise ValueError(
+            "not a servable export this loader understands: format=%r "
+            "(known feature prefixes: %s)" % (fmt, sorted(KNOWN_PREFIXES)))
+    return base
+
+
+def load_program(path, device):
+    """The programs of the file at ``path``, moved to ``device``, as two
+    callable modules: (layout, forward)."""
+    from torch.export.passes import move_to_device_pass
+
+    with open(path, "rb") as f:
+        archives = program_archives(f.read())
+    with PROGRAM_LOCK:
+        return tuple(
+            move_to_device_pass(torch.export.load(io.BytesIO(
+                archives[name])), str(device)).module()
+            for name in (LAYOUT_PROGRAM, FORWARD_PROGRAM))
+
+
+def _ordered(tree, signature):
+    """``tree`` with every dict's keys in the signature's order (the
+    order the program was traced with), each leaf's shape held to the
+    signature (a None dim takes any size).  The loader checks here what
+    the program's own input check would: that check also walks every
+    state tensor, on every call."""
+    if isinstance(signature, dict) and is_leaf_signature(signature):
+        want = signature["shape"]
+        shape = tuple(tree.shape)
+        if len(shape) != len(want) or any(
+                w is not None and w != d for w, d in zip(want, shape)):
+            raise ValueError("input of shape %s, the servable takes %s"
+                             % (list(shape), want))
+        return tree
+    if isinstance(signature, dict):
+        if not isinstance(tree, dict) or set(tree) != set(signature):
+            raise ValueError("inputs %s, the servable takes %s" % (
+                sorted(tree) if isinstance(tree, dict) else type(tree),
+                sorted(signature)))
+        return {key: _ordered(tree[key], signature[key])
+                for key in signature}
+    if len(tree) != len(signature):
+        raise ValueError("%d inputs, the servable takes %d"
+                         % (len(tree), len(signature)))
+    return type(tree)(_ordered(t, sig) for t, sig in zip(tree, signature))
+
+
+def _weights(export_dir):
+    """(dense, embeddings, sorted-id index per table) of an export.  The
+    index is built once: a lookup is then O(batch log table) through
+    searchsorted."""
+    named, embeddings = load_payload(export_dir)
+    index = {}
+    for name, (ids, _values) in embeddings.items():
+        ids = np.asarray(ids)
+        order = np.argsort(ids, kind="stable")
+        srt = ids[order]
+        if len(srt) > 1:
+            # A repeated id keeps its last row (last write wins).
+            keep = np.ones(len(srt), bool)
+            keep[:-1] = srt[1:] != srt[:-1]
+            srt, order = srt[keep], order[keep]
+        index[name] = (srt, order)
+    return named, embeddings, index
+
+
 class ServableModel:
     """One loaded export on one device.  ``zoo``: ``(module,
     model_params)`` naming the zoo entry; required for a JAX-written
-    export, and overrides the manifest's for a port export.
-    ``generate``: ``{prompt_len, max_new_tokens, temperature}`` of a
-    JAX-written ``export_generate`` export (its manifest does not carry
-    them); a port export's manifest does."""
+    export, and for a port export it takes the zoo route with that
+    entry.  ``generate``: ``{prompt_len, max_new_tokens, temperature}``
+    of a JAX-written ``export_generate`` export (its manifest does not
+    carry them); a port export's manifest does."""
 
     def __init__(self, export_dir, device=None, zoo=None, generate=None):
         export_dir = resolve_export_dir(export_dir)
@@ -116,39 +215,36 @@ class ServableModel:
         self.device = resolve_device(device)
         with open(os.path.join(export_dir, "manifest.json")) as f:
             self.manifest = json.load(f)
-        fmt = self.manifest.get("format", "")
-        if fmt == FORMAT:
+        base = _check_format(self.manifest.get("format", ""))
+        named, self.embeddings, self._emb_index = _weights(export_dir)
+        self.program = self.module = None
+        if base == FORMAT:
+            program = self.manifest.get("program")
+            if zoo is None and program and not generate:
+                layout, self.program = load_program(
+                    os.path.join(export_dir, program), self.device)
+                # The weights in the module's layouts, on the device,
+                # once per loaded version: the layout program takes them
+                # as one dict in the manifest's (sorted) order.
+                with torch.inference_mode():
+                    self._state = layout({
+                        name: torch.as_tensor(_writable(named[name])).to(
+                            self.device)
+                        for name in self.manifest["parameters"]})
+                self.generate = None
+                return
             zoo = zoo or (self.manifest["zoo"]["module"],
                           self.manifest["zoo"]["model_params"])
             generate = generate or self.manifest.get("generate")
-        elif fmt == JAX_FORMAT:
-            # Plain-weights JAX exports only: a feature prefix
-            # ("int8-weights+...") is refused by the equality above.
-            if zoo is None:
-                raise ValueError(
-                    "a JAX-written export carries no zoo entry; pass "
-                    "zoo=(module, model_params)")
-        else:
+        elif zoo is None:
             raise ValueError(
-                "not a servable export this loader understands: "
-                "format=%r" % fmt)
+                "a JAX-written export carries no zoo entry; pass "
+                "zoo=(module, model_params)")
+        from elasticdl_tpu_torch.models.spec import load_model_spec
+
         spec = load_model_spec(*zoo)
         if generate is not None and spec.generate_fn is None:
             raise ValueError("zoo entry %r serves no generation" % (zoo[0],))
-        named, self.embeddings = load_export(export_dir)
-        # Sorted-id index per table, built once: a lookup is then
-        # O(batch log table) through searchsorted.
-        self._emb_index = {}
-        for name, (ids, _values) in self.embeddings.items():
-            ids = np.asarray(ids)
-            order = np.argsort(ids, kind="stable")
-            srt = ids[order]
-            if len(srt) > 1:
-                # A repeated id keeps its last row (last write wins).
-                keep = np.ones(len(srt), bool)
-                keep[:-1] = srt[1:] != srt[:-1]
-                srt, order = srt[keep], order[keep]
-            self._emb_index[name] = (srt, order)
         self.module = spec.init_fn(self.device)
         self.module.load_state_dict(spec.params_from_jax(named))
         self._apply = spec.apply_fn
@@ -157,18 +253,24 @@ class ServableModel:
 
     def predict(self, inputs):
         """Inputs matching ``manifest['input_signature']`` (an array, or
-        a tree of them) -> the module's outputs as ndarrays, in the same
-        tree.  A generation export takes prompt ids [B, prompt_len] (or,
-        when it samples, ``{"prompt": ..., "seed": s}``) and answers
-        prompt + generated ids [B, prompt_len + max_new_tokens] int32."""
+        a tree of them) -> the outputs as ndarrays, in the same tree.  A
+        generation export takes prompt ids [B, prompt_len] (or, when it
+        samples, ``{"prompt": ..., "seed": s}``) and answers prompt +
+        generated ids [B, prompt_len + max_new_tokens] int32."""
         with torch.inference_mode():
             if self.generate is not None:
                 return self._predict_generate(inputs)
             x = tree_map(lambda a: torch.as_tensor(_writable(a),
                                                    device=self.device),
                          inputs)
-            return tree_map(lambda t: t.cpu().numpy(),
-                            self._apply(self.module, x, False))
+            if self.program is not None:
+                # ``forward``, past the module's call hooks: the
+                # program's input check is ``_ordered``'s.
+                out = self.program.forward(self._state, _ordered(
+                    x, self.manifest["input_signature"]))
+            else:
+                out = self._apply(self.module, x, False)
+            return tree_map(lambda t: t.cpu().numpy(), out)
 
     def _predict_generate(self, inputs):
         settings = self.generate

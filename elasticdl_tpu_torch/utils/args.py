@@ -1,11 +1,12 @@
 """Command-line flags of the port's entry points (counterpart of
-``elasticdl_tpu/utils/args.py``): the master, worker, PS shard, serving
-and fleet-router parsers.  Flags keep the JAX package's names and
-defaults, so the master re-serializes its parsed args into worker
-command lines (``build_arguments_from_parsed_result``) and a worker of
-either package parses a master's flags.  A flag value that selects a
-path the port has not ported yet raises ``NotImplementedError`` naming
-its ROADMAP item (``check_ported``); none is silently ignored."""
+``elasticdl_tpu/utils/args.py``): the master, worker, PS shard,
+serving, fleet-router and aggregation-tier parsers.  Flags keep the JAX
+package's names and defaults, so the master re-serializes its parsed
+args into worker command lines (``build_arguments_from_parsed_result``)
+and a worker of either package parses a master's flags.  A flag value
+that selects a path the port has not ported yet raises
+``NotImplementedError`` naming its ROADMAP item (``check_ported``); none
+is silently ignored."""
 
 import argparse
 
@@ -435,6 +436,79 @@ def build_router_parser():
     return parser
 
 
+def build_aggregator_parser():
+    """Aggregation-tier flags (aggregation/main.py): the daemon
+    between trainer exports and the serving fleet (docs/serving.md
+    'The online loop')."""
+    parser = argparse.ArgumentParser("elasticdl_tpu_torch.aggregation")
+    parser.add_argument("--source_dir", required=True,
+                        help="trainer continuous-export base "
+                             "(--export_base on the worker): scanned "
+                             "for new complete versions every "
+                             "--poll_interval")
+    parser.add_argument("--publish_dir", required=True,
+                        help="fleet export base: aggregated servable "
+                             "versions are published here atomically "
+                             "and rolled out through the router")
+    parser.add_argument("--model_name", default="")
+    parser.add_argument("--window", type=int, default=4,
+                        help="aggregate over the last W ingested "
+                             "exports (version-deduped)")
+    parser.add_argument("--agg_mode", default="ema",
+                        choices=["ema", "mean", "latest"],
+                        help="ema: decay-weighted toward the newest "
+                             "export; mean: uniform; latest: no "
+                             "aggregation (pass-through)")
+    parser.add_argument("--ema_decay", type=float, default=0.5)
+    parser.add_argument("--freshness_slo_secs", type=float,
+                        default=10.0,
+                        help="publish-freshness objective: seconds "
+                             "between a trainer export landing and "
+                             "its aggregate publishing; breaches are "
+                             "counted (slo_misses) and the live value "
+                             "rides to the router's /metrics as "
+                             "elasticdl_agg_freshness_seconds")
+    parser.add_argument("--publish_interval_secs", type=float,
+                        default=0.0,
+                        help="publish throttle: minimum seconds "
+                             "between publishes (each publish costs "
+                             "the fleet a rollout); 0 = publish on "
+                             "every new ingest")
+    parser.add_argument("--export_keep", type=int, default=8,
+                        help="retention over the publish base: keep "
+                             "the newest N published versions; the "
+                             "fleet's committed version and anything "
+                             "newer are NEVER removed (0 = keep "
+                             "everything)")
+    parser.add_argument("--router_addr", default="",
+                        help="fleet router host:port — each publish "
+                             "is driven through POST /fleet/rollout "
+                             "(or the canary endpoints); empty = "
+                             "publish only, something else rolls out")
+    parser.add_argument("--poll_interval", type=float, default=1.0)
+    parser.add_argument("--canary_fraction", type=float, default=0.0,
+                        help="canary-first rollouts: slice this "
+                             "fraction of the key ring onto canary "
+                             "replicas, soak, then promote "
+                             "barrier-clean or roll back off the "
+                             "router's per-cohort error counters "
+                             "(0 = plain fleet-wide rollouts)")
+    parser.add_argument("--canary_soak_secs", type=float, default=15.0)
+    parser.add_argument("--canary_max_error_ratio", type=float,
+                        default=0.02,
+                        help="canary error budget over the soak "
+                             "window; above it the canary is rolled "
+                             "back instead of promoted")
+    parser.add_argument("--ingest_port", type=int, default=-1,
+                        help="streamed-ingest HTTP endpoint (POST "
+                             "/ingest takes model.frame blobs from "
+                             "the trainer's ContinuousExporter — the "
+                             "cross-host path needing no shared "
+                             "filesystem); 0 picks a free port, -1 "
+                             "disables (filesystem ingest only)")
+    return parser
+
+
 def parse_opt_args(opt_args):
     """Parse ``k=v;k=v`` strings; numbers become floats."""
     out = {}
@@ -480,7 +554,6 @@ _UNPORTED = (
     ("worker_backend", lambda v: v == "k8s",
      "the k8s worker backend", "A19"),
     ("jobs_spec", bool, "the multi-tenant scheduler", "A20"),
-    ("export_base", bool, "continuous servable export", "A11"),
 )
 
 

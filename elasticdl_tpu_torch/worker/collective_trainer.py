@@ -106,10 +106,16 @@ hold the whole state in original shapes, gathered at the cadence by
 every rank of the world (``checkpoint_writer`` says which one writes),
 and move between ZeRO-1 on, off and the JAX package.
 
-Left for later slices: the servable exporter (A11) and meshes with axes
-other than dp (A4c); the constructor's ``exporter`` accepts only its
-default and otherwise raises ``NotImplementedError`` naming the item, as
-does such a mesh.
+Continuous servable export (the online-learning loop's trainer half):
+with an ``exporter`` (``serving/export.ContinuousExporter``) and
+``export_steps``, every ``export_steps`` optimizer steps the parameters
+are copied to the host on the training thread and the versioned
+servable is written on the checkpoints' single background writer, as
+the JAX trainer does; ``serving_bundle`` is fixed by the first
+minibatch's features.  Worker 0 alone exports (``worker/main.py``).
+
+Left for later slices: meshes with axes other than dp (A4c), which raise
+``NotImplementedError`` naming the item.
 """
 
 import concurrent.futures
@@ -120,6 +126,8 @@ import torch
 
 from elasticdl_tpu_torch.models.spec import jax_name
 from elasticdl_tpu_torch.parallel import transport
+from elasticdl_tpu_torch.serving.export import ServingFunction
+from elasticdl_tpu_torch.utils import tracing
 from elasticdl_tpu_torch.utils.args import not_ported
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.logging import get_logger
@@ -265,6 +273,14 @@ def _identity(t):
     return t
 
 
+def _host_zeros(a):
+    """A host ndarray of zeros with ``a``'s shape and dtype, without
+    copying ``a`` (which may be a tensor on the card)."""
+    if isinstance(a, torch.Tensor):
+        return torch.zeros(a.shape, dtype=a.dtype).numpy()
+    return np.zeros(np.shape(a), np.asarray(a).dtype)
+
+
 def _nonce():
     """A random 62-bit id (a ZeRO-1 layout's, see ``_exchange_shards``)."""
     return int.from_bytes(os.urandom(8), "little") >> 2
@@ -308,8 +324,6 @@ class CollectiveTrainer(Trainer):
         export_steps=0,
         checkpoint_writer=True,
     ):
-        if exporter is not None or export_steps:
-            raise not_ported("continuous servable export", "A11")
         self._spec = spec
         self._batch_size = batch_size
         self._accum_steps = accum_steps
@@ -320,6 +334,12 @@ class CollectiveTrainer(Trainer):
         # Whether the checkpoint cadence writes; a rank that does not
         # still joins a ZeRO-1 world's gather at it.
         self._checkpoint_writer = checkpoint_writer
+        # Continuous servable export: every export_steps optimizer steps
+        # a complete versioned servable lands at the exporter's base.
+        self._exporter = exporter
+        self._export_steps = export_steps if exporter is not None else 0
+        self._export_future = None
+        self._example_features = None
         self._use_bf16_compute = use_bf16_compute
         self._device = resolve_device(device)
         self.timing = Timing(logger=logger)
@@ -745,6 +765,11 @@ class CollectiveTrainer(Trainer):
         mask) and reshape for accumulation, on CPU tensors.  It touches
         no device, so it may run on the prefetch producer thread; the
         step's thread copies the result to the card."""
+        if self._example_features is None:
+            # Shape/dtype skeleton of one raw minibatch (host arrays, or
+            # tensors already on the card): it fixes the serving
+            # signature of the servable exports.
+            self._example_features = tree_map(_host_zeros, features)
         with self.timing.timeit("batch_prep"):
             batch = tree_map(_host_tensor, (features, labels))
             n = int(tree_leaves(batch)[0].shape[0])
@@ -795,6 +820,10 @@ class CollectiveTrainer(Trainer):
             dists.append(
                 self._checkpoint_steps
                 - self._version % self._checkpoint_steps
+            )
+        if self._export_steps:
+            dists.append(
+                self._export_steps - self._version % self._export_steps
             )
         return min(dists) if dists else None
 
@@ -884,6 +913,8 @@ class CollectiveTrainer(Trainer):
                 self._queue_checkpoint(self._whole_state())
             elif sharded:
                 self._whole_state()
+        if self._export_steps and self._version % self._export_steps == 0:
+            self.export_servable_now()
 
     def _forward(self, features):
         """Inference on this process's copy of the parameters: in a
@@ -956,6 +987,41 @@ class CollectiveTrainer(Trainer):
     def export_parameters(self):
         """``{JAX name: ndarray}`` in the JAX layouts (host copies)."""
         return self._spec.params_to_jax(self._module)
+
+    def serving_bundle(self):
+        """(serving function, parameters, example input) for a servable
+        export (``serving/export.write_servable``); None before the
+        first minibatch fixed the signature."""
+        if self._example_features is None:
+            return None
+        return (ServingFunction(self._spec, self._module),
+                self.export_parameters(), self._example_features)
+
+    def export_servable_now(self):
+        """The continuous-export hook (``export_steps`` cadence): copy
+        the parameters to the host here (the next step updates them in
+        place), then write the versioned servable on the checkpoints'
+        background writer, so the step pays the copy, never the
+        serialization and fsync.  The first export also traces the
+        program, here on the training thread (``ContinuousExporter.
+        prime``); the exporter keeps it.  A failed write surfaces at the
+        next export, as checkpoint writes do."""
+        bundle = self.serving_bundle()
+        if bundle is None or self._exporter is None:
+            return
+        with self.timing.timeit("servable_export"):
+            serve, params, example = bundle
+            version = self._version
+            self._exporter.prime(serve, params, example)
+            if self._ckpt_executor is None:
+                self._ckpt_executor = concurrent.futures.ThreadPoolExecutor(
+                    max_workers=1, thread_name_prefix="ckpt-write"
+                )
+            self._surface_export_errors(wait=True)
+            tracing.event("worker.servable_export", version=version)
+            self._export_future = self._ckpt_executor.submit(
+                self._exporter.export, version, serve, params, example)
+        self.timing.bump("servable_exports")
 
     def save_checkpoint(self):
         """Params AND optimizer state (``opt/``-prefixed): a restore must
@@ -1065,11 +1131,25 @@ class CollectiveTrainer(Trainer):
                     "async checkpoint write failed: %s" % (e,)
                 ) from e
 
+    def _surface_export_errors(self, wait):
+        future = self._export_future
+        if future is None:
+            return
+        if wait or future.done():
+            self._export_future = None
+            try:
+                future.result()
+            except Exception as e:  # noqa: BLE001 — IO / trace errors
+                raise RuntimeError(
+                    "async servable export failed: %s" % (e,)
+                ) from e
+
     def flush_checkpoints(self):
-        """Join pending checkpoint writes and retire the writer thread;
-        the next save recreates it."""
+        """Join pending checkpoint and export writes and retire the
+        writer thread; the next save recreates it."""
         try:
             self._surface_checkpoint_errors(wait=True)
+            self._surface_export_errors(wait=True)
         finally:
             if self._ckpt_executor is not None:
                 self._ckpt_executor.shutdown(wait=True)

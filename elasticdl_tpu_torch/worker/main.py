@@ -22,8 +22,11 @@ into ``--prediction_outputs``; ``--profile_dir`` wraps the run in a
 ``ps`` strategy the worker trains through the ``ParameterServerTrainer``
 against the shards in ``--ps_addrs`` (pulls and pushes ride a shard's
 relaunch, ``utils.retry.ps_rpc_policy``), its step on the same device.
-Continuous export (A11) raises ``NotImplementedError`` naming its item
-(``utils.args.check_ported``).
+``--export_base D --export_steps N`` makes worker 0 alone (the
+parameters are replicated, so its copy is the model) write a versioned
+servable every N optimizer steps (``serving/export.ContinuousExporter``;
+``--export_wire frame`` writes ``model.frame`` for the aggregation
+tier, ``aggregation/main.py``).
 On the card it compiles every kernel of ``ops/`` in the background as it
 starts.  At exit the worker logs its kernel launches (``kernel launches: {...}``)
 with the forward and backward passes its trainer ran.
@@ -79,6 +82,22 @@ def _build_collective_trainer(args, mc, spec, worker_id, device):
         saver = CheckpointSaver(
             args.checkpoint_dir, keep_max=args.keep_checkpoint_max
         )
+    exporter = None
+    export_steps = getattr(args, "export_steps", 0)
+    if getattr(args, "export_base", "") and export_steps:
+        if worker_id != 0:
+            # Same single-writer rule as checkpointing: the parameters
+            # are replicated, so worker 0's exports are the model.
+            export_steps = 0
+        else:
+            from elasticdl_tpu_torch.serving.export import (
+                ContinuousExporter,
+            )
+
+            exporter = ContinuousExporter(
+                args.export_base, model_name=args.job_name,
+                wire_format=getattr(args, "export_wire", "npz"),
+            )
     trainer = CollectiveTrainer(
         spec,
         batch_size=args.batch_size,
@@ -95,6 +114,8 @@ def _build_collective_trainer(args, mc, spec, worker_id, device):
         rng_seed=args.seed,
         device=device,
         zero1=args.zero1,
+        exporter=exporter,
+        export_steps=export_steps,
     )
     if saver is not None:
         trainer.init_from_checkpoint()

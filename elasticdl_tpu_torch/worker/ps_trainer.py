@@ -52,6 +52,7 @@ import numpy as np
 import torch
 
 from elasticdl_tpu_torch.models.spec import jax_name
+from elasticdl_tpu_torch.serving.export import ServingFunction
 from elasticdl_tpu_torch.utils import tracing
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.logging import get_logger
@@ -165,6 +166,7 @@ class ParameterServerTrainer(Trainer):
         }
         self._version = 0
         self._steps = 0
+        self._example_serving_input = None
         self._push_model_to_init()
         self._seen_gen_epoch = getattr(ps_client, "generation_epoch", 0)
 
@@ -536,6 +538,15 @@ class ParameterServerTrainer(Trainer):
             (features, labels), self._batch_size
         )
         features, emb_inputs, push_info = self._prepare_embeddings(features)
+        if self._example_serving_input is None:
+            # Serving signature: the feature dict with the looked-up
+            # emb__<table> rows merged in, exactly what apply_fn sees.
+            merged = dict(features) if emb_inputs else features
+            for table, rows in (emb_inputs or {}).items():
+                merged["emb__" + table] = rows
+            self._example_serving_input = tree_map(
+                lambda a: np.zeros(np.shape(a), np.asarray(a).dtype),
+                merged)
         with self.timing.timeit("batch_process"):
             loss, dense_grads, row_grads = self.grad_step(
                 features, labels, weights, emb_inputs)
@@ -637,3 +648,15 @@ class ParameterServerTrainer(Trainer):
         """{JAX name: ndarray in the JAX layout} of the dense part."""
         return {name: self._spec.to_jax_layout(p)
                 for _, name, p in self._params}
+
+    def serving_bundle(self):
+        """Servable over (dense parameters, features + emb__<table>
+        rows): the server looks embedding rows up host-side from the
+        exported tables (``:lookup``) and feeds them as emb__<table>
+        inputs, the PS-path analog of the reference's localized
+        SavedModel (model_handler.py:171-236).  None before the first
+        minibatch."""
+        if self._example_serving_input is None:
+            return None
+        return (ServingFunction(self._spec, self.module),
+                self.export_parameters(), self._example_serving_input)

@@ -7,7 +7,8 @@ imports JAX, so the JAX package's own tests of these modules
 (``tests/test_task_manager.py``, ``test_tensor_codec.py``,
 ``test_pserver.py``, ``test_native_kernels.py``, ``test_sync_atomic.py``,
 ``test_ps_frame_wire.py``, ``test_ps_recovery.py``,
-``test_serving_fleet.py`` and others) cover the port's copies too.  A copy that must change leaves this list in the same
+``test_serving_fleet.py``, ``test_online_loop.py`` and others) cover
+the port's copies too.  A copy that must change leaves this list in the same
 change and gets a twin of its reference tests.
 """
 
@@ -19,6 +20,7 @@ import pytest
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 IDENTICAL = (
+    "aggregation/__init__.py", "aggregation/main.py",
     "client/frame_client.py",
     "data/parallel_reader.py", "data/reader.py", "data/recio.py",
     "data/recio_gen.py", "data/token_reader.py",

@@ -79,7 +79,10 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  # the serving fleet
                  "serving.batcher", "serving.embedding_service",
                  "serving.fleet", "serving.router", "serving.export",
-                 "serving.loader", "client.frame_client"):
+                 "serving.loader", "client.frame_client",
+                 # the online-learning loop: callbacks, aggregation
+                 "models.callbacks", "aggregation.aggregator",
+                 "aggregation.main"):
         assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 

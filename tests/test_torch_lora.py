@@ -162,7 +162,9 @@ def test_adapt_from_base_export(tmp_path):
 
 def test_int8_base_export_is_not_ported(tmp_path):
     """An export whose weights are int8 with a scale (the JAX package's
-    ``q8/<name>``, ``q8scale/<name>`` entries) is refused, naming A11."""
+    ``q8/<name>``, ``q8scale/<name>`` entries) loads as a LoRA base: the
+    base gets the dequantized weights (int8 exports are ported, ROADMAP
+    A11; the name is kept from when they were refused)."""
     spec = tfm.model_spec(**LM_KW)
     module = spec.init_fn("cpu")
     export_dir = str(tmp_path / "q8")
@@ -177,8 +179,12 @@ def test_int8_base_export_is_not_ported(tmp_path):
     payload["q8scale/layers/wq"] = np.float32(scale)
     np.savez(path, **payload)
     spec = lora.model_spec(rank=2, base_export=export_dir, **LM_KW)
-    with pytest.raises(NotImplementedError, match="A11"):
-        spec.init_fn("cpu")
+    loaded = spec.init_fn("cpu")
+    want = payload["q8/layers/wq"].astype(np.float32) * np.float32(scale)
+    np.testing.assert_array_equal(
+        loaded.base.state_dict()["layers.wq"].numpy(), want)
+    np.testing.assert_array_equal(
+        loaded.base.state_dict()["layers.wk"].numpy(), payload["layers/wk"])
 
 
 def test_mlp_targets_and_gqa_window_variant():

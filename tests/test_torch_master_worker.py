@@ -351,14 +351,23 @@ def test_prepare_batch_touches_no_device(monkeypatch):
 
 @pytest.mark.parametrize("kwargs,item", [
     # A mesh of dp alone is ported; other axes under the trainer are A4c.
-    ({"mesh": SimpleNamespace(shape={"dp": 1, "sp": 2})}, "A4c"),
-    # Continuous export asked for by its cadence alone.
-    ({"export_steps": 4}, "A11"),
-    ({"exporter": object(), "export_steps": 4}, "A11")])
+    ({"mesh": SimpleNamespace(shape={"dp": 1, "sp": 2})}, "A4c")])
 def test_unported_trainer_options_name_their_item(kwargs, item):
     with pytest.raises(NotImplementedError, match=item):
         CollectiveTrainer(mnist.model_spec(), batch_size=8, device="cpu",
                           **kwargs)
+
+
+@pytest.mark.parametrize("kwargs,steps", [
+    # A cadence without an exporter exports nothing, as the JAX trainer.
+    ({"export_steps": 4}, 0),
+    ({"exporter": object(), "export_steps": 4}, 4)])
+def test_trainer_export_options_are_ported(kwargs, steps):
+    """Continuous export (A11): the trainer takes an exporter and its
+    cadence (tests/test_torch_aggregation.py runs it)."""
+    trainer = CollectiveTrainer(mnist.model_spec(), batch_size=8,
+                                device="cpu", **kwargs)
+    assert trainer._export_steps == steps
 
 
 # -- Timing and data: the copies agree with the reference -------------------

@@ -187,16 +187,8 @@ def test_unknown_model_exits_1_fast(job_env):
 
 
 @pytest.mark.parametrize("flags,item", [
-    # The collective strategy is ported (ZeRO-1 on it too); continuous
-    # export on it is not.
-    (["--distribution_strategy", "collective", "--export_base", "/tmp/e",
-      "--export_steps", "4"], "A11"),
-    # The PS strategy is ported; continuous export on it is not.
-    (["--distribution_strategy", "ps", "--export_base", "/tmp/e",
-      "--export_steps", "4"], "A11"),
     (["--worker_backend", "k8s"], "A19"),
     (["--jobs_spec", "[]"], "A20"),
-    (["--export_base", "/tmp/e", "--export_steps", "4"], "A11"),
 ])
 def test_unported_flag_values_name_their_item(flags, item):
     with pytest.raises(NotImplementedError, match=r"ROADMAP %s\b" % item):
@@ -212,21 +204,29 @@ def test_unported_flag_values_name_their_item(flags, item):
     ["--status_port", "0"], ["--profile_dir", "/tmp/p"],
     ["--profile_dir", "/tmp/p", "--zero1", "true"],
     ["--distribution_strategy", "collective", "--job_type", "predict",
-     "--status_port", "0", "--profile_dir", "/tmp/p"]])
+     "--status_port", "0", "--profile_dir", "/tmp/p"],
+    # Continuous export (A11), under each strategy; the PS strategy's
+    # workers take no exporter, as the JAX package's.
+    ["--distribution_strategy", "collective", "--export_base", "/tmp/e",
+     "--export_steps", "4"],
+    ["--distribution_strategy", "ps", "--export_base", "/tmp/e",
+     "--export_steps", "4"],
+    ["--export_base", "/tmp/e", "--export_steps", "4", "--export_wire",
+     "frame"]])
 def test_ported_flag_values_pass_the_check(flags):
     """Predict and evaluate jobs (A21), the status server and device
-    traces (A15) are ported: neither parser's check refuses them."""
+    traces (A15) and continuous export (A11) are ported: neither
+    parser's check refuses them."""
     check_ported(parse_master_args(flags))
     if "--status_port" not in flags:      # a master-only flag
         check_ported(parse_worker_args(flags))
 
 
 def test_master_cli_refuses_an_unported_path(job_env):
-    job = Job(["--export_base", "/tmp/e", "--export_steps", "4",
-               "--num_workers", "1"], *job_env)
+    job = Job(["--worker_backend", "k8s", "--num_workers", "1"], *job_env)
     rc = job.finish(timeout=60)
     assert rc != 0
-    assert "NotImplementedError" in job.log and "ROADMAP A11" in job.log
+    assert "NotImplementedError" in job.log and "ROADMAP A19" in job.log
     assert "launched worker" not in job.log
 
 

@@ -106,8 +106,10 @@ def test_batched_responses_bit_identical_to_unbatched(tmp_path):
                   for k in range(8)]
         want = [plain.predict(b)["predictions"] for b in bodies]
         got = [None] * len(bodies)
+        start = threading.Barrier(len(bodies))
 
         def hit(k):
+            start.wait()
             got[k] = batched.predict(bodies[k])["predictions"]
 
         threads = [threading.Thread(target=hit, args=(k,))

@@ -59,11 +59,26 @@ def model_spec(kind="linear", bias=0.0, n_in=4, n_out=2, **_unused):
         name="exact_" + kind, init_fn=init_fn,
         apply_fn=lambda module, x, train: module(x), feed=None,
         params_from_jax=lambda named: {
-            k: torch.from_numpy(np.array(v, np.float32))
+            k: v if isinstance(v, torch.Tensor)
+            else torch.from_numpy(np.array(v, np.float32))
             for k, v in named.items()},
         params_to_jax=lambda module: {
             k: v.detach().cpu().numpy().copy()
             for k, v in module.state_dict().items()})
+
+
+def _model_params(kind, bias, n_in, n_out):
+    return "kind=%s;bias=%r;n_in=%d;n_out=%d" % (kind, float(bias), n_in,
+                                                 n_out)
+
+
+def serving_function(kind="linear", bias=0.0, n_in=4, n_out=2):
+    """The ``kind`` model as a ``serving.export.ServingFunction`` (what
+    a ``ContinuousExporter`` traces)."""
+    spec = model_spec(kind, bias, n_in, n_out)
+    return texport.ServingFunction(
+        spec, spec.init_fn("cpu"),
+        zoo=(MODULE, _model_params(kind, bias, n_in, n_out)))
 
 
 def export(path, params, example, kind="linear", bias=0.0, **kwargs):
@@ -71,8 +86,7 @@ def export(path, params, example, kind="linear", bias=0.0, **kwargs):
     (``{name: ndarray}``); ``kwargs`` go to the exporter (model_name,
     version, embeddings, polymorphic_batch)."""
     n_in, n_out = np.shape(params.get("w", np.zeros((4, 2))))
-    model_params = "kind=%s;bias=%r;n_in=%d;n_out=%d" % (
-        kind, float(bias), n_in, n_out)
+    model_params = _model_params(kind, bias, n_in, n_out)
     module = model_spec(kind, bias, n_in, n_out).init_fn("cpu")
     module.load_state_dict({k: torch.from_numpy(np.array(v, np.float32))
                             for k, v in params.items()})
