@@ -142,7 +142,7 @@ Phases, in order; any failure exits non-zero:
     transport stages tensors through the host, joins under a time limit):
     at sp=2, ring attention at the flagship's attention shape in bf16
     (and f32 at batch 2) against attention_local on one rank and the dense
-    f32 softmax; the flagship's widths at MULTI_RANK_LAYERS (4) layers
+    f32 softmax; the flagship's widths at MULTI_RANK_LAYERS (2) layers
     (batch 8 x 2048, bf16, AdamW, remat) through the port's SPMDTrainer:
     step-1 loss and gradients against the sp=1 path at that depth
     (``multi_rank_refs``: f32 at batch 2, bf16 at batch 8), one counted
@@ -155,7 +155,7 @@ Phases, in order; any failure exits non-zero:
     the third, and the same model's step-1 gradients (rank r launches
     B3p 2 L (r + 1) times);
 17. the master/worker process path: in this process, the flagship LM at
-    full width and MULTI_RANK_LAYERS (4) layers (remat) trained through
+    full width and MULTI_RANK_LAYERS (2) layers (remat) trained through
     the port's master (TaskManager and gRPC servicer) and Worker task
     loop, two jobs of 4 tasks of 4 minibatches at batch 8 x 2048, each
     step launching B3 8 times and B4, B5 4 times, every parameter on the
@@ -204,7 +204,7 @@ Phases, in order; any failure exits non-zero:
     CLI job with ``--zero1 true`` and a kill -9: the ZeRO-1 placement
     logged at a world of 2, the survivor's moment restart at the shrink,
     exit 0 with no failed task;
-20. the collective LM: the flagship's widths at MULTI_RANK_LAYERS (4)
+20. the collective LM: the flagship's widths at MULTI_RANK_LAYERS (2)
     layers (bf16, AdamW, remat) trained by two ranks spawned on the card
     at batch 4 each, the world formed as phase 18's: step-1 loss and
     gradients in float32 at batch 1 a rank and in bf16 at 4 a rank
@@ -323,7 +323,25 @@ Phases, in order; any failure exits non-zero:
     frame bytes, ingest -> publish and publish -> commit seconds, the
     artifacts' bytes, load seconds by the program and the zoo route.
     The phase fails past PHASE24_BUDGET_S;
-25. one JSON line of kernels, then the card's name and power limit, then
+25. the CTR zoo and the preprocessing library: leg 1, each model of the
+    slice on the parameter-server path, two port PS shard processes of
+    its own (native Adam, atomic sync): DCN and xDeepFM at phase 22's
+    DeepFM shape, wide & deep, the census DNN and both census SQLFlow
+    variants at their ``model_spec`` defaults over synthetic census
+    records (fed through the port's preprocessing library), batches of
+    512; step 1 on the card against a CPU trainer that pulled the same
+    initial parameters (logits, loss, dense and row gradients), then 2
+    warm-up and 10 timed steps through ``ParameterServerTrainer``: the
+    loss finite and falling, steps/s, the trainer's ms a step (dense
+    pull, embedding pulls, device step, push) and the feed's ms a batch;
+    ``PSEmbedding``'s lookup on the card equal to a direct pull.  Leg 2,
+    the collective path on the card through ``CollectiveTrainer``: wide &
+    deep with its tables local (``model_handler.localize_spec``), its
+    first loss against the PS form's on the same table values, falling;
+    iris from an SQLite table through the ``.db`` origin and heart from
+    CSV, each to the accuracy its JAX test asks.  No kernel of ``ops/``
+    may launch.  The phase fails past PHASE25_BUDGET_S;
+26. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Each phase prints its seconds on a line of its own as it ends (``phase
@@ -364,7 +382,8 @@ Tolerances (|got - ref| <= atol + rtol * |ref|):
  - MobileNetV2 and the jobs: MB_LOSS_RTOL, MB_FLOOR_X, MB_GRAD_MIN and
    JOB_ROW_TOL below;
  - DeepFM on the PS path, the card against the CPU: PS_LOSS_RTOL and
-   PS_GRAD_RTOL below;
+   PS_GRAD_RTOL below; the CTR zoo: CTR_ATOL, CTR_RTOL, CTR_LOSS_RTOL
+   and SMALL_ACCURACY below;
  - the serving fleet: each served row against the plain-GN module on
    that row, 1e-3 * max|logit| absolute, as the served logits above
    (rows batched into other buckets than the reference's: cuDNN may
@@ -2727,8 +2746,9 @@ SP_TIMED_STEPS = 2              # 3 before phase 24 was added
 # depth (phase 11 trains all 24 layers in one process): every check stays,
 # launch counts scale with the depth (B3p 2 L and 4 L a step on the sp=2
 # ranks, B3/B4/B5 2 L/L/L), and ``multi_rank_refs`` computes the sp=1
-# references at this depth.
-MULTI_RANK_LAYERS = 4
+# references at this depth (4 before phase 25 was added: on the slower
+# hosts of its runs phases 16 and 20 took 173.5 and 59.9 s).
+MULTI_RANK_LAYERS = 2
 # A checkpoint saved at sp=2 and restored at sp=1: the loss, and the loss
 # after one more step, within SP_LOSS_RTOL of the sp=2 trainer's.  The two
 # paths' attention rounds differently in bf16: their step-1 losses on the
@@ -3562,17 +3582,18 @@ COLL_GRAD_MIN = 1e-5
 COLL_LOSS_RTOL = 1e-5
 COLL_RANKS_TIMEOUT_S = 400
 COLL_CLI_BATCH = 32
-COLL_CLI_KILL_STEPS = 8
+COLL_CLI_KILL_STEPS = 4         # 8 before phase 25 was added
 # Records enough that the survivor, alone, cannot finish them before the
 # replacement joins, and few enough that the regrown world ends the job
 # soon.  On an H100 (80GB HBM3, 700 W) the survivor took 13,440-16,128
 # records alone (14-25 steps/s for the 23-37 s the replacement took to
-# join) in the phase 18 and 19 jobs of five whole runs, and
-# the regrown world ran 96-168 steps of 64 records to the end at
-# 2.0-3.9 steps/s (PERF.md §6).  20,480 records (24,576 before phase 24
-# was added) leave the survivor 1.23x its largest take before the job
-# would end without the replacement, and the regrown world ~60 steps.
-COLL_CLI_RECORDS = 20480
+# join) in the phase 18 and 19 jobs of six whole runs, and the regrown
+# world ran 88-168 steps of 64 records to the end at 1.8-3.9 steps/s
+# (PERF.md §6).  18,432 records (24,576 before phase 24 was added,
+# 20,480 before phase 25) leave the survivor 1.12x its largest take,
+# after the 4 + 4 steps of the world of 2 before the kill, and the
+# regrown world ~60 steps at the takes seen most.
+COLL_CLI_RECORDS = 18432
 COLL_CLI_TIMEOUT_S = 300
 
 
@@ -5257,43 +5278,44 @@ def _ps_step1(torch, card, cpu, batch):
             "grad_rel_err_max": max(errs.values())}
 
 
-def _ps_timed(torch, trainer, data, what):
-    """One warm-up step, then PS_TIMED_STEPS timed steps cycling over the
+def _ps_timed(torch, trainer, data, what, warmup=1, steps=PS_TIMED_STEPS):
+    """``warmup`` steps, then ``steps`` timed steps cycling over the
     batches (the next batch's rows prefetched, as the worker loop does):
     losses, steps/s and the trainer's per-phase ms."""
-    float(trainer.train_minibatch(*data[0])[0])
+    for s in range(warmup):
+        float(trainer.train_minibatch(*data[s % len(data)])[0])
     trainer.timing.reset()
     losses = []
     t0 = time.perf_counter()
-    for s in range(PS_TIMED_STEPS):
-        trainer.prefetch_embeddings(data[(s + 2) % len(data)][0])
+    for s in range(steps):
+        trainer.prefetch_embeddings(data[(s + warmup + 1) % len(data)][0])
         losses.append(float(trainer.train_minibatch(
-            *data[(s + 1) % len(data)])[0]))
+            *data[(s + warmup) % len(data)])[0]))
     trainer.drain_pushes()
     wall = time.perf_counter() - t0
     first, last = (np.mean(losses[:PS_BATCHES]),
                    np.mean(losses[-PS_BATCHES:]))
     if not all(map(math.isfinite, losses)) or not last < first:
-        fail("PS path, leg 1, %s: the loss did not fall over %d steps: %s"
-             % (what, PS_TIMED_STEPS, losses))
+        fail("PS path, %s: the loss did not fall over %d steps: %s"
+             % (what, steps, losses))
     summary = trainer.timing.summary()
     # ms a step of each part (the embedding pull is one a table); the
     # push is its RPC when inline, its hand-off to the push thread when
     # pipelined, and the wait for it before the next dense pull is the
     # drain; the rest is host work (padding, unique ids, the batch).
-    ms = {name: summary[key]["total_s"] * 1e3 / PS_TIMED_STEPS
+    ms = {name: summary[key]["total_s"] * 1e3 / steps
           if key in summary else 0.0
           for name, key in (("dense_pull", "get_model"),
                             ("embedding_pull", "pull_embedding"),
                             ("device_step", "batch_process"),
                             ("push", "report_gradient"),
                             ("push_drain", "push_drain"))}
-    step_ms = wall * 1e3 / PS_TIMED_STEPS
+    step_ms = wall * 1e3 / steps
     ms["other"] = step_ms - sum(ms.values())
-    return {"losses": losses, "steps_per_s": PS_TIMED_STEPS / wall,
+    return {"losses": losses, "steps_per_s": steps / wall,
             "step_ms": step_ms, "ms": ms,
             "embedding_pulls_per_step": summary.get(
-                "pull_embedding", {}).get("count", 0) / PS_TIMED_STEPS,
+                "pull_embedding", {}).get("count", 0) / steps,
             "counters": trainer.timing.counters()}
 
 
@@ -5340,7 +5362,8 @@ def ps_trainer_leg(torch, fa, gn, env, tmp):
                  "%s)" % card.device)
         step1 = _ps_step1(torch, card, cpu, data[0])
         cpu.close()
-        timed = {"atomic sync": _ps_timed(torch, card, data, "atomic sync")}
+        timed = {"atomic sync": _ps_timed(torch, card, data,
+                                          "leg 1, atomic sync")}
         card.close()
         for key, what, push_window in (
                 ("serial", "async, push serialized", 0),
@@ -5348,7 +5371,7 @@ def ps_trainer_leg(torch, fa, gn, env, tmp):
             card = ParameterServerTrainer(spec, clients[key], PS_BATCH,
                                           async_push_window=push_window,
                                           rng_seed=0, device=DEVICE)
-            timed[what] = _ps_timed(torch, card, data, what)
+            timed[what] = _ps_timed(torch, card, data, "leg 1, " + what)
             card.close()
         # Each kernel's launches over the phase's DeepFM steps, by the
         # name of its row in the kernels line.
@@ -6669,6 +6692,360 @@ def online_phase(torch, gn):
     return out
 
 
+# The CTR zoo and the preprocessing library (phase 25).  Leg 1: each
+# model of the slice on the PS path, two PS shard processes of its own
+# (native Adam, atomic sync): DCN and xDeepFM at phase 22's DeepFM shape
+# (bench_deepfm.py:46-48), wide & deep, the census DNN and both census
+# SQLFlow variants at their model_spec defaults over synthetic census
+# rows, batches of PS_BATCH.  Step 1 on the card against a CPU trainer
+# that pulled the same initial parameters, then CTR_WARMUP_STEPS and
+# CTR_TIMED_STEPS timed steps.  Leg 2: the collective path on the card:
+# wide & deep with its tables local (model_handler.localize_spec), iris
+# from an SQLite table through the ``.db`` origin, heart from CSV.
+CTR_WARMUP_STEPS = 2
+CTR_TIMED_STEPS = 10
+# Step 1 on the card against the CPU (float32, TF32 off, the same pulled
+# rows): logits and every gradient, dense leaves and pulled rows, within
+# the CPU twins' 2e-5 absolute + 1e-5 relative (tests/test_torch_ctr_
+# zoo.py); the loss within 1e-5 relative.  Both sum the same float32
+# terms in other orders.
+CTR_ATOL, CTR_RTOL = 2e-5, 1e-5
+CTR_LOSS_RTOL = 1e-5
+# Leg 2: the JAX package's own accuracy gates (tests/test_model_zoo.py:88
+# for iris, tests/test_heart_and_params.py:24 for heart) and their
+# recipes (iris 120 records at batch 32, lr 0.05; heart 256 at batch 64,
+# lr 0.02, 10 epochs), but iris trains 20 epochs where its test trains
+# 12: from the port's seed-0 init 12 epochs reach 0.842 on the CPU, 20
+# reach 0.99 (seeds 0-3 all 0.99).
+SMALL_ACCURACY = 0.8
+IRIS_EPOCHS = 20
+HEART_EPOCHS = 10
+LOCAL_STEPS = 10
+PHASE25_BUDGET_S = 60
+
+
+def _ctr_models():
+    """(name, spec, records) of each model of leg 1."""
+    from elasticdl_tpu_torch.models import (census_dnn, census_sqlflow, dcn,
+                                            wide_deep, xdeepfm)
+
+    n = PS_BATCH * PS_BATCHES
+    dense, ids, labels = dcn.synthetic_data(
+        n=n, num_dense=PS_DENSE, num_fields=PS_FIELDS, vocab_size=PS_VOCAB,
+        seed=0)
+    ctr = [(dense[i], ids[i], labels[i]) for i in range(n)]
+    shape = dict(num_dense=PS_DENSE, num_fields=PS_FIELDS,
+                 vocab_size=PS_VOCAB, embedding_dim=PS_DIM, hidden=PS_HIDDEN)
+    census = census_dnn.synthetic_census_records(n=n, seed=0)
+    return [("dcn", dcn.model_spec(**shape), ctr),
+            ("xdeepfm", xdeepfm.model_spec(**shape), ctr),
+            ("wide_deep", wide_deep.model_spec(),
+             wide_deep.synthetic_census_rows(n=n, seed=0)),
+            ("census_dnn", census_dnn.model_spec(), census),
+            ("census_sqlflow wide_and_deep",
+             census_sqlflow.model_spec("wide_and_deep"), census),
+            ("census_sqlflow dnn", census_sqlflow.model_spec("dnn"), census)]
+
+
+def _ctr_feed(spec, records):
+    """The batches of PS_BATCH and the host ms the feed took a batch (the
+    preprocessing library: hashing, lookups, buckets, offsets)."""
+    t0 = time.perf_counter()
+    data = [spec.feed(records[i:i + PS_BATCH])
+            for i in range(0, len(records), PS_BATCH)]
+    return data, (time.perf_counter() - t0) * 1e3 / len(data)
+
+
+def _ctr_step1(torch, name, card, cpu, batch):
+    """Step 1 on the card against the CPU trainer on the same prepared
+    inputs: logits, loss, dense and row gradients; readings or a
+    failure."""
+    from elasticdl_tpu_torch.worker.ps_trainer import _pad_host_batch
+
+    (features, labels), weights = _pad_host_batch(batch, PS_BATCH)
+    feats, emb, _ = card._prepare_embeddings(features)
+    got = card.grad_step(feats, labels, weights, emb)
+    ref = cpu.grad_step(feats, labels, weights, emb)
+    with torch.no_grad():
+        logits = [t._spec.apply_fn(t.module, t._inputs(feats, emb, False)[0],
+                                   True).cpu() for t in (card, cpu)]
+    names = ["logits"] + [n for _, n, _ in card._params] + [
+        "rows:" + t for t in sorted(emb)]
+    errs, bad = {}, []
+    for what, g, r in zip(names, [logits[0]] + got[1] + got[2],
+                          [logits[1]] + ref[1] + ref[2]):
+        g = g.cpu()
+        if not bool(g.isfinite().all()):
+            bad.append("%s not finite" % what)
+        err = (g - r).abs()
+        errs[what] = float(err.max()) if err.numel() else 0.0
+        if not bool((err <= CTR_ATOL + CTR_RTOL * r.abs()).all()):
+            bad.append("%s (max abs err %.3g)" % (what, errs[what]))
+    loss_gap = abs(float(got[0]) - float(ref[0])) / abs(float(ref[0]))
+    if bad or not loss_gap <= CTR_LOSS_RTOL:
+        fail("CTR zoo, leg 1, %s: step 1 on the card against the CPU: loss "
+             "%r vs %r (gap %.3g, limit %g); past %g + %g relative: %s" % (
+                 name, float(got[0]), float(ref[0]), loss_gap,
+                 CTR_LOSS_RTOL, CTR_ATOL, CTR_RTOL, bad))
+    return {"loss": float(got[0]), "loss_cpu": float(ref[0]),
+            "loss_rel_gap": loss_gap, "max_abs_err": errs,
+            "max_abs_err_max": max(errs.values())}
+
+
+def _ps_embedding_lookup(torch, client, table, dim, ids):
+    """PSEmbedding's lookup on the card against a direct pull of the same
+    ids: equal rows, on the card."""
+    from elasticdl_tpu_torch.models.ps_embedding_callback import PSEmbedding
+
+    emb = PSEmbedding(client, table, dim)
+    ids_t = torch.as_tensor(ids, device=DEVICE)
+    rows = emb(ids_t, emb.handle)
+    want = client.pull_embedding_vectors(table, np.asarray(ids), dim=dim)
+    if (rows.device.type != torch.device(DEVICE).type
+            or not rows.requires_grad
+            or not np.array_equal(rows.detach().cpu().numpy(), want)):
+        fail("CTR zoo, leg 1: PSEmbedding's lookup on %s is not the direct "
+             "pull's rows" % rows.device)
+    return {"ids": int(ids_t.numel()), "table": table}
+
+
+def ctr_ps_leg(torch, env, tmp):
+    """Leg 1 of phase 25 (see CTR_WARMUP_STEPS)."""
+    from elasticdl_tpu_torch.utils.device import use_float32_numerics
+    from elasticdl_tpu_torch.utils.retry import ps_rpc_policy
+    from elasticdl_tpu_torch.worker.ps_client import build_ps_client
+    from elasticdl_tpu_torch.worker.ps_trainer import ParameterServerTrainer
+
+    use_float32_numerics()
+    models = _ctr_models()
+    t0 = time.perf_counter()
+    fleets = [_Shards(2, spec.ps_optimizer, False, env, tmp,
+                      "ctr%d" % i) for i, (_, spec, _) in enumerate(models)]
+    out, local_ref = {}, None
+    try:
+        for fleet, (name, spec, records) in zip(fleets, models):
+            data, feed_ms = _ctr_feed(spec, records)
+            client = build_ps_client(fleet.addrs, retry=ps_rpc_policy())
+            card = ParameterServerTrainer(spec, client, PS_BATCH,
+                                          atomic_sync=True, rng_seed=0,
+                                          device=DEVICE)
+            cpu = ParameterServerTrainer(
+                spec, build_ps_client(fleet.addrs), PS_BATCH,
+                atomic_sync=True, rng_seed=1, device="cpu")
+            same = all(np.array_equal(a, b) for a, b in zip(
+                card.export_parameters().values(),
+                cpu.export_parameters().values()))
+            if not same or card.device.type != torch.device(DEVICE).type:
+                fail("CTR zoo, leg 1, %s: the CPU trainer's parameters are "
+                     "not the card trainer's pushed ones (or the card "
+                     "trainer is on %s)" % (name, card.device))
+            step1 = _ctr_step1(torch, name, card, cpu, data[0])
+            cpu.close()
+            timed = _ps_timed(torch, card, data, "CTR zoo, " + name,
+                              warmup=CTR_WARMUP_STEPS,
+                              steps=CTR_TIMED_STEPS)
+            out[name] = dict(step1=step1, feed_ms=feed_ms, **timed)
+            if name == "dcn":
+                out["ps_embedding_lookup"] = _ps_embedding_lookup(
+                    torch, client, spec.ps_embedding_infos[0]["name"],
+                    PS_DIM, data[0][0]["__ids__"][
+                        spec.ps_embedding_infos[0]["name"]][:64].ravel())
+            if name == "wide_deep":
+                local_ref = _local_reference(card, client, spec, data[0])
+            card.close()
+    except BaseException:
+        for f in fleets:
+            print(f.tail(), file=sys.stderr)
+        raise
+    finally:
+        for f in fleets:
+            f.stop()
+    out["shards_and_models_s"] = time.perf_counter() - t0
+    return out, local_ref
+
+
+def _local_reference(card, client, spec, batch):
+    """wide & deep's PS form at the end of its timed steps: the dense
+    parameters and the whole tables pulled from the PS, and the card
+    trainer's loss on ``batch`` over them (leg 2 holds the localized
+    spec's first loss against it)."""
+    from elasticdl_tpu_torch.models.wide_deep import build_feed
+    from elasticdl_tpu_torch.worker.ps_trainer import _pad_host_batch
+
+    card.drain_pushes()
+    card._pull_dense()
+    (features, labels), weights = _pad_host_batch(batch, PS_BATCH)
+    feats, emb, _ = card._prepare_embeddings(features)
+    loss = float(card.grad_step(feats, labels, weights, emb)[0])
+    vocab = build_feed()[1]
+    tables = {i["name"]: client.pull_embedding_vectors(
+        i["name"], np.arange(vocab), dim=i["dim"])
+        for i in spec.ps_embedding_infos}
+    return {"loss": loss, "dense": card.export_parameters(),
+            "tables": tables, "vocab": vocab}
+
+
+def _accuracy(trainer, spec, records, batch, binary):
+    xs, ys = spec.feed(records)
+    correct = 0
+    for i in range(0, len(records), batch):
+        out, labels = trainer.evaluate_minibatch(xs[i:i + batch],
+                                                 ys[i:i + batch])
+        pred = (out > 0) if binary else np.argmax(out, -1)
+        correct += int((pred == labels).sum())
+    return correct / len(records)
+
+
+def _train_small(torch, spec, reader, epochs, batch, binary, what):
+    """Train ``spec`` on the card from every record ``reader`` holds
+    through CollectiveTrainer; returns its readings (fails below
+    SMALL_ACCURACY)."""
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    task = SimpleNamespace(shard=SimpleNamespace(
+        start=0, end=reader.get_size(), record_indices=[]))
+    records = [list(r) for r in reader.read_records(task)]
+    trainer = CollectiveTrainer(spec, batch_size=batch, device=DEVICE)
+    t0 = time.perf_counter()
+    losses = []
+    for _ in range(epochs):
+        for i in range(0, len(records), batch):
+            xs, ys = spec.feed(records[i:i + batch])
+            losses.append(trainer.train_minibatch(xs, ys)[0])
+    losses = [float(x) for x in losses]
+    train_s = time.perf_counter() - t0
+    acc = _accuracy(trainer, spec, records, batch, binary)
+    device = next(trainer._module.parameters()).device
+    if (not all(map(math.isfinite, losses)) or not acc > SMALL_ACCURACY
+            or device.type != torch.device(DEVICE).type):
+        fail("CTR zoo, leg 2, %s: accuracy %.3f (needs > %g) on %s, "
+             "losses %s" % (what, acc, SMALL_ACCURACY,
+                            next(trainer._module.parameters()).device,
+                            losses[::8]))
+    return {"records": len(records), "epochs": epochs, "accuracy": acc,
+            "loss_first": losses[0], "loss_last": losses[-1],
+            "steps": len(losses), "train_s": train_s}
+
+
+def ctr_collective_leg(torch, local_ref, tmp):
+    """Leg 2 of phase 25 (see CTR_WARMUP_STEPS)."""
+    from elasticdl_tpu_torch.data.factory import create_data_reader
+    from elasticdl_tpu_torch.data.sql_reader import SQLTableWriter
+    from elasticdl_tpu_torch.models import heart, iris, wide_deep
+    from elasticdl_tpu_torch.models.model_handler import localize_spec
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    # wide & deep, its tables local, from the PS form's final state.
+    spec = localize_spec(wide_deep.model_spec(), {
+        t: local_ref["vocab"] for t in local_ref["tables"]})
+    if spec.ps_embedding_infos:
+        fail("CTR zoo, leg 2: wide & deep's tables were not all localized")
+    trainer = CollectiveTrainer(spec, batch_size=PS_BATCH, device=DEVICE)
+    trainer._module.load_state_dict(spec.params_from_jax(dict(
+        local_ref["dense"], **{"local_emb__" + t: v
+                               for t, v in local_ref["tables"].items()})))
+    rows = wide_deep.synthetic_census_rows(n=PS_BATCH * PS_BATCHES, seed=0)
+    data = [spec.feed(rows[i:i + PS_BATCH])
+            for i in range(0, len(rows), PS_BATCH)]
+    losses = [float(trainer.train_minibatch(*data[s % len(data)])[0])
+              for s in range(LOCAL_STEPS)]
+    gap = abs(losses[0] - local_ref["loss"]) / abs(local_ref["loss"])
+    if not gap <= CTR_LOSS_RTOL or not losses[-1] < losses[0]:
+        fail("CTR zoo, leg 2: wide & deep localized, first loss %r against "
+             "the PS form's %r on the same tables (gap %.3g, limit %g), "
+             "losses %s" % (losses[0], local_ref["loss"], gap,
+                            CTR_LOSS_RTOL, losses))
+    out = {"wide_deep_local": {
+        "loss_first": losses[0], "loss_ps_form": local_ref["loss"],
+        "loss_rel_gap": gap, "loss_last": losses[-1],
+        "table_rows": local_ref["vocab"], "steps": LOCAL_STEPS}}
+    # iris from an SQLite table through the ".db" origin.
+    db = os.path.join(tmp, "iris.db")
+    csv = iris.synthetic_iris_csv(os.path.join(tmp, "iris.csv"), n=120)
+    with open(csv) as f:
+        table = [[float(v) for v in line.strip().split(",")] for line in f]
+    writer = SQLTableWriter(db, "samples", ["f0", "f1", "f2", "f3", "label"])
+    writer.write(table)
+    writer.close()
+    out["iris_sql"] = _train_small(
+        torch, iris.model_spec(learning_rate=0.05),
+        create_data_reader(db, records_per_shard=32), IRIS_EPOCHS, 32, False,
+        "iris from SQLite")
+    # heart from CSV.
+    csv = heart.synthetic_heart_csv(os.path.join(tmp, "heart.csv"), n=256)
+    out["heart_csv"] = _train_small(
+        torch, heart.model_spec(learning_rate=0.02),
+        create_data_reader(csv, records_per_shard=64), HEART_EPOCHS, 64,
+        True,
+        "heart from CSV")
+    return out
+
+
+def ctr_phase(torch, fa, gn):
+    """The CTR zoo and the preprocessing library (module docstring, phase
+    25); fails past PHASE25_BUDGET_S."""
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+    t0 = time.perf_counter()
+    zero_flash_counts(fa)
+    gn.LAUNCHES = gn.BWD_LAUNCHES = fa.PARTIAL_LAUNCHES = 0
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        out, local_ref = ctr_ps_leg(torch, env, tmp.name)
+        out["collective"] = ctr_collective_leg(torch, local_ref, tmp.name)
+    finally:
+        tmp.cleanup()
+    out["launches"] = {
+        "group_norm_fwd": gn.LAUNCHES, "group_norm_bwd": gn.BWD_LAUNCHES,
+        "flash_attention_fwd": fa.LAUNCHES,
+        "flash_attention_partial_fwd": fa.PARTIAL_LAUNCHES,
+        "flash_attention_bwd_dq": fa.BWD_DQ_LAUNCHES,
+        "flash_attention_bwd_dkv": fa.BWD_DKV_LAUNCHES}
+    if any(out["launches"].values()):
+        fail("CTR zoo: the phase launched kernels of ops/: %s"
+             % out["launches"])
+    out["phase_s"] = time.perf_counter() - t0
+    smi = nvidia_smi_line()
+    for name, r in out.items():
+        if not isinstance(r, dict) or "steps_per_s" not in r:
+            continue
+        print("CTR zoo, leg 1 (%s, batch %d, Adam on 2 PS shards, atomic "
+              "sync; %s): %.1f steps/s (%.2f ms a step over %d steps); ms "
+              "a step: dense pull %.3f, embedding pull %.3f (%.1f pulls), "
+              "device step %.3f, push %.3f, other host work %.3f; feed "
+              "(preprocessing) %.2f ms a batch; loss %.4f -> %.4f; step 1 "
+              "against the CPU: loss gap %.3g, worst abs error %.3g" % (
+                  name, PS_BATCH, smi, r["steps_per_s"], r["step_ms"],
+                  CTR_TIMED_STEPS, r["ms"]["dense_pull"],
+                  r["ms"]["embedding_pull"], r["embedding_pulls_per_step"],
+                  r["ms"]["device_step"], r["ms"]["push"], r["ms"]["other"],
+                  r["feed_ms"], r["losses"][0], r["losses"][-1],
+                  r["step1"]["loss_rel_gap"], r["step1"]["max_abs_err_max"]))
+    coll = out["collective"]
+    local = coll["wide_deep_local"]
+    print("CTR zoo, leg 2 (collective path on the card; %s): wide & deep "
+          "with its 2 tables local (%d rows each): first loss %.7f against "
+          "the PS form's %.7f on the same tables (gap %.3g), %.4f after %d "
+          "steps; iris from SQLite (.db origin, %d records) accuracy %.3f; "
+          "heart from CSV (%d records) accuracy %.3f; PSEmbedding's lookup "
+          "on the card equals a direct pull (%d ids); ops/ kernels "
+          "launched: none; phase %.1f s" % (
+              smi, local["table_rows"], local["loss_first"],
+              local["loss_ps_form"], local["loss_rel_gap"],
+              local["loss_last"], local["steps"],
+              coll["iris_sql"]["records"], coll["iris_sql"]["accuracy"],
+              coll["heart_csv"]["records"], coll["heart_csv"]["accuracy"],
+              out["ps_embedding_lookup"]["ids"], out["phase_s"]))
+    if out["phase_s"] > PHASE25_BUDGET_S:
+        fail("CTR zoo: the phase took %.1f s, past its budget of %d s"
+             % (out["phase_s"], PHASE25_BUDGET_S))
+    return out
+
+
 def import_export_machinery():
     import torch._dynamo  # noqa: F401
     import torch._export.serde.serialize  # noqa: F401
@@ -6772,6 +7149,13 @@ def main():
     ps = run("PS path, DeepFM", ps_phase, torch, fa, gn)
     fleet = run("serving fleet", fleet_phase, torch, gn)
     online = run("online loop", online_phase, torch, gn)
+    ctr = run("CTR zoo and preprocessing", ctr_phase, torch, fa, gn)
+    print("CTR zoo beside DeepFM: phase 22's DeepFM on the same shards' "
+          "path, atomic sync, %.1f steps/s; phase 25: %s" % (
+              ps["trainer"]["timed"]["atomic sync"]["steps_per_s"],
+              ", ".join("%s %.1f" % (name, r["steps_per_s"])
+                        for name, r in ctr.items()
+                        if isinstance(r, dict) and "steps_per_s" in r)))
     print("phase seconds: %s" % ", ".join(
         "%s %.1f" % kv for kv in phase_s.items()))
 
@@ -6934,6 +7318,8 @@ def main():
     for row in kernels:
         # Phase 22's count over its DeepFM steps (it fails unless 0).
         row["launches_deepfm_ps"] = ps["trainer"]["launches"][row["name"]]
+        # Phase 25's count over the CTR zoo's steps (it fails unless 0).
+        row["launches_ctr_zoo"] = ctr["launches"][row["name"]]
     if args.out:
         with open(args.out, "w") as f:
             json.dump({"card": smi, "device": kind,
@@ -6965,6 +7351,7 @@ def main():
                        "ps_path": ps,
                        "serving_fleet": fleet,
                        "online_loop": online,
+                       "ctr_zoo": ctr,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -1,11 +1,5 @@
 """Data reader factory (parity:
-elasticdl/python/data/reader/data_reader_factory.py:23-79; counterpart
-of ``elasticdl_tpu/data/factory.py``).
-
-The port's copy takes ``synthetic_mnist`` and ``synthetic_ctr`` from the
-port's ``models/mnist.py`` and ``models/deepfm.py``.  Origins whose
-reader the port has not ported yet raise ``NotImplementedError`` naming
-their ROADMAP item: ``imagefolder:`` and ``.db``/``sql:`` (A22)."""
+elasticdl/python/data/reader/data_reader_factory.py:23-79)."""
 
 import os
 
@@ -83,9 +77,23 @@ def create_data_reader(data_origin, records_per_shard=256, **kwargs):
             records_per_shard=records_per_shard,
         )
     if data_origin.startswith("imagefolder:"):
-        raise NotImplementedError(
-            "data origin %r needs data/image_folder.py, not ported to "
-            "elasticdl_tpu_torch yet (ROADMAP A22)" % data_origin)
+        # "imagefolder:<root>[:<image_size>[:augment]]" —
+        # ImageNet-layout dirs; the optional literal "augment" enables
+        # training-time random crop + horizontal flip.
+        from elasticdl_tpu_torch.data.image_folder import ImageFolderDataReader
+
+        parts = data_origin.split(":")
+        root = parts[1]
+        image_size = int(parts[2]) if len(parts) > 2 else 224
+        augment = len(parts) > 3 and parts[3] == "augment"
+        if (len(parts) > 3 and not augment) or len(parts) > 4:
+            raise ValueError(
+                "imagefolder options %r not understood (only a "
+                "single 'augment')" % (parts[3:],))
+        return ImageFolderDataReader(
+            root, image_size=image_size,
+            records_per_shard=records_per_shard, augment=augment,
+        )
     if data_origin.endswith(".csv"):
         from elasticdl_tpu_torch.data.reader import TextDataReader
 
@@ -101,7 +109,13 @@ def create_data_reader(data_origin, records_per_shard=256, **kwargs):
             data_origin, decode_fn=kwargs.get("decode_fn", decode_xy)
         )
     if data_origin.endswith(".db") or data_origin.startswith("sql:"):
-        raise NotImplementedError(
-            "data origin %r needs data/sql_reader.py, not ported to "
-            "elasticdl_tpu_torch yet (ROADMAP A22)" % data_origin)
+        from elasticdl_tpu_torch.data.sql_reader import SQLTableDataReader
+
+        spec = data_origin[4:] if data_origin.startswith("sql:") \
+            else data_origin
+        database, _, table = spec.partition("#")
+        return SQLTableDataReader(
+            database, table or "samples",
+            records_per_shard=records_per_shard,
+        )
     raise ValueError("cannot infer a data reader for %r" % data_origin)

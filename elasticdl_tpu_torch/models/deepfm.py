@@ -21,9 +21,8 @@ holds the JAX layouts, and its checkpoints are the JAX package's.
 import numpy as np
 import torch
 import torch.nn.functional as F
-from torch import nn
 
-from elasticdl_tpu_torch.models.mlp import mlp_apply, mlp_init
+from elasticdl_tpu_torch.models.mlp import DenseParams, mlp_apply, mlp_init
 from elasticdl_tpu_torch.models.spec import (ModelSpec, params_from_jax,
                                              params_to_jax)
 from elasticdl_tpu_torch.utils import metrics
@@ -33,32 +32,25 @@ EMB_TABLE = "deepfm_embedding"
 LIN_TABLE = "deepfm_linear"
 
 
-class DeepFM(nn.Module):
-    """The dense part: ``w%d``/``b%d`` of the MLP and the global bias,
-    registered under the JAX names."""
+def forward(params, feats):
+    """The logits from the dense part (``w%d``/``b%d`` of the MLP and the
+    global ``bias``) and the features with their pulled rows."""
+    emb_rows = feats["emb__" + EMB_TABLE]        # [U, k]
+    emb_idx = feats["idx__" + EMB_TABLE]         # [B, F]
+    lin_rows = feats["emb__" + LIN_TABLE]        # [U, 1]
+    lin_idx = feats["idx__" + LIN_TABLE]         # [B, F]
+    dense = feats.get("dense")
 
-    def __init__(self, params):
-        super().__init__()
-        for name, value in sorted(params.items()):
-            self.register_parameter(name, nn.Parameter(value))
-
-    def forward(self, feats):
-        emb_rows = feats["emb__" + EMB_TABLE]        # [U, k]
-        emb_idx = feats["idx__" + EMB_TABLE]         # [B, F]
-        lin_rows = feats["emb__" + LIN_TABLE]        # [U, 1]
-        lin_idx = feats["idx__" + LIN_TABLE]         # [B, F]
-        dense = feats.get("dense")
-
-        v = emb_rows[emb_idx]                        # [B, F, k]
-        first = lin_rows[lin_idx][..., 0].sum(dim=1)             # [B]
-        # FM second order: 0.5 * ((sum v)^2 - sum v^2)
-        sum_v = v.sum(dim=1)                                     # [B, k]
-        second = 0.5 * (sum_v.square()
-                        - v.square().sum(dim=1)).sum(dim=-1)     # [B]
-        flat = v.reshape(v.shape[0], -1)
-        x = torch.cat([flat, dense], dim=-1) if dense is not None else flat
-        deep = mlp_apply(dict(self.named_parameters()), x)[:, 0]  # [B]
-        return first + second + deep + self.bias[0]
+    v = emb_rows[emb_idx]                        # [B, F, k]
+    first = lin_rows[lin_idx][..., 0].sum(dim=1)             # [B]
+    # FM second order: 0.5 * ((sum v)^2 - sum v^2)
+    sum_v = v.sum(dim=1)                                     # [B, k]
+    second = 0.5 * (sum_v.square()
+                    - v.square().sum(dim=1)).sum(dim=-1)     # [B]
+    flat = v.reshape(v.shape[0], -1)
+    x = torch.cat([flat, dense], dim=-1) if dense is not None else flat
+    deep = mlp_apply(params, x)[:, 0]                        # [B]
+    return first + second + deep + params["bias"][0]
 
 
 def init_params(generator, num_dense, num_fields, embedding_dim,
@@ -78,6 +70,20 @@ def loss_fn(logits, labels):
         logits.float(), labels.float(), reduction="none")
 
 
+def adam(learning_rate):
+    """The counterpart of the JAX spec's ``optax.adam(learning_rate)``:
+    the optimizer of the collective path (a spec whose tables
+    ``model_handler.localize_spec`` put on the device); on the PS path
+    the shards' ``ps_optimizer`` steps instead."""
+    return lambda params: torch.optim.Adam(params, lr=learning_rate,
+                                           eps=1e-8)
+
+
+def eval_metrics():
+    return {"auc": metrics.AUC(),
+            "accuracy": metrics.BinaryAccuracy(threshold=0.0)}
+
+
 def feed(records):
     dense = np.stack([np.asarray(r[0], np.float32) for r in records])
     ids = np.stack([np.asarray(r[1], np.int64) for r in records])
@@ -95,17 +101,14 @@ def model_spec(num_dense=4, num_fields=8, vocab_size=10000,
         gen = torch.Generator().manual_seed(int(seed))
         params = init_params(gen, num_dense, num_fields, embedding_dim,
                              hidden)
-        return DeepFM(params).to(device)
+        return DenseParams(params, forward).to(device)
 
     return ModelSpec(
         name="deepfm", init_fn=init_fn,
         apply_fn=lambda module, feats, train: module(feats),
         feed=feed, params_from_jax=params_from_jax,
         params_to_jax=params_to_jax, loss_fn=loss_fn,
-        eval_metrics_fn=lambda: {
-            "auc": metrics.AUC(),
-            "accuracy": metrics.BinaryAccuracy(threshold=0.0),
-        },
+        optimizer=adam(learning_rate), eval_metrics_fn=eval_metrics,
         ps_embedding_infos=[
             {"name": EMB_TABLE, "dim": embedding_dim,
              "initializer": "uniform"},

@@ -10,6 +10,7 @@ transpose to and from the JAX package's ``[in, out]``; so
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 
 def mlp_init(sizes, generator):
@@ -37,3 +38,19 @@ def mlp_apply(params, x):
         if i < n_layers - 1:
             x = torch.relu(x)
     return x
+
+
+class DenseParams(nn.Module):
+    """The dense part of a tabular zoo model: ``params`` registered as
+    parameters under their JAX names, and ``forward(params, feats)``,
+    the model's function of them and its feature dict, called with the
+    module's named parameters."""
+
+    def __init__(self, params, forward):
+        super().__init__()
+        for name, value in sorted(params.items()):
+            self.register_parameter(name, nn.Parameter(value))
+        self._forward = forward
+
+    def forward(self, feats):
+        return self._forward(dict(self.named_parameters()), feats)

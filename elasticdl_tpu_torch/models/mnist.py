@@ -14,7 +14,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from elasticdl_tpu_torch.models.spec import (ModelSpec, lecun_normal_,
+from elasticdl_tpu_torch.models.spec import (ModelSpec, init_flax_defaults_,
                                              params_from_jax, params_to_jax)
 from elasticdl_tpu_torch.utils import metrics
 from elasticdl_tpu_torch.utils.device import resolve_device
@@ -50,14 +50,7 @@ def loss_fn(logits, labels):
 def model_spec(learning_rate=1e-3):
     def init_fn(device=None, seed=0):
         device = resolve_device(device)
-        module = MnistCNN()
-        gen = torch.Generator().manual_seed(int(seed))
-        for name, p in module.named_parameters():
-            if name.endswith(".bias"):
-                nn.init.zeros_(p)
-            else:
-                lecun_normal_(p, gen)
-        return module.to(device)
+        return init_flax_defaults_(MnistCNN(), seed).to(device)
 
     def apply_fn(module, x, train):
         return module(x)

@@ -33,7 +33,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from elasticdl_tpu_torch.models.resnet import Conv, loss_fn
-from elasticdl_tpu_torch.models.spec import (ModelSpec, lecun_normal_,
+from elasticdl_tpu_torch.models.spec import (ModelSpec, init_flax_defaults_,
                                              params_from_jax, params_to_jax)
 from elasticdl_tpu_torch.utils import metrics
 from elasticdl_tpu_torch.utils.device import resolve_device
@@ -145,19 +145,6 @@ class MobileNetV2(nn.Module):
             x = getattr(self, "InvertedResidual_%d" % index)(x)
         x = F.relu6(self.GroupNorm_1(self.Conv_1(x)))
         return self.Dense_0(x.mean(dim=(2, 3)))
-
-
-def init_flax_defaults_(module, seed):
-    """Draw a fresh MobileNetV2's weights in place, from ``seed``."""
-    gen = torch.Generator().manual_seed(int(seed))
-    for name, p in module.named_parameters():
-        if name.endswith(".bias"):
-            nn.init.zeros_(p)
-        elif name.endswith(".scale"):
-            nn.init.ones_(p)
-        else:
-            lecun_normal_(p, gen)
-    return module
 
 
 def model_spec(num_classes=10, image_size=32, learning_rate=0.05,

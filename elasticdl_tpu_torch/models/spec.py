@@ -156,6 +156,21 @@ def lecun_normal_(weight, generator):
                                            2 * std, generator=generator)
 
 
+def init_flax_defaults_(module, seed):
+    """Draw a fresh module's weights in place, from ``seed``, as flax's
+    layers draw theirs by default: ``lecun_normal`` kernels, zero biases,
+    unit GroupNorm scales."""
+    gen = torch.Generator().manual_seed(int(seed))
+    for name, p in module.named_parameters():
+        if name.endswith(".bias"):
+            torch.nn.init.zeros_(p)
+        elif name.endswith(".scale"):
+            torch.nn.init.ones_(p)
+        else:
+            lecun_normal_(p, gen)
+    return module
+
+
 def load_model_spec(module_name, model_params="", **kwargs):
     """Import a zoo module and build its ModelSpec.
 

@@ -7,8 +7,9 @@ imports JAX, so the JAX package's own tests of these modules
 (``tests/test_task_manager.py``, ``test_tensor_codec.py``,
 ``test_pserver.py``, ``test_native_kernels.py``, ``test_sync_atomic.py``,
 ``test_ps_frame_wire.py``, ``test_ps_recovery.py``,
-``test_serving_fleet.py``, ``test_online_loop.py`` and others) cover
-the port's copies too.  A copy that must change leaves this list in the same
+``test_serving_fleet.py``, ``test_online_loop.py``,
+``test_sql_reader.py``, ``test_image_folder.py``,
+``test_feature_column.py`` and others) cover the port's copies too.  A copy that must change leaves this list in the same
 change and gets a twin of its reference tests.
 """
 
@@ -22,12 +23,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 IDENTICAL = (
     "aggregation/__init__.py", "aggregation/main.py",
     "client/frame_client.py",
-    "data/parallel_reader.py", "data/reader.py", "data/recio.py",
-    "data/recio_gen.py", "data/token_reader.py",
+    "data/factory.py", "data/image_folder.py", "data/parallel_reader.py",
+    "data/reader.py", "data/recio.py", "data/recio_gen.py",
+    "data/sql_reader.py", "data/token_reader.py",
     "master/evaluation_service.py", "master/journal.py", "master/master.py",
     "master/ps_manager.py", "master/servicer.py", "master/task_manager.py",
     "master/worker_state.py",
     "native/bindings.py", "native/kernels.cc",
+    "preprocessing/__init__.py", "preprocessing/analyzer_utils.py",
+    "preprocessing/feature_column.py",
     "proto/elastic_pb2.py", "proto/rpc.py",
     "ps/optimizer.py", "ps/parameters.py", "ps/server.py", "ps/servicer.py",
     "serving/batcher.py", "serving/embedding_service.py",

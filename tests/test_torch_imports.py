@@ -82,7 +82,15 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "serving.loader", "client.frame_client",
                  # the online-learning loop: callbacks, aggregation
                  "models.callbacks", "aggregation.aggregator",
-                 "aggregation.main"):
+                 "aggregation.main",
+                 # the CTR zoo, preprocessing, embedding helpers, readers
+                 "preprocessing.layers", "preprocessing.feature_column",
+                 "preprocessing.analyzer_utils", "models.embedding",
+                 "models.model_handler", "models.ps_embedding_callback",
+                 "models.wide_deep", "models.dcn", "models.xdeepfm",
+                 "models.census_dnn", "models.census_sqlflow",
+                 "models.heart", "models.iris", "data.sql_reader",
+                 "data.image_folder"):
         assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 
