@@ -86,19 +86,21 @@ Phases, in order; any failure exits non-zero:
 11. transformer training: the flagship LM (436 M parameters, seeded
     random weights) trained through the port's CollectiveTrainer at
     bench_transformer.py's shape, batch 8 x 2048, bf16 compute, AdamW,
-    remat=True, dense cross entropy.  First, in float32 with TF32 off at
-    batch 2: step-1 gradients with the kernels against the plain
-    Function (``flash_attention_ref``), and remat=False and
-    xent_chunk=512 against remat=True; the same kernels-vs-plain check at
-    the main path's settings (bf16 compute, batch 8), to whose limits
-    remat=False, "dots" and "attn" are then held against remat=True
-    (launches B3 24, 48, 48; B4, B5 24).  Then one step
+    remat=True, dense cross entropy.  First, at LM_GRAD_LAYERS of its
+    layers, in float32 with TF32 off at batch 2: step-1 gradients with
+    the kernels against the plain Function (``flash_attention_ref``), and
+    remat=False and xent_chunk=512 against remat=True; the same
+    kernels-vs-plain check at the main path's settings (bf16 compute,
+    batch 8), to whose limits remat=False, "dots" and "attn" are then
+    held against remat=True (launches B3 1, 2, 2 a layer; B4, B5 1).
+    Then, at all 24 layers, one step
     whose launches are counted (B3 48 times, forward and remat
     recompute; B4 and B5 24 times each) and after which every parameter
     must hold a finite gradient; LM_TRAIN_STEPS timed steps on the same batch (the loss
     must fall), ms per step, tokens/s and the model-FLOP share (mfu);
-    LM_PLAIN_STEPS with the plain Function; a checkpoint (parameters and
-    AdamW moments in the JAX names and layouts) restored into a fresh
+    LM_PLAIN_STEPS with the plain Function; then, at LM_GRAD_LAYERS
+    layers again, trained LM_PLAIN_STEPS steps, a checkpoint (parameters
+    and AdamW moments in the JAX names and layouts) restored into a fresh
     trainer bit for bit, with the same next loss;
 12. MoE serving: Flagship-MoE (the flagship widths with 8 experts, top-2
     gating, capacity factor 2, aux weight 0.01) at MOE_SERVE_LAYERS (4)
@@ -341,7 +343,29 @@ Phases, in order; any failure exits non-zero:
     iris from an SQLite table through the ``.db`` origin and heart from
     CSV, each to the accuracy its JAX test asks.  No kernel of ``ops/``
     may launch.  The phase fails past PHASE25_BUDGET_S;
-26. one JSON line of kernels, then the card's name and power limit, then
+26. the control plane: leg 1, the port's CLI (``python -m
+    elasticdl_tpu_torch.client.main train --platform local --jobs_spec``)
+    runs the multi-tenant master over a pool of two worker processes on
+    the card and two jobs, mnist (512 records) and ResNet-50 at its full
+    widths (resnet50_cifar10 on synthetic_cifar10, 2,048 records, batch
+    32), each 1 to 2 workers: exit 0 with each job's records accounted
+    for once (each job's journal), no worker restarts (the pids), at
+    least one move by the resize controller (a ``sched`` assign with a
+    ``prev``), ``/status`` listing both jobs running, every trainer of
+    the ResNet-50 job launching B1 and B2 53 times a pass (the moved
+    worker's among them), a switched worker holding under
+    CP_LEFTOVER_BYTES on the card when the new trainer's build starts and
+    the ResNet-50 parameters on the card after it, the ResNet-50 losses
+    finite; recorded: the seconds to the first move and each job's
+    steps/s.  Leg 2, ``inspect`` on the ResNet-50 job's checkpoints and on
+    phase 5's export.  Leg 3, ``train --platform k8s --output -`` with
+    ``--worker_resource_request cpu=4,memory=16Gi,nvidia.com/gpu=1``: the
+    master pod runs ``elasticdl_tpu_torch.master.main`` with
+    ``--worker_backend k8s``, and the worker pod the port's
+    ``K8sWorkerBackend`` makes from those args carries ``nvidia.com/gpu:
+    1`` under ``limits``; no cluster is contacted.  The phase fails past
+    PHASE26_BUDGET_S;
+27. one JSON line of kernels, then the card's name and power limit, then
     {"ok": true, "device": {...}} as the last line.
 
 Each phase prints its seconds on a line of its own as it ends (``phase
@@ -526,6 +550,14 @@ LM_BATCH, LM_PROMPT, LM_NEW = 8, 128, 128
 # chose lies within 2 x 2e-2 of the plain row max (each of the two
 # logits may be off by the prefill tolerance).
 LM_LAYERS = int(re.search(r"num_layers=(\d+)", LM_PARAMS).group(1))
+
+
+def lm_params_at(layers):
+    """LM_PARAMS with ``layers`` of the flagship's layers."""
+    return LM_PARAMS.replace("num_layers=%d" % LM_LAYERS,
+                             "num_layers=%d" % layers)
+
+
 LM_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LM_FLOOR_X = 1.5
 LM_TF_TOL = 4e-2
@@ -588,8 +620,15 @@ LM_PLAIN_STEPS = 2              # 3 before phase 24 was added
 # same at the main path's settings (bf16 compute, remat, batch
 # LM_TRAIN_BATCH x 2048: the bf16 kernels on the strided ring-layout views
 # of a training step), each leaf within LM_FLOOR_X times its bf16 floor.
+# These checks run at the flagship widths and LM_GRAD_LAYERS of its 24
+# layers (all 24 until phase 26 was added; the floor is each run's own, so
+# the limits follow the depth), and so does the checkpoint round trip
+# (parameters and AdamW moments in the JAX names and layouts, restored bit
+# for bit, the same next loss): at 24 layers its 5.2 GB were written twice
+# and read three times, ~45 s of the phase on the H100's host.
 LM_GRAD_BATCH = 2
 LM_GRAD_MIN = 1e-5
+LM_GRAD_LAYERS = 4
 # Flagship-MoE: the flagship widths with the zoo's MoE settings, top-2
 # gating over 8 experts (GShard, as Mixtral 8x7B), the JAX defaults of
 # capacity factor 2.0 and aux weight 0.01; 2,550 M parameters.  Served as
@@ -1034,9 +1073,10 @@ def http_json(port, method, path, body=None):
         conn.close()
 
 
-def serving_phase(torch, gn):
+def serving_phase(torch, gn, exports):
     """Export, serve and query a seeded ResNet-50 through the port's
-    entry points; returns the served module for the forward phase."""
+    entry points; returns the served module for the forward phase.  The
+    export stays under ``exports`` (phase 26 inspects it)."""
     from elasticdl_tpu_torch.models import resnet
     from elasticdl_tpu_torch.models.spec import load_model_spec
     from elasticdl_tpu_torch.serving.export import export_servable
@@ -1051,55 +1091,54 @@ def serving_phase(torch, gn):
         seeded_params(spec, module, seed=0)))
     images = np.random.RandomState(1).rand(
         REQUESTS, SERVE_BATCH, 224, 224, 3).astype(np.float32)
-    with tempfile.TemporaryDirectory() as tmp:
-        export_dir = os.path.join(tmp, "resnet50", "1")
-        export_servable(export_dir, "resnet", model_params, module,
-                        images[0, :1], model_name="resnet50", version=1)
-        endpoint = ModelEndpoint(os.path.dirname(export_dir),
-                                 device="cuda")
-        if endpoint.model.program is None:
-            fail("serving: the export loaded without its program")
-        server = build_server(endpoint, port=0)
-        port = server.server_address[1]
-        thread = threading.Thread(target=server.serve_forever, daemon=True)
-        thread.start()
-        try:
-            code, meta = http_json(port, "GET", "/v1/models/resnet50")
-            if code != 200 or meta["metadata"]["version"] != 1:
-                fail("metadata: %s %s" % (code, meta))
-            if http_json(port, "GET", "/healthz") != (200,
-                                                      {"status": "ok"}):
-                fail("healthz")
-            bodies = [json.dumps({"instances": batch.tolist()})
-                      for batch in images]
-            gn.LAUNCHES = 0
-            latencies, predictions = [], []
-            for body in bodies:
-                t0 = time.perf_counter()
-                code, out = http_json(port, "POST",
-                                      "/v1/models/resnet50:predict", body)
-                latencies.append((time.perf_counter() - t0) * 1e3)
-                if code != 200:
-                    fail("predict: %s %s" % (code, out))
-                predictions.append(np.asarray(out["predictions"],
-                                              np.float32))
-            launches = gn.LAUNCHES
-        finally:
-            server.shutdown()
-            server.server_close()
-            thread.join(timeout=60)
-        if launches != GN_PER_FORWARD * len(bodies):
-            fail("GroupNorm kernel launched %d times over %d forwards, "
-                 "want %d each" % (launches, len(bodies), GN_PER_FORWARD))
+    export_dir = os.path.join(exports, "resnet50", "1")
+    export_servable(export_dir, "resnet", model_params, module,
+                    images[0, :1], model_name="resnet50", version=1)
+    endpoint = ModelEndpoint(os.path.dirname(export_dir),
+                             device="cuda")
+    if endpoint.model.program is None:
+        fail("serving: the export loaded without its program")
+    server = build_server(endpoint, port=0)
+    port = server.server_address[1]
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        code, meta = http_json(port, "GET", "/v1/models/resnet50")
+        if code != 200 or meta["metadata"]["version"] != 1:
+            fail("metadata: %s %s" % (code, meta))
+        if http_json(port, "GET", "/healthz") != (200,
+                                                  {"status": "ok"}):
+            fail("healthz")
+        bodies = [json.dumps({"instances": batch.tolist()})
+                  for batch in images]
+        gn.LAUNCHES = 0
+        latencies, predictions = [], []
+        for body in bodies:
+            t0 = time.perf_counter()
+            code, out = http_json(port, "POST",
+                                  "/v1/models/resnet50:predict", body)
+            latencies.append((time.perf_counter() - t0) * 1e3)
+            if code != 200:
+                fail("predict: %s %s" % (code, out))
+            predictions.append(np.asarray(out["predictions"],
+                                          np.float32))
+        launches = gn.LAUNCHES
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join(timeout=60)
+    if launches != GN_PER_FORWARD * len(bodies):
+        fail("GroupNorm kernel launched %d times over %d forwards, "
+             "want %d each" % (launches, len(bodies), GN_PER_FORWARD))
 
-        # Reference: the exported module (the served program's weights),
-        # with the plain GroupNorm.
-        served = module
-        with plain_group_norm(resnet, gn), torch.inference_mode():
-            refs = [served(torch.from_numpy(batch).cuda()).cpu().numpy()
-                    for batch in images]
-        if gn.LAUNCHES != launches:
-            fail("the plain reference launched the kernel")
+    # Reference: the exported module (the served program's weights),
+    # with the plain GroupNorm.
+    served = module
+    with plain_group_norm(resnet, gn), torch.inference_mode():
+        refs = [served(torch.from_numpy(batch).cuda()).cpu().numpy()
+                for batch in images]
+    if gn.LAUNCHES != launches:
+        fail("the plain reference launched the kernel")
     max_err = 0.0
     for pred, ref in zip(predictions, refs):
         if pred.shape != (SERVE_BATCH, 1000) or not np.isfinite(pred).all():
@@ -2103,9 +2142,9 @@ def lm_grads_vs_plain(torch, fa, spec, module, toks, what, unrounded=None):
 
 
 def lm_grad_phase(torch, fa, rng):
-    """Step-1 gradients of the flagship LM through the zoo entry's apply_fn
-    and loss_fn, kernels (remat=True) against the plain Function
-    (``lm_grads_vs_plain``): in float32 with TF32 off at batch
+    """Step-1 gradients of the flagship LM at LM_GRAD_LAYERS layers through
+    the zoo entry's apply_fn and loss_fn, kernels (remat=True) against the
+    plain Function (``lm_grads_vs_plain``): in float32 with TF32 off at batch
     LM_GRAD_BATCH x 2048, where remat=False and xent_chunk=512 are then
     held against remat=True to the same limits; and at the main path's
     settings, bf16 compute at batch LM_TRAIN_BATCH x 2048."""
@@ -2113,7 +2152,8 @@ def lm_grad_phase(torch, fa, rng):
     from elasticdl_tpu_torch.utils.device import use_float32_numerics
 
     use_float32_numerics()
-    params = LM_PARAMS.replace("dtype=bfloat16", "dtype=float32")
+    grad_params = lm_params_at(LM_GRAD_LAYERS)
+    params = grad_params.replace("dtype=bfloat16", "dtype=float32")
     specs = {name: load_model_spec("transformer", params + extra)
              for name, extra in (("remat", ";remat=true"),
                                  ("no_remat", ";remat=false"),
@@ -2123,7 +2163,8 @@ def lm_grad_phase(torch, fa, rng):
     toks = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, size=(LM_GRAD_BATCH, cfg.max_seq_len))).to(DEVICE)
     out, grads_k, limit = lm_grads_vs_plain(
-        torch, fa, specs["remat"], module, toks, "f32 (TF32 off)")
+        torch, fa, specs["remat"], module, toks,
+        "%d-layer f32 (TF32 off)" % LM_GRAD_LAYERS)
     loss_k = out["loss_kernels"]
 
     gaps = {}
@@ -2148,16 +2189,18 @@ def lm_grad_phase(torch, fa, rng):
     del grads_k, module
     torch.cuda.empty_cache()
 
-    spec = load_model_spec("transformer", LM_PARAMS + ";remat=true")
+    spec = load_model_spec("transformer", grad_params + ";remat=true")
     module = spec.init_fn(DEVICE, seed=0)
     toks = torch.from_numpy(rng.randint(
         0, cfg.vocab_size, size=(LM_TRAIN_BATCH, cfg.max_seq_len))).to(DEVICE)
-    bf16, grads_k, limit = lm_grads_vs_plain(torch, fa, spec, module, toks,
-                                             "bf16 compute")
+    bf16, grads_k, limit = lm_grads_vs_plain(
+        torch, fa, spec, module, toks,
+        "%d-layer bf16 compute" % LM_GRAD_LAYERS)
     loss_k = bf16["loss_kernels"]
     gaps = {}
     for remat in ("false", "dots", "attn"):
-        spec_r = load_model_spec("transformer", LM_PARAMS + ";remat=" + remat)
+        spec_r = load_model_spec("transformer",
+                                 grad_params + ";remat=" + remat)
         loss, grads, counts = lm_step1(torch, fa, spec_r, module, toks)
         fwd = cfg.num_layers * (1 if remat == "false" else 2)
         if counts != (fwd, cfg.num_layers, cfg.num_layers):
@@ -2248,9 +2291,7 @@ def lm_training_phase(torch, fa):
         0, cfg.vocab_size, size=(B, T)).astype(np.int32)).to(DEVICE)
     tmp = tempfile.TemporaryDirectory()
     try:
-        trainer = CollectiveTrainer(spec, batch_size=B, device=DEVICE,
-                                    checkpoint_saver=CheckpointSaver(
-                                        tmp.name))
+        trainer = CollectiveTrainer(spec, batch_size=B, device=DEVICE)
         n_params = sum(p.numel() for p in trainer.module.parameters())
         first, counts = counted_step(torch, fa, trainer, tokens, "LM",
                                      nonzero=True)
@@ -2302,11 +2343,20 @@ def lm_training_phase(torch, fa):
               "tokens/s (%d steps)" % (plain_ms, out["plain_tokens_per_s"],
                                        LM_PLAIN_STEPS))
 
-        # Checkpoint round trip: parameters and AdamW moments in the JAX
-        # names and layouts, restored bit for bit, the same next loss.
+        # Checkpoint round trip (LM_GRAD_LAYERS layers, trained a few
+        # steps): parameters and AdamW moments in the JAX names and
+        # layouts, restored bit for bit, the same next loss.
+        del trainer
+        torch.cuda.empty_cache()
+        spec = load_model_spec("transformer",
+                               lm_params_at(LM_GRAD_LAYERS) + ";remat=true")
+        saver = CheckpointSaver(tmp.name)
+        trainer = CollectiveTrainer(spec, batch_size=B, device=DEVICE,
+                                    checkpoint_saver=saver)
+        for _ in range(LM_PLAIN_STEPS):
+            trainer.train_minibatch(tokens, tokens)
         trainer.save_checkpoint()
         trainer.flush_checkpoints()
-        saver = CheckpointSaver(tmp.name)
         saved, saved_version = saver.load()
         mu = [k for k in saved if k.startswith("opt/0/mu/")]
         if (len(mu) != len(list(trainer.module.parameters()))
@@ -2334,10 +2384,11 @@ def lm_training_phase(torch, fa):
         b = float(restored.train_minibatch(tokens, tokens)[0])
         if a != b:
             fail("restored trainer's next loss %r, the original's %r" % (b, a))
-        print("lm train: checkpoint at version %d (%d mu + %d nu slots, "
-              "embed's [%d, %d]) restored into a fresh trainer bit for bit; "
-              "next loss %r on both" % (saved_version, len(mu), len(mu),
-                                        cfg.vocab_size, cfg.dim, a))
+        print("lm train: checkpoint of %d layers at version %d (%d mu + %d "
+              "nu slots, embed's [%d, %d]) restored into a fresh trainer bit "
+              "for bit; next loss %r on both" % (
+                  LM_GRAD_LAYERS, saved_version, len(mu), len(mu),
+                  cfg.vocab_size, cfg.dim, a))
         del restored, trainer
     finally:
         tmp.cleanup()
@@ -3343,16 +3394,18 @@ def process_leg(torch, fa):
 
 
 class _MasterProcess:
-    """The master CLI as a subprocess; a thread stamps each log line with
-    the host clock as it arrives.  ``what`` names the leg in failures."""
+    """The master CLI (or ``module``, another entry point that runs it) as
+    a subprocess; a thread stamps each log line with the host clock as it
+    arrives.  ``what`` names the leg in failures."""
 
-    def __init__(self, args, env, cwd, what="process path, leg 2"):
+    def __init__(self, args, env, cwd, what="process path, leg 2",
+                 module="elasticdl_tpu_torch.master.main"):
         self.what = what
         self.lines = []
         self._cond = threading.Condition()
         self.t0 = time.perf_counter()
         self.proc = subprocess.Popen(
-            [sys.executable, "-m", "elasticdl_tpu_torch.master.main"] + args,
+            [sys.executable, "-m", module] + args,
             env=env, cwd=cwd, stdout=subprocess.DEVNULL,
             stderr=subprocess.PIPE, text=True)
         self._thread = threading.Thread(target=self._read, daemon=True)
@@ -3398,14 +3451,27 @@ class _MasterProcess:
         except OSError:
             return []
 
-    def worker_pid(self, worker_id):
+    def worker_pids(self):
+        """{pid: worker id} of the master's children that run a worker.
+        The children file lists the workers' threads too (a thread's
+        parent is its process's): only thread-group leaders count."""
+        out = {}
         for pid in self.children():
             try:
+                if _tgid(pid) != pid:
+                    continue
                 with open("/proc/%d/environ" % pid, "rb") as f:
                     env = f.read().split(b"\0")
             except OSError:
                 continue
-            if b"WORKER_ID=%d" % worker_id in env:
+            for item in env:
+                if item.startswith(b"WORKER_ID="):
+                    out[pid] = int(item[len(b"WORKER_ID="):])
+        return out
+
+    def worker_pid(self, worker_id):
+        for pid, wid in self.worker_pids().items():
+            if wid == worker_id:
                 return pid
         fail("%s: no worker %d among the master's children"
              % (self.what, worker_id))
@@ -7046,6 +7112,331 @@ def ctr_phase(torch, fa, gn):
     return out
 
 
+# Phase 26: the control plane (ROADMAP A14, A19, A20).  Leg 1, the port's
+# CLI (``python -m elasticdl_tpu_torch.client.main train --platform local
+# --jobs_spec``) runs a pool of two workers on the card over two jobs: mnist
+# on CP_MNIST_RECORDS records and ResNet-50 at its full widths
+# (resnet50_cifar10 on synthetic_cifar10, phase 18's CLI job) on
+# CP_RESNET_RECORDS, batch 32, each job 1 to 2 workers; the resize
+# controller moves the mnist job's worker to ResNet-50 once mnist is done,
+# and the worker rebuilds its pipeline in place.  Leg 2, ``inspect`` on the
+# ResNet-50 job's checkpoints and on phase 5's export.  Leg 3, ``train
+# --platform k8s --output -`` renders the cluster submission, and the port's
+# K8sWorkerBackend the worker pod the in-cluster master would create from
+# it; no cluster is contacted.
+PHASE26_BUDGET_S = 60
+CP_MNIST_RECORDS = 512
+CP_RESNET_RECORDS = 2048
+CP_BATCH = 32
+CP_MINIBATCHES = 4
+CP_CHECKPOINT_STEPS = 8        # worker 0 writes the ResNet-50 job's
+CP_TIMEOUT_S = 50
+CP_GPU_REQUEST = "cpu=4,memory=16Gi,nvidia.com/gpu=1"
+# What a switched worker still holds on the card when the new job's trainer
+# build starts: the Worker has dropped the old trainer and pipeline.  The
+# smallest trainer it can drop, mnist's, holds 1.7 MB of float32 parameters.
+CP_LEFTOVER_BYTES = 1 << 20
+
+
+def _cp_steps_by_job(lines):
+    """{job: [host times of its workers' step logs]} and {worker: job},
+    following each worker's ``switched to job`` lines."""
+    current, steps = {}, {}
+    step_re = re.compile(r"\[worker-(\d+)\] .* step \d+ loss (\S+) ")
+    for t, line in lines:
+        m = re.search(r"\[worker-(\d+)\] .*switched to job (\w+)", line)
+        if m:
+            current[m.group(1)] = m.group(2)
+            continue
+        m = step_re.search(line)
+        if m:
+            steps.setdefault(current.get(m.group(1)), []).append(
+                (t, float(m.group(2))))
+    return steps
+
+
+def control_plane_pool_leg(torch, tmp):
+    """Leg 1 of phase 26; returns its numbers."""
+    from elasticdl_tpu_torch.master.journal import journal_path, scan_frames
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.ops import build
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("ELASTICDL_TORCH_DEVICE", None)     # the workers' default: cuda
+    # The libraries the build phase made: the workers load, never build.
+    env["ELASTICDL_TORCH_BUILD_DIR"] = build.BUILD_DIR
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+    ckpt, jdir = os.path.join(tmp, "ckpt_b"), os.path.join(tmp, "journal")
+    jobs = [
+        {"name": "jobA", "model_zoo": "mnist",
+         "data_origin": "synthetic_mnist:%d" % CP_MNIST_RECORDS,
+         "min_workers": 1, "max_workers": 2},
+        {"name": "jobB", "model_zoo": "resnet",
+         "model_params": "variant=resnet50_cifar10",
+         "data_origin": "synthetic_cifar10:%d" % CP_RESNET_RECORDS,
+         "checkpoint_dir": ckpt, "min_workers": 1, "max_workers": 2},
+    ]
+    spec_path = os.path.join(tmp, "jobs.json")
+    with open(spec_path, "w") as f:
+        json.dump(jobs, f)
+    status_port = _free_port()
+    args = ["train", "--platform", "local", "--jobs_spec", spec_path,
+            "--num_workers", "2", "--batch_size", str(CP_BATCH),
+            "--num_minibatches_per_task", str(CP_MINIBATCHES),
+            "--sched_cadence_secs", "0.5", "--status_port", str(status_port),
+            "--journal_dir", jdir,
+            "--checkpoint_steps", str(CP_CHECKPOINT_STEPS),
+            "--log_loss_steps", "1"]
+    what = "control plane, leg 1"
+    job = _MasterProcess(args, env, tmp, what=what,
+                         module="elasticdl_tpu_torch.client.main")
+    deadline = job.t0 + CP_TIMEOUT_S
+    pids, running_both, states = {}, [], []
+    try:
+        # /status and the pool's pids while the jobs run.
+        while job.proc.poll() is None and time.perf_counter() < deadline:
+            pids.update(job.worker_pids())
+            code, body = _get_json(status_port, "/status")
+            if code == 200:
+                now = {name: j.get("state")
+                       for name, j in body.get("jobs", {}).items()}
+                states.append(now)
+                if now == {"jobA": "running", "jobB": "running"}:
+                    running_both.append(time.perf_counter() - job.t0)
+            time.sleep(0.1)
+        try:
+            rc = job.proc.wait(timeout=max(1.0, deadline
+                                           - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            fail("%s: the pool did not finish within %d s; its tail:\n%s"
+                 % (what, CP_TIMEOUT_S, job.tail()))
+        t_end = time.perf_counter()
+    finally:
+        job.stop()
+    log = "".join(line for _, line in job.lines)
+    if rc != 0 or not re.search(r"all jobs finished", log):
+        fail("%s: rc %s; tail:\n%s" % (what, rc, job.tail()))
+    launched = re.findall(r"launched worker (\d+)", log)
+    if (sorted(pids.values()) != [0, 1] or sorted(launched) != ["0", "1"]
+            or "relaunch=True" in log):
+        fail("%s: worker processes {pid: id} %s, launched %s: a worker "
+             "restarted" % (what, pids, launched))
+    if not running_both:
+        fail("%s: /status never listed both jobs running: %s"
+             % (what, states[:5]))
+
+    # Every record of each job once, from its own journal.
+    accounted = {}
+    for job_id, spec in enumerate(jobs, start=1):
+        with open(journal_path(os.path.join(jdir, "job-%02d" % job_id)),
+                  "rb") as f:
+            recs = [r for r, _ in scan_frames(f.read())]
+        records = int(spec["data_origin"].split(":")[1])
+        tasks = sorted(r["id"] for r in recs if r["ev"] == "task")
+        done = sorted(r["id"] for r in recs if r["ev"] == "done")
+        batched = sum(r["n"] for r in recs if r["ev"] == "batch")
+        failed = [r for r in recs if r["ev"] == "fail"]
+        if (done != tasks or len(tasks) != records // (CP_BATCH
+                                                       * CP_MINIBATCHES)
+                or batched != records or failed):
+            fail("%s: %s's journal: tasks %s, done %s, %d records in "
+                 "batches of %d, failures %s" % (
+                     what, spec["name"], tasks, done, batched, records,
+                     failed[:3]))
+        accounted[spec["name"]] = {"tasks": len(tasks), "records": batched}
+    with open(journal_path(os.path.join(jdir, "sched")), "rb") as f:
+        moves = [r for r, _ in scan_frames(f.read())
+                 if r.get("ev") == "sched" and r.get("op") == "assign"
+                 and r.get("prev")]
+    if not moves or (moves[0]["prev"], moves[0]["job"]) != (1, 2):
+        fail("%s: the controller moved no worker from jobA to jobB: %s"
+             % (what, moves))
+    t_move, _ = job.wait_for(r"resize: worker \d+ moved jobA -> jobB",
+                             t_end)
+
+    # B1 and B2: 53 a pass in every trainer of the ResNet-50 job, the
+    # moved worker's among them.
+    launches, passes_b = {}, {}
+    for w in ("0", "1"):
+        m = re.search(r"\[worker-%s\] .*kernel launches: (\{.*\})" % w, log)
+        if not m:
+            fail("%s: worker %s logged no kernel launches" % (what, w))
+        counts = json.loads(m.group(1))
+        launches[w] = counts
+        for row in counts["by_trainer"]:
+            if row["job"] != "jobB":
+                if row["group_norm_fwd"] or row["group_norm_bwd"]:
+                    fail("%s: worker %s launched GroupNorm for %s: %s"
+                         % (what, w, row["job"], row))
+                continue
+            n = row["train_passes"]
+            if not (row["group_norm_fwd"] == row["group_norm_bwd"]
+                    == GN_PER_FORWARD * n):
+                fail("%s: worker %s's ResNet-50 trainer launched %s over "
+                     "%d passes, want B1 and B2 %d a pass" % (
+                         what, w, row, n, GN_PER_FORWARD))
+            passes_b[w] = passes_b.get(w, 0) + n
+    moved = str(moves[0]["w"])
+    if not passes_b.get(moved) or sum(passes_b.values()) < (
+            CP_RESNET_RECORDS // CP_BATCH):
+        fail("%s: ResNet-50 passes by worker %s, the moved worker %s: "
+             "every one must have trained it" % (what, passes_b, moved))
+
+    # The switch into ResNet-50: the old trainer gone from the card before
+    # the new one was built, whose parameters are on the card.
+    n_params = sum(p.numel() for p in load_model_spec(
+        "resnet", "variant=resnet50_cifar10").init_fn("cpu").parameters())
+    switches = [(int(a), int(b)) for a, b in re.findall(
+        r"job switch to jobB: (\d+) bytes allocated on cuda\S* before its "
+        r"trainer was built, (\d+) after", log)]
+    if (len(switches) != len(passes_b) or any(
+            before >= CP_LEFTOVER_BYTES or after - before < 4 * n_params
+            for before, after in switches)):
+        fail("%s: device bytes at the switches into jobB (before the "
+             "build, after) %s; want under %d before and %d more after"
+             % (what, switches, CP_LEFTOVER_BYTES, 4 * n_params))
+    steps = _cp_steps_by_job(job.lines)
+    losses_b = [loss for _, loss in steps.get("jobB", [])]
+    if not losses_b or not all(map(math.isfinite, losses_b)):
+        fail("%s: jobB's losses %s" % (what, losses_b[:10]))
+    rates = {name: _rate(sorted(t for t, _ in steps.get(name, [])))
+             for name in ("jobA", "jobB")}
+    return {"rc": rc, "job_s": t_end - job.t0,
+            "first_move_s": t_move - job.t0, "moves": len(moves),
+            "moved_worker": moved, "steps_per_s": rates,
+            "steps": {k: len(v) for k, v in steps.items() if k},
+            "accounted": accounted, "launches": launches,
+            "resnet_passes": passes_b, "switch_bytes": switches,
+            "resnet_params": n_params,
+            "loss_b": [losses_b[0], losses_b[-1]],
+            "status_polls": len(states), "checkpoint_dir": ckpt}
+
+
+def _cli_stdout(argv):
+    """(exit code, standard output) of the port's CLI run in process."""
+    import io
+
+    from elasticdl_tpu_torch.client import main as cli
+
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(list(argv))
+    return rc, buf.getvalue()
+
+
+def control_plane_inspect_leg(ckpt, export_base):
+    """Leg 2 of phase 26: ``inspect`` on the pool's checkpoints and on
+    phase 5's export."""
+    out = {}
+    for name, path, want in (
+            ("checkpoint", ckpt, ("checkpoint dir:", "latest loadable: "
+                                  "version")),
+            ("export", export_base, ("servable export:", "program: "
+                                     "model.pt2", "parameters:"))):
+        rc, text = _cli_stdout(["inspect", path])
+        if rc != 0 or not all(w in text for w in want):
+            fail("control plane, leg 2: inspect %s exited %s:\n%s"
+                 % (name, rc, text))
+        out[name] = text.strip().splitlines()
+    return out
+
+
+def control_plane_submission_leg():
+    """Leg 3 of phase 26: the rendered submission and the worker pod."""
+    from elasticdl_tpu_torch.master.main import (
+        _MASTER_ONLY_ARGS,
+        _build_worker_backend,
+    )
+    from elasticdl_tpu_torch.utils.args import (
+        build_arguments_from_parsed_result,
+        parse_master_args,
+    )
+
+    what = "control plane, leg 3"
+    rc, text = _cli_stdout([
+        "train", "--platform", "k8s", "--output", "-", "--job_name",
+        "resnet50-pool", "--image", "elasticdl-tpu-torch:cu128",
+        "--model_zoo", "resnet", "--model_params",
+        "variant=resnet50_cifar10", "--num_workers", "2",
+        "--worker_resource_request", CP_GPU_REQUEST])
+    docs = [json.loads(d) for d in text.split("---\n") if d.strip()]
+    if rc != 0 or [d["kind"] for d in docs] != ["Pod", "Service"]:
+        fail("%s: rc %s, documents %s" % (what, rc, text[:300]))
+    container = docs[0]["spec"]["containers"][0]
+    margs = container["args"]
+    if (container["command"] != ["python", "-m",
+                                 "elasticdl_tpu_torch.master.main"]
+            or margs[margs.index("--worker_backend") + 1] != "k8s"):
+        fail("%s: the master pod runs %s with %s" % (
+            what, container["command"], margs))
+    # What the in-cluster master builds from those args.
+    args = parse_master_args(margs)
+    backend = _build_worker_backend(args, build_arguments_from_parsed_result(
+        args, filter_args=_MASTER_ONLY_ARGS))
+    pod = backend.pod_manifest(0, "resnet50-pool-master.default.svc:50001")
+    worker = pod["spec"]["containers"][0]
+    if (worker["command"][-1] != "elasticdl_tpu_torch.worker.main"
+            or worker["resources"].get("limits") != {"nvidia.com/gpu": "1"}
+            or worker["resources"]["requests"].get("nvidia.com/gpu") != "1"
+            or backend._core_api is not None):
+        fail("%s: the worker pod %s" % (what, json.dumps(worker)))
+    return {"master_command": container["command"],
+            "worker_command": worker["command"],
+            "worker_resources": worker["resources"],
+            "service_ports": docs[1]["spec"]["ports"]}
+
+
+def control_plane_phase(torch, export_base):
+    """The control plane (module docstring, phase 26); fails past
+    PHASE26_BUDGET_S."""
+    t0 = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        out = {"pool": control_plane_pool_leg(torch, tmp.name)}
+        out["inspect"] = control_plane_inspect_leg(
+            out["pool"]["checkpoint_dir"], export_base)
+        out["pool"]["checkpoint_dir"] = os.path.basename(
+            out["pool"]["checkpoint_dir"])
+    finally:
+        tmp.cleanup()
+    out["submission"] = control_plane_submission_leg()
+    out["phase_s"] = time.perf_counter() - t0
+    pool = out["pool"]
+    smi = nvidia_smi_line()
+    print("control plane, leg 1 (the port's CLI, --jobs_spec, a pool of 2 "
+          "workers on the card; %s): mnist %d records and resnet50_cifar10 "
+          "%d records, batch %d; exit 0 in %.1f s, the first move (jobA -> "
+          "jobB, worker %s) %.2f s after the start, %d move(s), no worker "
+          "restarts; steps/s jobA %s, jobB %s (%s steps); ResNet-50 passes "
+          "by worker %s, B1 and B2 53 a pass in each (launches %s); device "
+          "bytes at the switches into jobB, before the build and after: "
+          "%s (%d parameters); jobB loss %.4f -> %.4f; /status polled %d "
+          "times, both jobs running" % (
+              smi, CP_MNIST_RECORDS, CP_RESNET_RECORDS, CP_BATCH,
+              pool["job_s"], pool["moved_worker"], pool["first_move_s"],
+              pool["moves"], pool["steps_per_s"]["jobA"],
+              pool["steps_per_s"]["jobB"], pool["steps"],
+              pool["resnet_passes"], json.dumps(pool["launches"]),
+              pool["switch_bytes"], pool["resnet_params"], *pool["loss_b"],
+              pool["status_polls"]))
+    for name, lines in out["inspect"].items():
+        print("control plane, leg 2: inspect %s:\n  %s" % (
+            name, "\n  ".join(lines)))
+    sub = out["submission"]
+    print("control plane, leg 3: train --platform k8s --output - renders a "
+          "master pod running %s (--worker_backend k8s) and a Service on %s; "
+          "its worker pod runs %s with resources %s; phase %.1f s" % (
+              " ".join(sub["master_command"]), sub["service_ports"],
+              " ".join(sub["worker_command"]),
+              json.dumps(sub["worker_resources"]), out["phase_s"]))
+    if out["phase_s"] > PHASE26_BUDGET_S:
+        fail("control plane: the phase took %.1f s, past its budget of %d "
+             "s" % (out["phase_s"], PHASE26_BUDGET_S))
+    return out
+
+
 def import_export_machinery():
     import torch._dynamo  # noqa: F401
     import torch._export.serde.serialize  # noqa: F401
@@ -7118,8 +7509,10 @@ def main():
                   tot["library_ms"], tot["bound_ms"], tot["bound_by"],
                   100 * tot["share_of_bound"]))
 
+    # Phase 5's export, inspected by phase 26.
+    kept = tempfile.TemporaryDirectory()
     module, serve_launches, latencies, serve_err = run(
-        "serving", serving_phase, torch, gn)
+        "serving", serving_phase, torch, gn, kept.name)
     forward = run("forward", forward_phase, torch, gn, module)
     del module
     train = run("training", training_phase, torch, gn)
@@ -7150,6 +7543,11 @@ def main():
     fleet = run("serving fleet", fleet_phase, torch, gn)
     online = run("online loop", online_phase, torch, gn)
     ctr = run("CTR zoo and preprocessing", ctr_phase, torch, fa, gn)
+    try:
+        control = run("control plane", control_plane_phase, torch,
+                      os.path.join(kept.name, "resnet50"))
+    finally:
+        kept.cleanup()
     print("CTR zoo beside DeepFM: phase 22's DeepFM on the same shards' "
           "path, atomic sync, %.1f steps/s; phase 25: %s" % (
               ps["trainer"]["timed"]["atomic sync"]["steps_per_s"],
@@ -7185,6 +7583,9 @@ def main():
             "batches": fleet["leg1"]["batched"]["batches"],
             "warmed_buckets": FLEET_BUCKETS,
             "per_serialized_request": GN_PER_FORWARD},
+        "launches_control_plane_pool": {
+            w: c["by_trainer"]
+            for w, c in control["pool"]["launches"].items()},
         "launches_online_loop": {
             "by_the_program": online["leg1"]["program_launches"],
             "per_batch": GN_PER_FORWARD,
@@ -7216,6 +7617,9 @@ def main():
         "launches_zero1_job": {
             w: c["group_norm_bwd"]
             for w, c in zero["cli"]["launches"].items()},
+        "launches_control_plane_pool": {
+            w: c["by_trainer"]
+            for w, c in control["pool"]["launches"].items()},
         "max_abs_err": bwd_err["float32"],
         "ms": bf32["ms"],
         "plain_ms": bf32["plain_ms"],
@@ -7352,6 +7756,7 @@ def main():
                        "serving_fleet": fleet,
                        "online_loop": online,
                        "ctr_zoo": ctr,
+                       "control_plane": control,
                        "phase_s": phase_s,
                        "kernels": kernels},
                       f, indent=1)

@@ -1,28 +1,38 @@
 """Master entrypoint (parity: elasticdl/python/master/main.py:20-24;
 counterpart of ``elasticdl_tpu/master/main.py``).
 
-Builds the control plane from flags, optionally launches/manages workers
-(local-process backend), runs the job to completion.  The port runs the
-``local``, ``collective`` and ``ps`` strategies over process workers
-(``python -m elasticdl_tpu_torch.worker.main``); for ``collective`` the
-master also hosts the rendezvous and one ``torch.distributed`` store
-per membership epoch (``parallel/distributed.py``), and for ``ps`` it
-launches, watches and relaunches ``--num_ps`` parameter-server shards
+Builds the control plane from flags, optionally launches/manages workers,
+runs the job to completion.  The port runs the ``local``, ``collective``
+and ``ps`` strategies over process workers
+(``python -m elasticdl_tpu_torch.worker.main``) or, under
+``--worker_backend k8s``, over worker pods (``master/k8s_backend.py``):
+the master then binds ``client/k8s_submit.MASTER_PORT``, the port its
+Service maps, and advertises the Service's DNS name.  For
+``collective`` the master also hosts the rendezvous and one
+``torch.distributed`` store per membership epoch
+(``parallel/distributed.py``), on ``localhost`` for process workers and
+on the pod's ``POD_IP`` on k8s; for ``ps`` it launches, watches and
+relaunches ``--num_ps`` parameter-server shards
 (``master/ps_manager.py``, ``python -m elasticdl_tpu_torch.ps.server``)
-and hands their addresses to the workers.  ``--job_type``
-``train``, ``predict`` and ``evaluate`` run as in the JAX package, and
+and hands their addresses to the workers.  ``--job_type`` ``train``,
+``predict`` and ``evaluate`` run as in the JAX package, and
 ``--status_port`` serves ``/healthz``, ``/status``, ``/metrics``,
 ``/tracez``, ``/alertz`` and ``/profilez`` (``master/status_server.py``).
-Flag values that select another path (k8s workers, the multi-tenant
-scheduler, continuous export) raise ``NotImplementedError`` naming their
-ROADMAP item (``utils.args.check_ported``).  The model spec the master
-loads to size its work is the port's, so no process of a port job
-imports JAX.  The master launches its workers before it builds its data
-readers and loads that spec (both import torch), on a port it holds
-reserved, so their start-ups overlap; they wait for its service.
+``--jobs_spec`` runs the multi-tenant control plane instead
+(``master/scheduler.py``): J train jobs over one pool of workers that
+the resize controller moves between them without restarts.  The model
+spec the master loads to size its work is the port's, so no process of
+a port job imports JAX.  The master launches its workers before it
+builds its data readers and loads that spec (both import torch), on a
+port it holds reserved, so their start-ups overlap; they wait for its
+service.  That order, and under ``--jobs_spec`` the check that each
+job's ``model_zoo`` names a module before the pool starts, is where it
+differs from the reference, besides the package (ROADMAP Queue C,
+documented differences).
 """
 
 import importlib.util
+import os
 import socket
 
 from elasticdl_tpu_torch.data.factory import create_data_reader
@@ -91,8 +101,69 @@ def _check_journal_meta(state, meta):
 
 
 def _build_worker_backend(args, worker_args):
-    # --worker_backend k8s was refused by check_ported (ROADMAP A19).
+    if args.worker_backend == "k8s":
+        from elasticdl_tpu_torch.client.k8s_renderer import (
+            parse_resource_string,
+        )
+        from elasticdl_tpu_torch.master.k8s_backend import (
+            K8sWorkerBackend,
+            owner_ref_from_env,
+        )
+
+        return K8sWorkerBackend(
+            job_name=args.job_name,
+            image=args.image,
+            namespace=args.namespace,
+            worker_args=worker_args,
+            resources=parse_resource_string(args.worker_resource_request),
+            tpu_topology=args.tpu_topology or None,
+            num_workers=args.num_workers,
+            high_priority_fraction=args.worker_pod_priority,
+            cluster_spec=args.cluster_spec,
+            owner_ref=owner_ref_from_env(),
+            volume=args.volume,
+        )
     return ProcessWorkerBackend(worker_args=worker_args)
+
+
+def _master_port(args):
+    """``--port``; on k8s, where it is unset, the port the master's
+    Service maps (``client/k8s_submit.MASTER_PORT``): pods dial the
+    Service, whose targetPort is fixed, so a free-port bind would be
+    unreachable.  0 = a free port, reserved by the caller."""
+    if args.worker_backend == "k8s" and not args.port:
+        from elasticdl_tpu_torch.client.k8s_submit import MASTER_PORT
+
+        return MASTER_PORT
+    return args.port
+
+
+def _advertise_addr(args):
+    """How managed workers dial the master (``%d`` = its port): the
+    Service's DNS name on k8s (the Service the submission created),
+    localhost for process workers."""
+    if args.worker_backend == "k8s":
+        return "%s-master.%s.svc:%%d" % (args.job_name, args.namespace)
+    return "localhost:%d"
+
+
+def _coordination_host(args):
+    """Where collective workers dial the per-epoch stores.  Those bind
+    fresh ports the master's k8s Service does not map, so pods dial the
+    master pod itself: ``POD_IP`` (downward API, injected by
+    ``client/k8s_submit.py``), and fail fast when it is missing — a
+    Service-DNS fallback would only produce opaque worker-side connect
+    timeouts.  Process workers dial localhost."""
+    if args.worker_backend != "k8s":
+        return "localhost"
+    host = os.environ.get("POD_IP")
+    if not host:
+        raise RuntimeError(
+            "collective strategy on k8s requires the POD_IP downward-API "
+            "env (the per-epoch coordination ports are not mapped by the "
+            "master Service); resubmit with a current client — "
+            "client/k8s_submit.py injects it")
+    return host
 
 
 def _reserve_port():
@@ -130,8 +201,27 @@ def _build_worker_manager(args, ps_manager=None):
     )
 
 
+def _launch_workers_early(args, ps_manager=None):
+    """The workers, launched before the master imports torch: (worker
+    manager, port, reservation).  The port is ``_master_port``'s, or a
+    free one held by ``reservation`` (close it once the gRPC server is
+    up); the workers wait for the master's service there."""
+    port, reservation = _master_port(args), None
+    if not port:
+        port, reservation = _reserve_port()
+    worker_manager = _build_worker_manager(args, ps_manager)
+    worker_manager.set_master_addr(_advertise_addr(args).replace(
+        "%d", str(port)))
+    try:
+        worker_manager.start()
+    except BaseException:
+        if reservation is not None:
+            reservation.close()
+        raise
+    return worker_manager, port, reservation
+
+
 def build_master(args):
-    check_ported(args)
     records_per_task = args.batch_size * args.num_minibatches_per_task
     journal_state = None
     if args.journal_dir:
@@ -163,8 +253,10 @@ def build_master(args):
     # once the master is whole (prepare()).  Under the PS strategy they
     # are given the shards' addresses now; the shards, which need the
     # spec's optimizer, start after prepare() (main).
+    coord_host = (_coordination_host(args)
+                  if args.distribution_strategy == "collective" else None)
     worker_manager = ps_manager = reservation = None
-    port = args.port
+    port = _master_port(args)
     if args.distribution_strategy == "ps" and args.num_ps > 0:
         from elasticdl_tpu_torch.master.ps_manager import PSManager
 
@@ -183,14 +275,11 @@ def build_master(args):
         )
     if args.num_workers > 0:
         _check_zoo_module(args.model_zoo)
-        if not port:
-            port, reservation = _reserve_port()
-        worker_manager = _build_worker_manager(args, ps_manager)
-        worker_manager.set_master_addr("localhost:%d" % port)
-        worker_manager.start()
+        worker_manager, port, reservation = _launch_workers_early(
+            args, ps_manager)
     try:
         master = _build_master(args, records_per_task, journal_state,
-                               worker_manager, port)
+                               worker_manager, port, coord_host)
     except BaseException:
         # Workers launched early must not outlive a master that failed
         # to come up (they would wait for its service).
@@ -201,6 +290,8 @@ def build_master(args):
         raise
     master.ps_manager = ps_manager
     master.port_reservation = reservation
+    # prepare() points the manager (and every relaunch) at this address.
+    master.advertise_addr = _advertise_addr(args)
     if ps_manager is not None:
         ps_manager._opt_type, ps_manager._opt_args = (
             master.model_spec.ps_optimizer)
@@ -208,7 +299,7 @@ def build_master(args):
 
 
 def _build_master(args, records_per_task, journal_state, worker_manager,
-                  port):
+                  port, coord_host):
     reader = create_data_reader(
         args.data_origin, records_per_shard=records_per_task
     )
@@ -319,11 +410,10 @@ def _build_master(args, records_per_task, journal_state, worker_manager,
         )
 
         # The master hosts each epoch's rendezvous store, so worker
-        # churn never strands the survivors; process workers dial it on
-        # localhost (the k8s backend, A19, was refused by check_ported).
+        # churn never strands the survivors (``_coordination_host``).
         rendezvous = RendezvousServer(
             coordinator_factory=MasterCoordinationService(
-                host="localhost",
+                host=coord_host,
                 # Old-epoch stores outlive the workers' epoch discovery:
                 # workers poll every num_minibatches_per_task steps
                 # (worker/main.py passes the same value as check_steps).
@@ -364,6 +454,201 @@ def _build_master(args, records_per_task, journal_state, worker_manager,
     return master
 
 
+def _load_jobs_spec(text):
+    """--jobs_spec accepts inline JSON or a path to a JSON file; the
+    value is a list of job-spec dicts (docs/scheduler.md)."""
+    import json
+
+    if os.path.exists(text):
+        with open(text) as fh:
+            text = fh.read()
+    spec = json.loads(text)
+    if not isinstance(spec, list) or not spec:
+        raise ValueError(
+            "--jobs_spec must be a non-empty JSON list of job specs"
+        )
+    return spec
+
+
+def build_multitenant_master(args):
+    """The multi-tenant control plane (master/scheduler.py): J jobs,
+    each with its own task queue, rendezvous epoch space, journal
+    namespace and telemetry aggregate, over ONE shared worker pool
+    driven by the resize controller.  Train-type local/collective jobs
+    only — a PS-mode job keeps its own single-job master.  As in the
+    single-job master, the pool launches before the jobs' data readers
+    are built (they import torch), once every spec's ``model_zoo`` and
+    the pool template's are known to name a module."""
+    from elasticdl_tpu_torch.master.scheduler import JobSpec
+
+    specs = [
+        JobSpec.from_dict(entry, defaults=args)
+        for entry in _load_jobs_spec(args.jobs_spec)
+    ]
+    names = [s.name for s in specs]
+    if len(set(names)) != len(names):
+        raise ValueError("duplicate job names in --jobs_spec: %s"
+                         % names)
+    worker_manager = reservation = None
+    port = _master_port(args)
+    if args.num_workers > 0:
+        # A managed pool never grows past --num_workers, so a job
+        # whose floor exceeds it could NEVER be admitted — the run
+        # would hang forever in the admission queue.  Fail fast.
+        impossible = [
+            s.name for s in specs if s.min_workers > args.num_workers
+        ]
+        if impossible:
+            raise ValueError(
+                "jobs %s require min_workers > --num_workers (%d) "
+                "and could never be admitted" % (impossible,
+                                                 args.num_workers)
+            )
+        for model_zoo in [args.model_zoo] + [s.model_zoo for s in specs]:
+            _check_zoo_module(model_zoo)
+        worker_manager, port, reservation = _launch_workers_early(args)
+    try:
+        master = _build_multitenant_master(args, specs, worker_manager,
+                                           port)
+    except BaseException:
+        if worker_manager is not None:
+            worker_manager.stop()
+        if reservation is not None:
+            reservation.close()
+        raise
+    master.port_reservation = reservation
+    return master
+
+
+def _build_multitenant_master(args, specs, worker_manager, port):
+    from elasticdl_tpu_torch.master.journal import (
+        JournalWriter,
+        replay_journal,
+    )
+    from elasticdl_tpu_torch.master.rendezvous import RendezvousServer
+    from elasticdl_tpu_torch.master.scheduler import (
+        JobRegistry,
+        ManagedJob,
+        MultiTenantMaster,
+        ResizeController,
+    )
+    from elasticdl_tpu_torch.master.servicer import MasterServicer
+
+    names = [s.name for s in specs]
+    sched_journal = None
+    sched_state = None
+    if args.journal_dir:
+        sched_dir = os.path.join(args.journal_dir, "sched")
+        # The recovery trace (same contract as the single-job path):
+        # replaying the scheduler journal is this incarnation's root
+        # recovery span; post-replay events link back to it so worker
+        # outage rides and the restarted schedule stitch into one
+        # incident component (the cpu_multitenant drill gate).
+        with tracing.span("master.journal_replay") as replay_span:
+            sched_state = replay_journal(sched_dir)
+        if sched_state is not None:
+            restart = sched_state.restarts + 1
+            tracing.configure_identity(
+                "master", generation=restart, restart=restart,
+                link_trace=getattr(replay_span, "trace", None),
+            )
+        sched_journal = JournalWriter(sched_dir)
+        sched_meta = {"jobs": names, "multitenant": True}
+        if sched_state is not None:
+            _check_journal_meta(sched_state, sched_meta)
+            sched_journal.append({"ev": "restart"})
+            sched_journal.flush()
+        else:
+            sched_journal.append({"ev": "meta", "job": sched_meta})
+    registry = JobRegistry(
+        journal=sched_journal, pool_size=args.num_workers
+    )
+    for index, spec in enumerate(specs):
+        job_id = index + 1   # deterministic: spec order, 1-based (0 =
+        #                      "unscoped" on the wire)
+        records_per_task = spec.records_per_task
+        reader = create_data_reader(
+            spec.data_origin, records_per_shard=records_per_task
+        )
+        task_manager = TaskManager(
+            training_shards=reader.create_shards(),
+            records_per_task=records_per_task,
+            num_epochs=spec.num_epochs,
+            shuffle=spec.shuffle,
+            shuffle_shards=spec.shuffle_shards,
+            max_task_retries=args.max_task_retries,
+            task_timeout_secs=args.task_timeout_secs,
+            seed=spec.seed,
+        )
+        job_journal = None
+        job_state = None
+        if args.journal_dir:
+            job_dir = os.path.join(args.journal_dir,
+                                   "job-%02d" % job_id)
+            job_state = replay_journal(job_dir)
+            job_journal = JournalWriter(job_dir)
+            if job_state is not None:
+                _check_journal_meta(job_state, spec.journal_meta())
+                task_manager.restore_from_journal(job_state)
+                job_journal.append({"ev": "restart"})
+                job_journal.flush()
+                task_manager.attach_journal(job_journal,
+                                            bootstrap=False)
+            else:
+                job_journal.append(
+                    {"ev": "meta", "job": spec.journal_meta()}
+                )
+                task_manager.attach_journal(job_journal,
+                                            bootstrap=True)
+        rendezvous = None
+        if spec.distribution_strategy == "collective":
+            # Per-job epoch space.  No coordinator factory: pool
+            # workers keep process-local meshes (the same regime the
+            # elastic drills run); every join/leave still commits a
+            # real journaled epoch for this job only.
+            rendezvous = RendezvousServer(
+                journal=job_journal,
+                initial_epoch=(
+                    job_state.rendezvous_id + 1 if job_state else 0
+                ),
+                name=spec.name,
+            )
+        servicer = MasterServicer(
+            task_manager, rendezvous_server=rendezvous,
+            journal=job_journal, job_id=job_id,
+        )
+        if job_state is not None:
+            servicer.restore_from_journal(job_state)
+        job = ManagedJob(
+            job_id, spec, task_manager, servicer,
+            rendezvous=rendezvous, journal=job_journal,
+        )
+        registry.submit(job, journal=sched_state is None)
+    if sched_state is not None:
+        registry.restore_from_journal(sched_state)
+    controller = ResizeController(
+        registry, worker_manager=worker_manager,
+        cadence_secs=args.sched_cadence_secs,
+        moves_per_tick=args.sched_moves_per_tick,
+        worker_stale_secs=args.sched_worker_stale_secs,
+    )
+    interceptors = None
+    if args.rpc_fault_spec:
+        from elasticdl_tpu_torch.utils.grpc_utils import (
+            FaultInjectionInterceptor,
+        )
+
+        logger.warning(
+            "RPC fault injection armed: %s", args.rpc_fault_spec
+        )
+        interceptors = [FaultInjectionInterceptor(args.rpc_fault_spec)]
+    return MultiTenantMaster(
+        registry, controller, worker_manager=worker_manager,
+        port=port, sched_journal=sched_journal,
+        interceptors=interceptors,
+    )
+
+
 def _arm_master_slo(servicers):
     """Default master SLO: zero sustained stragglers (the acceptance
     objective the straggler detector feeds — a flagged worker IS a
@@ -399,13 +684,44 @@ def start_status_server(args, master):
     return status_server
 
 
+def _run_multitenant(args):
+    master = build_multitenant_master(args)
+    master.prepare()
+    if master.port_reservation is not None:
+        master.port_reservation.close()  # the gRPC server holds the port
+    _arm_master_slo(
+        lambda: [job.servicer for job in master.registry.jobs()])
+    status_server = None
+    if args.status_port >= 0:
+        from elasticdl_tpu_torch.master.status_server import (
+            MultiTenantStatusServer,
+        )
+
+        status_server = MultiTenantStatusServer(
+            master.registry, worker_manager=master.worker_manager,
+            port=args.status_port,
+        )
+        status_server.start()
+    try:
+        return master.run()
+    finally:
+        if status_server is not None:
+            status_server.stop()
+        for job in master.registry.jobs():
+            if job.journal is not None:
+                job.journal.close()
+        if master.sched_journal is not None:
+            master.sched_journal.close()
+
+
 def main(argv=None):
     args = parse_master_args(argv)
     tracing.configure_identity("master")
     tracing.arm_crash_dump()
     logger.info("master starting: %s", vars(args))
-    # build_master refuses --jobs_spec (ROADMAP A20) and every other
-    # unported path before anything starts.
+    check_ported(args)
+    if args.jobs_spec:
+        return _run_multitenant(args)
     master = build_master(args)
     master.prepare()
     if master.port_reservation is not None:

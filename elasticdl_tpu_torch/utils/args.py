@@ -4,9 +4,9 @@ serving, fleet-router and aggregation-tier parsers.  Flags keep the JAX
 package's names and defaults, so the master re-serializes its parsed
 args into worker command lines (``build_arguments_from_parsed_result``)
 and a worker of either package parses a master's flags.  A flag value
-that selects a path the port has not ported yet raises
-``NotImplementedError`` naming its ROADMAP item (``check_ported``); none
-is silently ignored."""
+that selects a path the port has not ported yet would raise
+``NotImplementedError`` naming its ROADMAP item (``check_ported``); no
+flag value selects one now, and none is silently ignored."""
 
 import argparse
 
@@ -548,13 +548,10 @@ def build_arguments_from_parsed_result(args, filter_args=(), defaults=None):
 
 
 # (flag, predicate on its value, what it selects, ROADMAP item) for every
-# flag value whose path the port has not ported.  Master-only flags are
-# absent from a worker's Namespace and read as their defaults.
-_UNPORTED = (
-    ("worker_backend", lambda v: v == "k8s",
-     "the k8s worker backend", "A19"),
-    ("jobs_spec", bool, "the multi-tenant scheduler", "A20"),
-)
+# flag value whose path the port has not ported: none since the k8s
+# backend (A19) and the multi-tenant scheduler (A20).  Master-only flags
+# are absent from a worker's Namespace and read as their defaults.
+_UNPORTED = ()
 
 
 def not_ported(what, item):

@@ -27,9 +27,13 @@ parameters are replicated, so its copy is the model) write a versioned
 servable every N optimizer steps (``serving/export.ContinuousExporter``;
 ``--export_wire frame`` writes ``model.frame`` for the aggregation
 tier, ``aggregation/main.py``).
+A local-strategy worker of a multi-tenant pool (``--jobs_spec`` on the
+master) rebuilds its reader, spec and trainer in place when the
+scheduler moves it to another job (``_job_context_factory``).
 On the card it compiles every kernel of ``ops/`` in the background as it
 starts.  At exit the worker logs its kernel launches (``kernel launches: {...}``)
-with the forward and backward passes its trainer ran.
+with the forward and backward passes its trainers ran, and each
+trainer's share (``by_trainer``).
 """
 
 import json
@@ -72,15 +76,31 @@ def resolve_worker_id(args):
     )
 
 
-def _build_collective_trainer(args, mc, spec, worker_id, device):
-    """The ONE CollectiveTrainer construction path of the worker: the
-    checkpoint rules (every worker restores, only worker 0 writes), bf16
-    compute, ZeRO-1 and the version-report cadence come from the launch
-    args."""
+def _build_collective_trainer(args, mc, spec, worker_id, device,
+                              batch_size=None, checkpoint_dir=None,
+                              checkpoint_steps=None, seed=None):
+    """The ONE CollectiveTrainer construction path — shared by the
+    eager launch build and the multi-tenant job-switch factory, so a
+    rebuilt worker can never silently train with different settings
+    (checkpoint rules, bf16, ZeRO-1, version-report cadence) than a
+    freshly launched one.  The keyword overrides are the job-config
+    fields; everything unset falls back to the launch args."""
+    batch_size = (
+        args.batch_size if batch_size is None else int(batch_size)
+    )
+    checkpoint_dir = (
+        args.checkpoint_dir if checkpoint_dir is None
+        else checkpoint_dir
+    )
+    checkpoint_steps = (
+        args.checkpoint_steps if checkpoint_steps is None
+        else int(checkpoint_steps)
+    )
+    seed = args.seed if seed is None else int(seed)
     saver = None
-    if args.checkpoint_dir:
+    if checkpoint_dir:
         saver = CheckpointSaver(
-            args.checkpoint_dir, keep_max=args.keep_checkpoint_max
+            checkpoint_dir, keep_max=args.keep_checkpoint_max
         )
     exporter = None
     export_steps = getattr(args, "export_steps", 0)
@@ -100,18 +120,18 @@ def _build_collective_trainer(args, mc, spec, worker_id, device):
             )
     trainer = CollectiveTrainer(
         spec,
-        batch_size=args.batch_size,
+        batch_size=batch_size,
         master_client=mc,
         report_version_steps=max(1, args.evaluation_steps // 4)
         if args.evaluation_steps else 0,
         checkpoint_saver=saver,
-        checkpoint_steps=args.checkpoint_steps,
+        checkpoint_steps=checkpoint_steps,
         # Every worker may restore, but only worker 0 writes (the
         # parameters are replicated, so any single copy is the model);
         # under ZeRO-1 every rank still joins the cadence's gather.
         checkpoint_writer=worker_id == 0,
         use_bf16_compute=args.use_bf16,
-        rng_seed=args.seed,
+        rng_seed=seed,
         device=device,
         zero1=args.zero1,
         exporter=exporter,
@@ -120,6 +140,100 @@ def _build_collective_trainer(args, mc, spec, worker_id, device):
     if saver is not None:
         trainer.init_from_checkpoint()
     return trainer
+
+
+def _job_context_factory(args, mc, device, ledger):
+    """Multi-tenant pools (docs/scheduler.md): build the callable the
+    Worker invokes when the scheduler re-assigns it to a different job
+    — rebuilds data reader, model spec and trainer from the handshake
+    config, in place, without a process restart.  Wired for
+    local-strategy pool workers; collective workers keep their elastic
+    controller bound to one trainer, and PS workers keep their PS
+    client topology, so both adopt re-assignments as an id only.  On
+    the card it releases what the previous job left cached and logs the
+    device memory still allocated when the new trainer's build starts
+    (the Worker has dropped the old one) and once it is built;
+    ``ledger`` counts each trainer's kernel launches."""
+    if args.distribution_strategy != "local":
+        return None
+
+    worker_id = resolve_worker_id(args)
+
+    def build(cfg):
+        model_zoo = cfg.get("model_zoo", args.model_zoo)
+        model_params = cfg.get("model_params", args.model_params)
+        batch_size = int(cfg.get("batch_size", args.batch_size))
+        records_per_task = batch_size * int(
+            cfg.get("num_minibatches_per_task",
+                    args.num_minibatches_per_task)
+        )
+        _release_device_caches(device)
+        before = _device_bytes(device)
+        spec = load_model_spec(model_zoo, model_params=model_params)
+        reader = create_data_reader(
+            cfg.get("data_origin", args.data_origin),
+            records_per_shard=records_per_task,
+        )
+        # Job state lives with the job: a worker joining a
+        # checkpointed job resumes that job's trajectory, a worker
+        # joining an uncheckpointed one starts from the job's seeded
+        # init (tenant isolation — nothing rides over from the
+        # previous job's params).
+        trainer = _build_collective_trainer(
+            args, mc, spec, worker_id, device,
+            batch_size=batch_size,
+            checkpoint_dir=cfg.get("checkpoint_dir"),
+            checkpoint_steps=cfg.get("checkpoint_steps"),
+            seed=cfg.get("seed"),
+        )
+        ledger.start(cfg.get("job"), trainer)
+        if before is not None:
+            logger.info("job switch to %s: %d bytes allocated on %s "
+                        "before its trainer was built, %d after",
+                        cfg.get("job"), before, device,
+                        _device_bytes(device))
+        return reader, spec, trainer
+
+    return build
+
+
+def _initial_job_config(args):
+    """The pool-template config this worker's eagerly-built pipeline
+    corresponds to — lets the first handshake skip the rebuild when
+    the assigned job matches the launch args.  Derived from the ONE
+    field list the fast-path comparison uses, so the two can't
+    drift."""
+    return {
+        field: getattr(args, field)
+        for field in Worker._JOB_KEY_FIELDS
+    }
+
+
+def _device_bytes(device):
+    """Bytes the caching allocator holds in live tensors on ``device``
+    (None off the card)."""
+    if device.type != "cuda":
+        return None
+    import torch
+
+    torch.cuda.synchronize(device)
+    return torch.cuda.memory_allocated(device)
+
+
+def _release_device_caches(device):
+    """Return what the previous job left cached on the card: the
+    allocator's free blocks, and cuBLAS's workspaces (64 MiB on an H100
+    once a matmul has run, live tensors to the allocator)."""
+    if device.type != "cuda":
+        return
+    import torch
+
+    torch.cuda.synchronize(device)
+    clear_workspaces = getattr(torch._C, "_cuda_clearCublasWorkspaces",
+                               None)
+    if clear_workspaces is not None:
+        clear_workspaces()
+    torch.cuda.empty_cache()
 
 
 def _prebuild_kernels():
@@ -175,9 +289,15 @@ def build_worker(args):
         spec.prediction_outputs_processor = NpzPredictionWriter(
             args.prediction_outputs
         )
+    ledger = LaunchLedger()
     if args.distribution_strategy == "ps":
-        return _build_ps_worker(args, mc, spec, reader, worker_id, device)
+        worker = _build_ps_worker(args, mc, spec, reader, worker_id,
+                                  device)
+        ledger.start(None, worker.trainer)
+        worker.launch_ledger = ledger
+        return worker
     trainer = _build_collective_trainer(args, mc, spec, worker_id, device)
+    ledger.start(None, trainer)
     logger.info("worker %d training on %s", worker_id, device)
     mem = trainer.zero1_report()
     if mem is not None:
@@ -212,7 +332,7 @@ def build_worker(args):
             mesh_builder=data_mesh_builder(
                 device, collective_timeout_secs(check_steps)),
         )
-    return Worker(
+    worker = Worker(
         mc, reader, spec, trainer,
         batch_size=args.batch_size,
         log_loss_steps=args.log_loss_steps,
@@ -220,7 +340,14 @@ def build_worker(args):
         elastic_controller=elastic,
         fused_steps=args.fused_steps,
         device_prefetch=args.device_prefetch,
+        # Multi-tenant pools: rebuild the pipeline in place when the
+        # scheduler re-assigns this worker to a different job.
+        job_context_factory=_job_context_factory(args, mc, device,
+                                                 ledger),
+        initial_job_config=_initial_job_config(args),
     )
+    worker.launch_ledger = ledger
+    return worker
 
 
 def _build_ps_worker(args, mc, spec, reader, worker_id, device):
@@ -261,18 +388,46 @@ def _build_ps_worker(args, mc, spec, reader, worker_id, device):
     )
 
 
-def kernel_launches(trainer):
-    """The process's kernel launch counters (``ops/``) and the forward
-    and backward passes its trainer ran (``train_passes``): on the card
-    B1/B2 launch 53 times a ResNet-50 pass."""
+def process_launches():
+    """The process's kernel launch counters (``ops/``)."""
     from elasticdl_tpu_torch.ops import flash_attention as fa
     from elasticdl_tpu_torch.ops import group_norm as gn
 
     return {"group_norm_fwd": gn.LAUNCHES, "group_norm_bwd": gn.BWD_LAUNCHES,
             "flash_fwd": fa.LAUNCHES, "flash_partial": fa.PARTIAL_LAUNCHES,
             "flash_bwd_dq": fa.BWD_DQ_LAUNCHES,
-            "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES,
-            "train_passes": trainer.timing.counters().get("train_passes", 0)}
+            "flash_bwd_dkv": fa.BWD_DKV_LAUNCHES}
+
+
+class LaunchLedger:
+    """Kernel launches and the forward and backward passes
+    (``train_passes``) of each trainer a worker ran, in order: a pool
+    worker that switches jobs reports each trainer's share, so a
+    ResNet-50 tenant's 53 B1 and B2 launches a pass stay readable after
+    whatever the worker trained before it."""
+
+    def __init__(self):
+        self._trainers = []    # (job, trainer's Timing, counters at start)
+
+    def start(self, job, trainer):
+        """``trainer`` (serving ``job``; None: the launch args' job)
+        runs from now on.  Keeps its ``Timing``, not the trainer."""
+        self._trainers.append((job, trainer.timing, process_launches()))
+
+    def report(self):
+        """The process's totals, with ``by_trainer``: each trainer's
+        launches and passes, and its job."""
+        ends = [c for _, _, c in self._trainers[1:]] + [process_launches()]
+        by_trainer = []
+        for (job, timing, start), end in zip(self._trainers, ends):
+            row = {k: end[k] - start[k] for k in end}
+            row["train_passes"] = timing.counters().get("train_passes", 0)
+            row["job"] = job
+            by_trainer.append(row)
+        out = process_launches()
+        out["train_passes"] = sum(r["train_passes"] for r in by_trainer)
+        out["by_trainer"] = by_trainer
+        return out
 
 
 def main(argv=None):
@@ -312,7 +467,7 @@ def main(argv=None):
             worker.run()
     finally:
         logger.info("kernel launches: %s",
-                    json.dumps(kernel_launches(worker.trainer)))
+                    json.dumps(worker.launch_ledger.report()))
     if worker.preempted:
         logger.info("worker preempted (checkpointed)")
         return PREEMPTED_EXIT_CODE

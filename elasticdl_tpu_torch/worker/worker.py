@@ -286,7 +286,7 @@ class Worker:
         with tracing.span("worker.job_switch", job=new_job,
                           prev_job=prev_job,
                           job_name=str(cfg.get("job"))):
-            old_trainer = self._trainer
+            old_trainer, self._trainer = self._trainer, None
             if old_trainer is not None and hasattr(old_trainer,
                                                   "close"):
                 try:
@@ -294,6 +294,11 @@ class Worker:
                 except Exception as e:  # noqa: BLE001 — best effort:
                     # the old job's trainer must not block the new one
                     logger.warning("old trainer close failed: %s", e)
+            # The previous tenant's trainer (its parameters and optimizer
+            # state on the device) and pipeline are dropped before the
+            # new ones are built: the worker holds one job's state.
+            del old_trainer
+            self._spec = self._data_service = None
             reader, spec, trainer = self._job_factory(cfg)
             self._spec = spec
             self._trainer = trainer
@@ -355,8 +360,10 @@ class Worker:
                     # float() is the only per-cadence host sync.
                     with self.timing.timeit("loss_sync"):
                         loss_value = float(loss)
+                    # The loss as repr prints it: the float itself,
+                    # so a log line is exact.
                     logger.info(
-                        "step %d loss %.6f (version %d)",
+                        "step %d loss %r (version %d)",
                         self._steps, loss_value, version,
                     )
                 if self._step_throttle:

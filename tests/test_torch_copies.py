@@ -9,7 +9,8 @@ imports JAX, so the JAX package's own tests of these modules
 ``test_ps_frame_wire.py``, ``test_ps_recovery.py``,
 ``test_serving_fleet.py``, ``test_online_loop.py``,
 ``test_sql_reader.py``, ``test_image_folder.py``,
-``test_feature_column.py`` and others) cover the port's copies too.  A copy that must change leaves this list in the same
+``test_feature_column.py``, ``test_scheduler.py``, ``test_job_monitor.py``
+and others) cover the port's copies too.  A copy that must change leaves this list in the same
 change and gets a twin of its reference tests.
 """
 
@@ -22,13 +23,15 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 IDENTICAL = (
     "aggregation/__init__.py", "aggregation/main.py",
-    "client/frame_client.py",
+    "client/frame_client.py", "client/k8s_renderer.py",
+    "client/k8s_submit.py",
     "data/factory.py", "data/image_folder.py", "data/parallel_reader.py",
     "data/reader.py", "data/recio.py", "data/recio_gen.py",
     "data/sql_reader.py", "data/token_reader.py",
-    "master/evaluation_service.py", "master/journal.py", "master/master.py",
-    "master/ps_manager.py", "master/servicer.py", "master/task_manager.py",
-    "master/worker_state.py",
+    "master/cluster_spec_env.py", "master/evaluation_service.py",
+    "master/job_monitor.py", "master/journal.py", "master/master.py",
+    "master/ps_manager.py", "master/scheduler.py", "master/servicer.py",
+    "master/task_manager.py", "master/worker_state.py",
     "native/bindings.py", "native/kernels.cc",
     "preprocessing/__init__.py", "preprocessing/analyzer_utils.py",
     "preprocessing/feature_column.py",

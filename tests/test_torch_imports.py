@@ -90,7 +90,12 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "models.wide_deep", "models.dcn", "models.xdeepfm",
                  "models.census_dnn", "models.census_sqlflow",
                  "models.heart", "models.iris", "data.sql_reader",
-                 "data.image_folder"):
+                 "data.image_folder",
+                 # the control plane: CLI, k8s backend and submission,
+                 # job monitor, multi-tenant scheduler
+                 "client.main", "client.k8s_renderer", "client.k8s_submit",
+                 "master.k8s_backend", "master.cluster_spec_env",
+                 "master.job_monitor", "master.scheduler"):
         assert "elasticdl_tpu_torch." + name in result["modules"]
     assert result["banned"] == []
 

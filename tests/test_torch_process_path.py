@@ -186,19 +186,6 @@ def test_unknown_model_exits_1_fast(job_env):
     assert time.monotonic() - start < 60
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--worker_backend", "k8s"], "A19"),
-    (["--jobs_spec", "[]"], "A20"),
-])
-def test_unported_flag_values_name_their_item(flags, item):
-    with pytest.raises(NotImplementedError, match=r"ROADMAP %s\b" % item):
-        check_ported(parse_master_args(flags))
-    if flags[0] not in ("--worker_backend", "--jobs_spec", "--status_port"):
-        # A worker flag (master-only flags are not forwarded).
-        with pytest.raises(NotImplementedError, match=item):
-            check_ported(parse_worker_args(flags))
-
-
 @pytest.mark.parametrize("flags", [
     ["--job_type", "predict"], ["--job_type", "evaluate"],
     ["--status_port", "0"], ["--profile_dir", "/tmp/p"],
@@ -212,21 +199,29 @@ def test_unported_flag_values_name_their_item(flags, item):
     ["--distribution_strategy", "ps", "--export_base", "/tmp/e",
      "--export_steps", "4"],
     ["--export_base", "/tmp/e", "--export_steps", "4", "--export_wire",
-     "frame"]])
+     "frame"],
+    # The k8s worker backend (A19) and the multi-tenant scheduler (A20).
+    ["--worker_backend", "k8s"], ["--jobs_spec", "[]"]])
 def test_ported_flag_values_pass_the_check(flags):
     """Predict and evaluate jobs (A21), the status server and device
-    traces (A15) and continuous export (A11) are ported: neither
-    parser's check refuses them."""
+    traces (A15), continuous export (A11), the k8s worker backend (A19)
+    and the multi-tenant scheduler (A20) are ported: neither parser's
+    check refuses them."""
     check_ported(parse_master_args(flags))
-    if "--status_port" not in flags:      # a master-only flag
+    if not {"--status_port", "--worker_backend", "--jobs_spec"} & set(
+            flags):                       # master-only flags
         check_ported(parse_worker_args(flags))
 
 
 def test_master_cli_refuses_an_unported_path(job_env):
-    job = Job(["--worker_backend", "k8s", "--num_workers", "1"], *job_env)
+    """``--worker_backend k8s`` is ported (A19), but on a host without
+    the ``kubernetes`` package the master cannot create a pod: it exits
+    non-zero naming the package, and launches no worker."""
+    job = Job(["--worker_backend", "k8s", "--num_workers", "1"] + JOB_ARGS,
+              *job_env)
     rc = job.finish(timeout=60)
     assert rc != 0
-    assert "NotImplementedError" in job.log and "ROADMAP A19" in job.log
+    assert "ImportError" in job.log and "`kubernetes` package" in job.log
     assert "launched worker" not in job.log
 
 

@@ -10,7 +10,9 @@ twins of ``tests/test_heart_and_params.py``, ``tests/test_sql_iris.py``,
 their names, on the port's trainer, master and readers (the readers are
 byte-identical copies: ``tests/test_torch_copies.py``).
 ``test_sql_iris.py::test_parse_resource_string`` has no twin here: it
-tests ``client/k8s_renderer.py``, the k8s client (ROADMAP A19).
+tests ``client/k8s_renderer.py``, a byte-identical copy
+(tests/test_torch_copies.py) that ``tests/test_torch_k8s_backend.py``
+drives on the port's backend.
 """
 
 import jax
