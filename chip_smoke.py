@@ -60,12 +60,13 @@ Phases, in order; any failure exits non-zero:
     kernel's time, the plain version's, F.scaled_dot_product_attention's
     (a yardstick the port never calls), the bound and the share of it
     reached;
- 9. transformer serving: the flagship LM (vocab 32768, dim 1024, 24
-    layers, 16 heads, 436 M parameters, seeded random weights, bf16
+ 9. transformer serving: the flagship LM (vocab 32768, dim 1024, 16
+    heads) at LM_SERVE_LAYERS (12) of its 24 layers (234.9 M parameters,
+    seeded random weights, bf16
     compute) exported with the port's ``export_generate`` (greedy,
     prompt 128, 128 new tokens), served by the port's HTTP server on the
     card and queried with three :predict requests of 8 prompts; the
-    kernel must launch 24 times per request (once per layer of prefill)
+    kernel must launch 12 times per request (once per layer of prefill)
     and each prompt must come back unchanged; then, on the same module
     with plain attention: teacher forcing over the generated sequences,
     prefill logits in bf16, and in float32 with TF32 off at T=2048,
@@ -103,12 +104,12 @@ Phases, in order; any failure exits non-zero:
     and AdamW moments in the JAX names and layouts) restored into a fresh
     trainer bit for bit, with the same next loss;
 12. MoE serving: Flagship-MoE (the flagship widths with 8 experts, top-2
-    gating, capacity factor 2, aux weight 0.01) at MOE_SERVE_LAYERS (4)
+    gating, capacity factor 2, aux weight 0.01) at MOE_SERVE_LAYERS (2)
     of its 24 layers, seeded random weights, bf16 compute, exported with
     ``export_generate`` in float32 (the temporary directory's free space
     printed first; a shortfall fails), served over HTTP (MOE_REQUESTS
-    requests of 8 prompts, 128 + 128 tokens, 4 B3 launches each); the
-    first request's 4 prefill attention calls held against the plain
+    requests of 8 prompts, 128 + 128 tokens, 2 B3 launches each); the
+    first request's 2 prefill attention calls held against the plain
     version on their own q, k, v (FLASH_TOL) and its served tokens
     against in-process ``generate``; the tokens teacher-forced through
     plain attention by prefill and decode steps (an MoE forward over the
@@ -152,9 +153,22 @@ Phases, in order; any failure exits non-zero:
     and B5 none), SP_TIMED_STEPS timed steps (the loss must fall; ms per
     step, tokens/s and peak memory per rank) and a checkpoint saved at
     sp=2, restored at sp=1 in this process (the same loss before and
-    after one more step); at sp=4 (ring distances 2 and 3), ring
-    attention causal and with a window that bands two blocks and skips
-    the third, and the same model's step-1 gradients (rank r launches
+    after one more step); then, in the same two processes, each over a
+    mesh of its own, the A18 legs (A18_LEGS): pp=2 through the zoo
+    entry's ``mesh=`` and ``pipeline_microbatches=4`` (a GPipe schedule,
+    B3 8, B4 4, B5 4 a step a rank at [2, 16, 2048, 64]), tp=2 (Megatron
+    splits, B3 4, B4 2, B5 2 at [8, 8, 2048, 64]) and ep=2 (Flagship-MoE,
+    8 experts top-2, at the same depth; B3 4, B4 2, B5 2), each: step-1
+    loss and gradients (each block summed over the ranks that hold it,
+    gathered whole) against the single process at that depth
+    (``multi_rank_refs``, an MoE reference of its own for ep), one
+    counted step, A18_TIMED_STEPS timed steps (the loss must fall; ms a
+    step, tokens/s, peak memory a rank); the tp=2 leg's checkpoint,
+    gathered whole, restored with no mesh in this process (the same loss
+    before and after one more step); each world's and leg's seconds on
+    a line; at sp=4 (ring distances 2 and 3), ring
+    attention at batch 2, causal and with a window that bands two blocks
+    and skips the third, and the same model's step-1 gradients (rank r launches
     B3p 2 L (r + 1) times);
 17. the master/worker process path: in this process, the flagship LM at
     full width and MULTI_RANK_LAYERS (2) layers (remat) trained through
@@ -558,6 +572,13 @@ def lm_params_at(layers):
                              "num_layers=%d" % layers)
 
 
+# Phase 9 serves the flagship at LM_SERVE_LAYERS of its 24 layers, and
+# phase 15's LoRA adapts that export (24 until the A18 legs of phase 16
+# needed the room: the export 1.74 GB at 24 layers, PERF.md §6, PR 21).
+LM_SERVE_LAYERS = 12
+LM_SERVE_PARAMS = lm_params_at(LM_SERVE_LAYERS)
+
+
 LM_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
 LM_FLOOR_X = 1.5
 LM_TF_TOL = 4e-2
@@ -636,11 +657,12 @@ LM_GRAD_LAYERS = 4
 # training shape.
 MOE_PARAMS = LM_PARAMS + ";moe_experts=8;moe_top_k=2"
 MOE_REQUESTS = 2
-# Served at 4 of its 24 layers and trained at 6: at full depth the 10.2
+# Served at 2 of its 24 layers and trained at 6: at full depth the 10.2
 # GB export and its load took 62 s of the serving phase's ~100 s and a
 # training step 1.8 s (NVIDIA H100 80GB HBM3, 700 W); the depth was cut
-# to make room for phase 24 (PERF.md §6).
-MOE_SERVE_LAYERS = 4
+# to make room for phase 24, and served from 4 layers to 2 for phase
+# 16's A18 legs (PERF.md §6).
+MOE_SERVE_LAYERS = 2
 MOE_TRAIN_LAYERS = 6
 MOE_SERVE_PARAMS = MOE_PARAMS.replace("num_layers=%d" % LM_LAYERS,
                                       "num_layers=%d" % MOE_SERVE_LAYERS)
@@ -660,7 +682,7 @@ MOE_TRAIN_STEPS = 5
 REMAT_STEPS = 3
 # LoRA on the dense flagship: rank 8, alpha 16, the attention projections
 # (the JAX spec's defaults), remat, the JAX spec's learning rate 1e-4.
-LORA_PARAMS = LM_PARAMS + ";remat=true;rank=8;alpha=16"
+LORA_PARAMS = LM_SERVE_PARAMS + ";remat=true;rank=8;alpha=16"
 LORA_STEPS = 5
 
 
@@ -1963,8 +1985,8 @@ def checked_attention(fa, errs):
 
 
 def transformer_phase(torch, fa, tmp):
-    """The flagship transformer LM (436 M parameters, seeded random
-    weights, bf16 compute) exported with the port's ``export_generate``
+    """The flagship transformer LM at LM_SERVE_LAYERS layers (seeded
+    random weights, bf16 compute) exported with the port's ``export_generate``
     under ``tmp`` (kept: the LoRA phase adapts it), served by the port's
     HTTP server on the card and queried with REQUESTS :predict requests
     of LM_BATCH prompts; then checked against the same module on plain
@@ -1976,7 +1998,7 @@ def transformer_phase(torch, fa, tmp):
     from elasticdl_tpu_torch.utils.device import use_float32_numerics
 
     use_float32_numerics()   # as the serving entry point: TF32 off
-    spec = load_model_spec("transformer", LM_PARAMS)
+    spec = load_model_spec("transformer", LM_SERVE_PARAMS)
     cfg = spec.config
     out = {}
     module = spec.init_fn("cuda", seed=0)
@@ -2245,7 +2267,8 @@ def multi_rank_refs(torch, fa):
     flagship's widths at MULTI_RANK_LAYERS layers, step-1 gradients with
     the kernels held against the plain Function (``lm_grads_vs_plain``)
     and the dense f32 softmax path's kept, in float32 with TF32 off at
-    batch LM_GRAD_BATCH and in bf16 at LM_TRAIN_BATCH, on seeded tokens
+    batch LM_GRAD_BATCH and in bf16 at LM_TRAIN_BATCH, and Flagship-MoE
+    in bf16 at LM_TRAIN_BATCH (phase 16's ep=2 leg), on seeded tokens
     (``sp1_reference``)."""
     from elasticdl_tpu_torch.models.spec import load_model_spec
     from elasticdl_tpu_torch.utils.device import use_float32_numerics
@@ -2254,10 +2277,13 @@ def multi_rank_refs(torch, fa):
     rng = np.random.RandomState(11)
     params = LM_PARAMS.replace("num_layers=%d" % LM_LAYERS,
                                "num_layers=%d" % MULTI_RANK_LAYERS)
+    moe = MOE_PARAMS.replace("num_layers=%d" % LM_LAYERS,
+                             "num_layers=%d" % MULTI_RANK_LAYERS)
     refs = {}
     for name, p, batch in (
             ("f32", params.replace("dtype=bfloat16", "dtype=float32"),
-             LM_GRAD_BATCH), ("bf16", params, LM_TRAIN_BATCH)):
+             LM_GRAD_BATCH), ("bf16", params, LM_TRAIN_BATCH),
+            ("moe", moe, LM_TRAIN_BATCH)):
         spec = load_model_spec("transformer", p + ";remat=true")
         cfg = spec.config
         module = spec.init_fn(DEVICE, seed=0)
@@ -2440,8 +2466,9 @@ def moe_serving_phase(torch, fa, tmp):
     random weights, bf16 compute)
     exported with ``export_generate`` (float32 weights, ~10 GB, into
     ``tmp``; the free space is printed first and a shortfall fails),
-    served over HTTP with MOE_REQUESTS requests of LM_BATCH prompts (24 B3
-    launches each), and held against plain attention as the dense LM."""
+    served over HTTP with MOE_REQUESTS requests of LM_BATCH prompts (one
+    B3 launch a layer each), and held against plain attention as the
+    dense LM."""
     import shutil
 
     from elasticdl_tpu_torch.models import transformer as tfm
@@ -2791,7 +2818,9 @@ SP_ATTENTION_T, SP_HEADS, SP_HEAD_DIM = 2048, 16, 64
 SP2_ATTENTION = [(21, "bfloat16", 8, 0), (22, "float32", 2, 0)]
 # At sp=4 (shards of 512) a window of 768 keys bands the blocks at ring
 # distances 1 and 2 (``_partial_banded``) and skips distance 3.
-SP4_ATTENTION = [(23, "bfloat16", 8, 0), (24, "bfloat16", 8, 768)]
+# At batch 2 (8 until phase 16's A18 legs needed the room: the two cases
+# took 15.1 s of the sp=4 world on the H100, PERF.md §6, PR 21).
+SP4_ATTENTION = [(23, "bfloat16", 2, 0), (24, "bfloat16", 2, 768)]
 SP_TIMED_STEPS = 2              # 3 before phase 24 was added
 # The multi-rank LM phases (16 and 20) run the flagship's widths at this
 # depth (phase 11 trains all 24 layers in one process): every check stays,
@@ -2808,6 +2837,36 @@ MULTI_RANK_LAYERS = 2
 # wrong parameter moves the loss after the step by far more.
 SP_LOSS_RTOL = 2e-5
 SP_RANKS_TIMEOUT_S = 900
+# Phase 16's A18 legs: tensor, pipeline and expert parallelism, run by the
+# sp=2 world's two processes after its own legs, each over a mesh of its
+# own, at MULTI_RANK_LAYERS layers (batch 8 x 2048, bf16, AdamW, remat)
+# through the port's SPMDTrainer and the zoo entry's ``mesh=``:
+# (name, mesh axes, ``multi_rank_refs`` key, pipeline microbatches).
+# Their step-1 gradients are held as the sp=2 leg's are (``sp1_reference``).
+A18_LEGS = (("pp=2", {"pp": 2}, "bf16", 4), ("tp=2", {"tp": 2}, "bf16", 0),
+            ("ep=2", {"ep": 2}, "moe", 0))
+A18_TIMED_STEPS = SP_TIMED_STEPS
+# The tp=2 leg's checkpoint, restored with no mesh: the loss, and the loss
+# after one more step, within TP_LOSS_RTOL of the tp=2 trainer's.  A row
+# split rounds each rank's partial product to bf16 before the sum, where
+# one process rounds the whole product once: on the H100 the two sat
+# 5.8e-6 to 2.2e-5 apart (PERF.md §6, PR 21); 1e-4 is 4.5x the largest.
+# A lost optimizer state or a wrong block moves the loss after the step
+# by 1e-2 or more.
+TP_LOSS_RTOL = 1e-4
+
+
+def a18_launches(axes, microbatches, layers=MULTI_RANK_LAYERS):
+    """(B3, B3p, B4, B5) a step a rank under remat: a pp stage holds
+    layers / pp layers and runs each microbatch through them under one
+    checkpoint (its forward and its recompute, B3 twice); tp and ep ranks
+    run every layer on the whole batch (tp on half the heads)."""
+    if axes.get("pp", 1) > 1:
+        per = microbatches * layers // axes["pp"]
+        return (2 * per, 0, per, per)
+    return (2 * layers, 0, layers, layers)
+
+
 
 
 def partial_phase(torch, fa):
@@ -2997,6 +3056,7 @@ def sp_model_leg(torch, fa, mesh, leg):
     from elasticdl_tpu_torch.parallel.spmd_trainer import SPMDTrainer
     from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
 
+    t_leg = time.perf_counter()
     spec = load_model_spec("transformer", leg["params"])
     cfg = spec.config
     rank, sp = mesh.coords["sp"], mesh.shape["sp"]
@@ -3071,12 +3131,130 @@ def sp_model_leg(torch, fa, mesh, leg):
         out["saved"] = (version, loss, float(trainer.eval_loss(batch)))
     del trainer
     torch.cuda.empty_cache()
+    out["leg_s"] = time.perf_counter() - t_leg
     return out
 
 
-def sp_rank(sp, attention, legs):
+def a18_model_leg(torch, fa, leg):
+    """One A18 leg in a rank of phase 16's sp=2 world, over a mesh of its
+    own (``leg["axes"]``): the zoo entry with ``mesh=`` (and
+    ``pipeline_microbatches``) through the SPMD trainer from its seeded
+    init, step 1 with its launches counted and its gradients (each block
+    summed over the ranks that hold it, gathered whole) held by rank 0 leaf
+    by leaf to the single process's dense f32 softmax path within the
+    leaf's limit (``sp1_reference``); one counted step, timed steps (the
+    loss must fall), and with ``leg["ckpt_dir"]`` a checkpoint."""
+    from elasticdl_tpu_torch.models import transformer as tfm
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.parallel.mesh import build_mesh
+    from elasticdl_tpu_torch.parallel.spmd_trainer import (
+        SPMDTrainer,
+        gather_block,
+    )
+    from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
+
+    t_leg = time.perf_counter()
+    mesh = build_mesh(**leg["axes"], backend="gloo")
+    rank = torch.distributed.get_rank()
+    extra = ({"pipeline_microbatches": leg["microbatches"]}
+             if leg["microbatches"] else {})
+    spec = load_model_spec("transformer", leg["params"], mesh=mesh, **extra)
+    cfg = spec.config
+
+    def loss_fn(module, batch):
+        toks, = batch
+        # Per-example means (+ the MoE aux): their sum over this rank's
+        # rows, counted once per row.
+        return (spec.loss_fn(spec.apply_fn(module, toks, True), toks).sum(),
+                toks.shape[0])
+
+    trainer = SPMDTrainer(mesh, spec.init_fn, loss_fn, spec.optimizer,
+                          param_specs=tfm.param_specs(cfg))
+    toks = torch.from_numpy(leg["tokens"]).long()
+    batch = (toks,)
+    want = leg["want"]
+    torch.cuda.synchronize()
+    sp_zero_counts(fa)
+    loss = float(trainer.compute_gradients(batch))
+    torch.cuda.synchronize()
+    out = {"name": leg["name"], "rank": rank, "step1_loss": loss,
+           "step1_launches": sp_counts(fa)}
+    if out["step1_launches"] != want:
+        raise RuntimeError("%s rank %d: step 1 launched (B3, B3p, B4, B5) "
+                           "%s, want %s" % (leg["name"], rank,
+                                            out["step1_launches"], want))
+    grads = {n: gather_block(p.grad, trainer._specs[n], mesh)
+             for n, p in trainer.module.named_parameters()}
+    if rank == 0:
+        ref = torch.load(leg["grads_path"])
+        errs = {}
+        for n, g in grads.items():
+            if not bool(g.isfinite().all()):
+                raise RuntimeError("%s: gradient of %s not finite"
+                                   % (leg["name"], n))
+            errs[n] = norm_rel(g, ref[n].to(g.device))
+        del ref
+        bad = [n for n in errs if not errs[n] <= leg["limit"][n]]
+        if bad:
+            raise RuntimeError(
+                "%s: step-1 gradients of %s off the single process's dense "
+                "f32 softmax path: %s (limits %s)" % (
+                    leg["name"], bad[:5], [errs[n] for n in bad[:5]],
+                    [leg["limit"][n] for n in bad[:5]]))
+        if cfg.moe_experts:
+            zero = [n for n in ("layers.w_router", "layers.w_gate",
+                                "layers.w_down") if not float(
+                                    grads[n].abs().max()) > 0]
+            if zero:
+                raise RuntimeError("%s: zero gradients for %s"
+                                   % (leg["name"], zero))
+        worst = max(errs, key=errs.get)
+        out.update({"grad_rel_err_max": errs[worst],
+                    "grad_rel_err_leaf": worst,
+                    "err_over_limit_max": max(errs[n] / leg["limit"][n]
+                                              for n in errs)})
+    del grads
+    torch.cuda.synchronize()
+    sp_zero_counts(fa)
+    counted = float(trainer.train_step(batch))
+    torch.cuda.synchronize()
+    counts = sp_counts(fa)
+    if counts != want:
+        raise RuntimeError("%s rank %d: a training step launched (B3, B3p, "
+                           "B4, B5) %s, want %s" % (leg["name"], rank,
+                                                    counts, want))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = [trainer.train_step(batch) for _ in range(A18_TIMED_STEPS)]
+    losses = [float(x) for x in losses]
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3 / A18_TIMED_STEPS
+    if not all(map(math.isfinite, losses)) or not losses[-1] < counted:
+        raise RuntimeError("%s: the loss did not fall: %s" % (
+            leg["name"], [counted] + losses))
+    out.update({"launches_per_step": counts, "losses": [counted] + losses,
+                "ms_per_step": ms,
+                # The step's whole batch: every rank of these meshes runs
+                # the same rows.
+                "tokens_per_s": toks.numel() / ms * 1e3,
+                "peak_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if leg["ckpt_dir"]:
+        t0 = time.perf_counter()
+        trainer.save_checkpoint(CheckpointSaver(leg["ckpt_dir"]))
+        out["save_s"] = time.perf_counter() - t0
+        version, loss = trainer.version, float(trainer.eval_loss(batch))
+        trainer.train_step(batch)
+        out["saved"] = (version, loss, float(trainer.eval_loss(batch)))
+    del trainer
+    torch.cuda.empty_cache()
+    out["leg_s"] = time.perf_counter() - t_leg
+    return out
+
+
+def sp_rank(sp, attention, legs, a18_legs=()):
     """One rank of an ``sp`` world on the card (gloo groups, host-staged
-    transport): the ring attention cases, then the model legs."""
+    transport): the ring attention cases, then the model legs, then the
+    A18 legs over meshes of their own."""
     import torch
 
     from elasticdl_tpu_torch.ops import flash_attention as fa
@@ -3084,10 +3262,13 @@ def sp_rank(sp, attention, legs):
     from elasticdl_tpu_torch.parallel.ring_attention import ring_attention
     from elasticdl_tpu_torch.utils.device import use_float32_numerics
 
+    entered = time.time()
     use_float32_numerics()
     mesh = build_mesh(sp=sp, backend="gloo")
     rank, tl = mesh.coords["sp"], SP_ATTENTION_T // sp
-    out = {"rank": rank, "device": str(mesh.device), "attention": []}
+    out = {"rank": rank, "device": str(mesh.device), "attention": [],
+           "entered_at": entered}
+    t0 = time.perf_counter()
     for seed, name, batch, window in attention:
         q, k, v, g = (t[:, rank * tl:(rank + 1) * tl]
                       for t in sp_inputs(torch, seed, name, batch))
@@ -3097,15 +3278,17 @@ def sp_rank(sp, attention, legs):
         out["attention"].append([o.detach().cpu()]
                                 + [t.grad.cpu() for t in leaves])
         del q, k, v, g, leaves, o
+    out["attention_s"] = time.perf_counter() - t0
     out["legs"] = [sp_model_leg(torch, fa, mesh, leg) for leg in legs]
+    out["a18"] = [a18_model_leg(torch, fa, leg) for leg in a18_legs]
     return out
 
 
-def sp_spawn(sp, attention, legs):
+def sp_spawn(sp, attention, legs, a18_legs=()):
     from elasticdl_tpu_torch.parallel import launch
 
     try:
-        return launch.spawn(sp_rank, sp, (sp, attention, legs),
+        return launch.spawn(sp_rank, sp, (sp, attention, legs, a18_legs),
                             timeout=SP_RANKS_TIMEOUT_S)
     except RuntimeError as e:
         fail("sp=%d ranks: %s" % (sp, e))
@@ -3120,6 +3303,98 @@ def sp_leg(name, ref, tmp, train, ckpt_dir):
     return {"name": name, "params": ref["params"], "tokens": ref["tokens"],
             "limit": ref["limit"], "grads_path": path, "train": train,
             "ckpt_dir": ckpt_dir}
+
+
+def a18_leg(name, axes, ref, microbatches, tmp, ckpt_dir):
+    """An A18 leg's arguments, the single process's gradients saved for
+    rank 0."""
+    import torch
+
+    path = os.path.join(tmp, "a18 %s.pt" % name)
+    torch.save(ref["grads"], path)
+    return {"name": name, "axes": axes, "params": ref["params"],
+            "microbatches": microbatches, "tokens": ref["tokens"],
+            "limit": ref["limit"], "grads_path": path,
+            "want": a18_launches(axes, microbatches), "ckpt_dir": ckpt_dir}
+
+
+def a18_report(torch, lm_refs, legs, ranks, ckpt_dir):
+    """Print phase 16's A18 legs (each rank's readings, the card's name and
+    power limit beside them) and hold the tp=2 checkpoint: restored with
+    no mesh in this process, the same loss before and after one more
+    step (TP_LOSS_RTOL)."""
+    from elasticdl_tpu_torch.models.spec import load_model_spec
+    from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    smi = nvidia_smi_line()
+    out = []
+    for i, leg in enumerate(legs):
+        got = [r["a18"][i] for r in ranks]
+        ref = lm_refs[[k for n, _, k, _ in A18_LEGS if n == leg["name"]][0]]
+        for r in got:
+            r["step1_loss_rel_gap"] = abs(
+                r["step1_loss"] - ref["loss"]) / abs(ref["loss"])
+        print("A18 %s (%s; flagship widths, %d layers, batch %d x %d, bf16, "
+              "AdamW, remat; %s): step-1 loss %.6f (single process %.6f, gap "
+              "%.3g relative); gradients against its dense f32 softmax path: "
+              "worst leaf %s %.3g norm-relative, %.3g of its limit; launches "
+              "a step a rank (B3, B3p, B4, B5) %s; loss %s over %d steps; ms "
+              "a step %s, %.0f tokens/s, peak allocated %s GB a rank; leg %s "
+              "s" % (leg["name"], leg["axes"], MULTI_RANK_LAYERS,
+                     *leg["tokens"].shape, smi, got[0]["step1_loss"],
+                     ref["loss"], got[0]["step1_loss_rel_gap"],
+                     got[0]["grad_rel_err_leaf"], got[0]["grad_rel_err_max"],
+                     got[0]["err_over_limit_max"],
+                     [r["launches_per_step"] for r in got],
+                     " -> ".join("%.4f" % x for x in got[0]["losses"]),
+                     A18_TIMED_STEPS + 1,
+                     ", ".join("%.2f" % r["ms_per_step"] for r in got),
+                     got[0]["tokens_per_s"],
+                     ", ".join("%.2f" % r["peak_gb"] for r in got),
+                     ", ".join("%.1f" % r["leg_s"] for r in got)))
+        out.append(got)
+    tp = [got for got in out if got[0]["name"] == "tp=2"][0][0]
+    spec = load_model_spec("transformer", lm_refs["bf16"]["params"])
+    toks = torch.from_numpy(lm_refs["bf16"]["tokens"]).to(DEVICE)
+    version, loss2, next2 = tp["saved"]
+    restored = CollectiveTrainer(spec, batch_size=toks.shape[0],
+                                 device=DEVICE,
+                                 checkpoint_saver=CheckpointSaver(ckpt_dir))
+    if not restored.init_from_checkpoint() or restored.version != version:
+        fail("the tp=2 checkpoint did not restore with no mesh")
+
+    def loss_now():
+        with torch.no_grad():
+            return float(spec.loss_fn(spec.apply_fn(
+                restored.module, toks, True), toks).mean())
+
+    loss1 = loss_now()
+    restored.train_minibatch(toks, toks)
+    next1 = loss_now()
+    gaps = (abs(loss1 - loss2) / abs(loss2), abs(next1 - next2) / abs(next2))
+    if not max(gaps) <= TP_LOSS_RTOL:
+        fail("checkpoint saved at tp=2 (version %d), restored with no mesh: "
+             "loss %r vs %r, next step %r vs %r (limit %g relative)"
+             % (version, loss1, loss2, next1, next2, TP_LOSS_RTOL))
+    print("A18 checkpoint saved at tp=2 (version %d, gathered and written in "
+          "%.2f s) restored with no mesh: loss %.6f vs %.6f, next step %.6f "
+          "vs %.6f (gaps %.3g, %.3g relative, limit %g)" % (
+              version, tp["save_s"], loss1, loss2, next1, next2, gaps[0],
+              gaps[1], TP_LOSS_RTOL))
+    del restored
+    torch.cuda.empty_cache()
+    return {"legs": out, "checkpoint": {
+        "version": version, "tp2": [loss2, next2], "no_mesh": [loss1, next1],
+        "rel_gaps": gaps}}
+
+
+def a18_launch_counts(sp, i):
+    """{A18 leg: [launches of (B3, B3p, B4, B5)[i] in its counted step, a
+    rank]} from ``sp_phase``'s readings."""
+    return {got[0]["name"]: [r["launches_per_step"][i] for r in got]
+            for got in sp["a18"]["legs"]}
 
 
 def sp_phase(torch, fa, lm_refs):
@@ -3140,6 +3415,10 @@ def sp_phase(torch, fa, lm_refs):
     tmp = tempfile.TemporaryDirectory()
     try:
         ckpt_dir = os.path.join(tmp.name, "ckpt")
+        a18_dir = os.path.join(tmp.name, "a18 ckpt")
+        a18 = [a18_leg(name, axes, lm_refs[key], mb, tmp.name,
+                       a18_dir if name == "tp=2" else None)
+               for name, axes, key, mb in A18_LEGS]
         worlds = {}
         for sp, cases, leg_refs in (
                 (2, SP2_ATTENTION, [("f32 batch 2", lm_refs["f32"], False),
@@ -3149,9 +3428,23 @@ def sp_phase(torch, fa, lm_refs):
             legs = [sp_leg(name, ref, tmp.name, train, ckpt_dir)
                     for name, ref, train in leg_refs]
             refs = [sp_attention_reference(torch, fa, c) for c in cases]
-            t0 = time.perf_counter()
-            ranks = sp_spawn(sp, cases, legs)
+            t0, spawned = time.perf_counter(), time.time()
+            ranks = sp_spawn(sp, cases, legs, a18 if sp == 2 else ())
             out["sp%d_s" % sp] = time.perf_counter() - t0
+            print("sp=%d world: %.1f s; rank 0 entered %.1f s after the "
+                  "spawn, its attention cases %.1f s, its legs %s s" % (
+                      sp, out["sp%d_s" % sp],
+                      ranks[0]["entered_at"] - spawned,
+                      ranks[0]["attention_s"],
+                      ", ".join("%.1f" % r["leg_s"]
+                                for r in ranks[0]["legs"])), flush=True)
+            if sp == 2:
+                out["a18"] = a18_report(torch, lm_refs, a18, ranks, a18_dir)
+                out["a18_s"] = sum(got[0]["leg_s"]
+                                   for got in out["a18"]["legs"])
+                print("phase 16, A18 legs: %.1f s of the sp=2 world's %.1f s "
+                      "(rank 0's legs)" % (out["a18_s"], out["sp2_s"]),
+                      flush=True)
             out["sp%d_attention" % sp] = [
                 sp_check_attention(c, local, dense,
                                    [r["attention"][i] for r in ranks], sp)
@@ -3655,11 +3948,12 @@ COLL_CLI_KILL_STEPS = 4         # 8 before phase 25 was added
 # records alone (14-25 steps/s for the 23-37 s the replacement took to
 # join) in the phase 18 and 19 jobs of six whole runs, and the regrown
 # world ran 88-168 steps of 64 records to the end at 1.8-3.9 steps/s
-# (PERF.md §6).  18,432 records (24,576 before phase 24 was added,
-# 20,480 before phase 25) leave the survivor 1.12x its largest take,
-# after the 4 + 4 steps of the world of 2 before the kill, and the
-# regrown world ~60 steps at the takes seen most.
-COLL_CLI_RECORDS = 18432
+# (PERF.md §6).  17,664 records (24,576 before phase 24 was added,
+# 20,480 before phase 25, 18,432 before phase 16's A18 legs) leave the
+# survivor 1.06x its largest take, after the 4 + 4 steps of the world of
+# 2 before the kill, and the regrown world ~48 steps at the takes seen
+# most.
+COLL_CLI_RECORDS = 17664
 COLL_CLI_TIMEOUT_S = 300
 
 
@@ -7656,6 +7950,7 @@ def main():
             proc["in_process"]["launches_per_step"][0],
         "launches_collective_lm_step_per_rank": [
             n[0] for n in clm["ranks"]["launches_per_step"]],
+        "launches_a18_step_per_rank": a18_launch_counts(sp, 0),
         "d128": {key: flash_timed["bfloat16 d128"][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }]
@@ -7677,6 +7972,7 @@ def main():
                 proc["in_process"]["launches_per_step"][1 + i],
             "launches_collective_lm_step_per_rank": [
                 n[1 + i] for n in clm["ranks"]["launches_per_step"]],
+            "launches_a18_step_per_rank": a18_launch_counts(sp, 2 + i),
             "max_abs_err": flash_bwd_err["bfloat16"][0],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],

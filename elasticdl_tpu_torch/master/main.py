@@ -684,8 +684,29 @@ def start_status_server(args, master):
     return status_server
 
 
+def _advertise_on_relaunch(worker_manager, args):
+    """Keep every launch of ``worker_manager`` dialling the advertised
+    address.  ``MultiTenantMaster.prepare()`` (a copy of the reference's)
+    points the manager at ``localhost:<port>``, which a k8s pod cannot
+    reach; the address is rewritten as it is set, before ``prepare()``
+    starts the manager, so no relaunch can read ``localhost`` (setting it
+    back afterwards would race the relaunches)."""
+    advertised = _advertise_addr(args)
+    set_master_addr = worker_manager.set_master_addr
+
+    def set_advertised(addr):
+        host, _, port = addr.rpartition(":")
+        if host == "localhost":
+            addr = advertised.replace("%d", port)
+        set_master_addr(addr)
+
+    worker_manager.set_master_addr = set_advertised
+
+
 def _run_multitenant(args):
     master = build_multitenant_master(args)
+    if master.worker_manager is not None:
+        _advertise_on_relaunch(master.worker_manager, args)
     master.prepare()
     if master.port_reservation is not None:
         master.port_reservation.close()  # the gRPC server holds the port

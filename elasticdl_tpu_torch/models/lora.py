@@ -25,12 +25,20 @@ W + (alpha / r) A @ B.  As in the JAX package:
 ``base_export`` names an export of the base LM (``model.npz`` in the JAX
 package's names, as ``transformer.export_generate`` writes it) to adapt:
 pretrain, export, adapt, serve merged; an int8 base export loads
-dequantized.  Not ported yet: LoRA under a mesh (ROADMAP A18).
+dequantized.
+
+Under a mesh (``mesh=``, as the JAX entry takes it) the base is placed by
+``transformer.param_specs`` and the adapters are replicated
+(``param_specs``); a rank merges the block of the delta that matches its
+block of W (A's rows and B's columns of that block), so the delta add
+follows W's sharding, and the SPMD trainer sums the adapters' gradients
+over the whole mesh.
 """
 
 import torch
 
 from elasticdl_tpu_torch.models import transformer as tfm
+from elasticdl_tpu_torch.parallel.spmd_trainer import block, place
 from elasticdl_tpu_torch.models.spec import ModelSpec
 from elasticdl_tpu_torch.serving.export import load_payload
 from elasticdl_tpu_torch.utils.logging import get_logger
@@ -83,12 +91,19 @@ def init_lora(generator, base_layers, targets, rank, device=None):
     return lora
 
 
-def merge_layers(base_layers, lora, scaling):
+def merge_layers(base_layers, lora, scaling, mesh=None, specs=None):
     """``base_layers`` ({name: tensor}) with W_eff on the adapted
-    targets."""
+    targets.  With a mesh, ``base_layers`` are this rank's blocks by
+    ``specs`` ({name: spec}) and the adapters whole: the delta is the
+    product of A's and B's blocks of the same rows and columns."""
     merged = dict(base_layers)
     for t, adapter in lora.named_children():
-        delta = torch.einsum("lir,lro->lio", adapter.A, adapter.B)
+        a, b = adapter.A, adapter.B
+        if mesh is not None:
+            layers, rows, cols = specs[t]
+            a = block(a, (layers, rows, None), mesh)
+            b = block(b, (layers, None, cols), mesh)
+        delta = torch.einsum("lir,lro->lio", a, b)
         merged[t] = base_layers[t] + scaling * delta.to(base_layers[t].dtype)
     return merged
 
@@ -104,10 +119,24 @@ class LoRALM(torch.nn.Module):
         self.lora = lora
 
 
-def _merged_weights(module, scaling):
+def param_specs(cfg, targets):
+    """The spec of every parameter of a :class:`LoRALM`: the base's by
+    ``transformer.param_specs``, the adapters replicated."""
+    specs = {"base." + n: s for n, s in tfm.param_specs(cfg).items()}
+    for t in targets:
+        specs.update({"lora.%s.A" % t: (None, None, None),
+                      "lora.%s.B" % t: (None, None, None)})
+    return specs
+
+
+def _merged_weights(module, scaling, mesh=None):
     """{TransformerLM name: tensor} with W_eff on the adapted targets: the
     weights the transformer's functions take in place of a module."""
-    layers = merge_layers(_layers(module.base), module.lora, scaling)
+    specs = {n[len("layers."):]: s
+             for n, s in tfm.param_specs(module.base.cfg).items()
+             if n.startswith("layers.")}
+    layers = merge_layers(_layers(module.base), module.lora, scaling,
+                          mesh, specs)
     weights = {name: p for name, p in module.base.named_parameters()
                if not name.startswith("layers.")}
     weights.update({"layers." + name: w for name, w in layers.items()})
@@ -150,9 +179,11 @@ def model_spec(rank=8, alpha=16.0, lora_targets=None, base_export="",
     an MoE's [L, X, in, out] experts are refused).  ``base_export``: an
     export of the base LM to adapt (a fresh random base otherwise).
     ``train_norms``: also train the norm scales, without weight decay.
-    The other arguments go to ``transformer.model_spec``.
+    The other arguments go to ``transformer.model_spec``; with its
+    ``mesh``, ``init_fn`` places the module by :func:`param_specs`.
     """
     lm_kwargs.setdefault("learning_rate", learning_rate)
+    mesh = lm_kwargs.get("mesh")
     base_spec = tfm.model_spec(**lm_kwargs)
     cfg = base_spec.config
     if isinstance(lora_targets, str):
@@ -179,11 +210,14 @@ def model_spec(rank=8, alpha=16.0, lora_targets=None, base_export="",
             "LoRA r=%d over %s: %d trainable / %d frozen params "
             "(%.2f%%)", rank, ",".join(sorted(targets)), n_adapter,
             n_base, 100.0 * n_adapter / max(1, n_base))
-        return LoRALM(base, lora)
+        module = LoRALM(base, lora)
+        if mesh is not None:
+            module = place(module, param_specs(cfg, targets), mesh)
+        return module
 
     def apply_fn(module, tokens, train):
-        return base_spec.apply_fn(_merged_weights(module, scaling), tokens,
-                                  train)
+        return base_spec.apply_fn(_merged_weights(module, scaling, mesh),
+                                  tokens, train)
 
     def optimizer(named_parameters):
         adapters, norms = [], []

@@ -25,23 +25,44 @@ checkpoints each chunk the same way.  Both policies, as remat=True,
 recompute the layer's attention forward in the backward, as the JAX
 package does: the flash Function's (l, m) are not kept.
 
-With a mesh (``parallel/mesh.py``: ``dp`` and ``sp``), ``forward`` and
-``forward_hidden`` run one rank's shard of the batch: tokens [B/dp, T/sp]
-at RoPE positions offset by the rank's place along ``sp``, attention as
-ring attention (B3p; ``attention_impl="ring"``) or Ulysses (B3/B4/B5 on
-the gathered sequence; ``"ulysses"``) over the ``sp`` group.  Parameters
-are replicated; ``parallel/spmd_trainer.py`` reduces their gradients.
-Not ported yet: ``tp``/``pp``/``ep`` sharding, MoE under ``sp`` > 1,
-``forward_pipelined`` and the zoo entry's ``mesh`` argument, which
-shards the parameters and feeds the forward in the JAX package (ROADMAP
-A18); each raises ``NotImplementedError`` naming its ROADMAP item.  The
-collective trainer trains the LM over a world with no mesh in the spec
-(its gradients are all-reduced, ``worker/collective_trainer.py``).
+With a mesh (``parallel/mesh.py``), ``forward`` and ``forward_hidden``
+run one rank's part of the step on its shards of the parameters
+(``shard_params``, by ``param_specs``) and of the batch: tokens
+[B/dp, T/sp] at RoPE positions offset by the rank's place along ``sp``.
+ - ``sp``: attention as ring attention (B3p; ``attention_impl="ring"``)
+   or Ulysses (B3/B4/B5 on the gathered sequence; ``"ulysses"``).
+ - ``tp``, the Megatron splits: ``wq``/``wk``/``wv``/``w_gate``/``w_up``
+   by column (this rank's heads and share of the FFN), ``wo``/``w_down``
+   by row, their partial products summed over ``tp``
+   (``transport.all_reduce``, whose gradient is the same sum); ``embed``
+   held on the model dimension and gathered whole for the lookup and the
+   tied head (``_cast``; the gradient: the reduce-scatter).  GSPMD splits
+   any width; here the heads H and the K/V heads G must divide by ``tp``
+   (a ``ValueError`` names them).
+ - ``ep``: an MoE rank builds dispatch and combine for its own experts
+   and sums its output over ``ep`` (and ``tp``).  The router statistics
+   of the aux loss are summed over ``dp`` and ``sp`` before the product,
+   so the aux is the global batch's, as GSPMD computes it; under ``sp``
+   an expert slot counts the tokens of the earlier shards (one gather of
+   the per-expert counts a choice), and capacity is sized over the whole
+   sequence, so the dispatch is the JAX one exactly.
+ - ``pp``: each rank holds its stage's layers; ``forward`` runs them as a
+   pipeline of one microbatch and ``forward_pipelined`` as a GPipe
+   schedule of M (``parallel/pipeline.py``).  The JAX stage runs
+   attention in plain jnp (``attention_mode="off"``: a ``pallas_call``
+   under GSPMD's auto axes would be all-gathered); a port stage on the
+   card launches the flash kernels (B3, and B4/B5 in the backward), as
+   every other path does.
+``parallel/spmd_trainer.py`` sums each gradient over the axes its spec
+does not name.  The collective trainer trains the LM over a world with no
+mesh in the spec (its gradients are all-reduced,
+``worker/collective_trainer.py``).
 """
 
 import dataclasses
 import functools
 import math
+import warnings
 
 import numpy as np
 import torch
@@ -53,6 +74,12 @@ from torch.utils.checkpoint import (
 )
 
 from elasticdl_tpu_torch.models.spec import ModelSpec
+from elasticdl_tpu_torch.parallel import transport
+from elasticdl_tpu_torch.parallel.pipeline import (
+    merge_microbatches,
+    pipeline_apply,
+    split_microbatches,
+)
 from elasticdl_tpu_torch.parallel.ring_attention import ring_attention
 from elasticdl_tpu_torch.parallel.ulysses import ulysses_attention
 from elasticdl_tpu_torch.utils import metrics
@@ -122,20 +149,37 @@ class TransformerConfig:
 
 
 def _check_mesh(mesh, cfg):
-    """A mesh of ``dp`` and ``sp`` only; MoE only without ``sp``."""
+    """The widths a mesh's ``tp`` and ``ep`` split must divide by them."""
     if mesh is None:
         return
-    unported = {a: mesh.shape[a] for a in ("pp", "ep", "tp")
-                if mesh.shape[a] > 1}
-    if unported:
-        raise NotImplementedError(
-            "mesh axes %s are not ported yet (ROADMAP A18)" % unported)
-    if cfg.moe_experts and mesh.shape["sp"] > 1:
-        # The JAX _moe_ffn sizes each expert's capacity over the whole
-        # sequence, which one shard of it cannot reproduce.
-        raise NotImplementedError(
-            "MoE under sequence parallelism (sp > 1) is not ported yet "
-            "(ROADMAP A18)")
+    tp, ep = mesh.shape["tp"], mesh.shape["ep"]
+    if cfg.num_heads % tp or cfg.kv_heads % tp:
+        raise ValueError(
+            "tp=%d splits the attention heads: num_heads (%d) and the K/V "
+            "heads (%d) must both divide by it" % (tp, cfg.num_heads,
+                                                   cfg.kv_heads))
+    widths = {"dim": cfg.dim, "mlp_dim": cfg.mlp_dim}
+    if not cfg.tied_embeddings:
+        widths["vocab_size"] = cfg.vocab_size
+    bad = {k: v for k, v in widths.items() if v % tp}
+    if bad:
+        raise ValueError("tp=%d does not divide %s" % (tp, bad))
+    if cfg.moe_experts and cfg.moe_experts % ep:
+        raise ValueError("ep=%d does not divide moe_experts (%d)"
+                         % (ep, cfg.moe_experts))
+
+
+def _live(mesh, axes):
+    """The group over ``axes``, or None without a mesh or where they are
+    all 1."""
+    return mesh.group(axes) if mesh is not None else None
+
+
+def _sum_over(x, mesh, axes):
+    """``x`` summed over the mesh's ``axes`` (differentiable); ``x`` where
+    there is nothing to sum over."""
+    group = _live(mesh, axes)
+    return x if group is None else transport.all_reduce((x,), group)[0]
 
 
 # -- parameters ---------------------------------------------------------------
@@ -203,13 +247,24 @@ def _named(params):
             else params.named_parameters())
 
 
-def _cast(params, cfg, names=None):
+def _cast(params, cfg, names=None, mesh=None):
     """{name: parameter in the compute dtype}: what each use in the JAX
     code casts (``w["wq"].astype(compute_dtype)``); only ``names`` when
-    given."""
+    given.  Under tp the embedding and an untied head, held as [V, E/tp]
+    and [E, V/tp] blocks, are gathered whole along dim 1 (their gradient:
+    the reduce-scatter), so the lookup and the head are the single
+    process's: 64 MB of bf16 weights on the wire at the flagship's widths,
+    where the partial logits' sum would move a 1 GB [8, 2048, 32768]
+    tensor each way."""
     dtype = cfg.compute_dtype
-    return {name: p.to(dtype) for name, p in _named(params)
-            if names is None or name in names}
+    w = {name: p.to(dtype) for name, p in _named(params)
+         if names is None or name in names}
+    group = _live(mesh, ("tp",))
+    if group is not None:
+        for name in ("embed", "lm_head"):
+            if name in w:
+                w[name] = transport.all_gather(w[name], group, 1)
+    return w
 
 
 def _layer(w, i):
@@ -253,8 +308,8 @@ def _top_k(probs, k):
     return values[..., :k], indices[..., :k]
 
 
-def _moe_ffn(h, w, cfg):
-    """Top-k mixture-of-experts FFN (the JAX ``_moe_ffn`` with no mesh).
+def _moe_ffn(h, w, cfg, mesh=None):
+    """Top-k mixture-of-experts FFN (the JAX ``_moe_ffn``).
 
     Dense dispatch and combine over one-hot capacity slots per sequence:
     choice 0 has priority, and choice j's slots start after the tokens
@@ -264,18 +319,32 @@ def _moe_ffn(h, w, cfg):
     Returns (out [B, T, E] in h's dtype, aux, stats): aux is the Switch
     load-balance loss X * sum_x frac_top1(x) * mean_prob(x), taken from
     the top-1 assignment before capacity, and stats the [2, X] stack of
-    those two statistics."""
+    those two statistics.
+
+    With a mesh, ``h`` is this rank's [B/dp, T/sp] shard and ``w`` holds
+    its experts (``ep``) and its share of their FFN (``tp``): the
+    statistics are means over the global batch (sums over ``dp`` and
+    ``sp``), a slot position counts the earlier ``sp`` shards' tokens,
+    capacity is sized over the whole sequence, and the output is summed
+    over ``ep`` and ``tp``."""
     B, T, _ = h.shape
     X = cfg.moe_experts
     K = min(cfg.moe_top_k, X)
-    capacity = max(1, min(T, int(T * K * cfg.moe_capacity_factor / X) + 1))
+    sp = mesh.shape["sp"] if mesh is not None else 1
+    T_all = T * sp
+    capacity = max(1, min(T_all,
+                          int(T_all * K * cfg.moe_capacity_factor / X) + 1))
     probs = torch.softmax((h @ w["w_router"]).float(), dim=-1)   # [B,T,X]
 
     top1 = F.one_hot(probs.argmax(dim=-1), X).float()
-    frac_tokens = top1.mean(dim=(0, 1))
-    mean_probs = probs.mean(dim=(0, 1))
-    stats = torch.stack([frac_tokens, mean_probs])
-    aux = X * (frac_tokens * mean_probs).sum()
+    batch_group = _live(mesh, ("dp", "sp"))
+    if batch_group is None:
+        stats = torch.stack([top1.mean(dim=(0, 1)), probs.mean(dim=(0, 1))])
+    else:
+        sums = torch.stack([top1.sum(dim=(0, 1)), probs.sum(dim=(0, 1))])
+        sums, = transport.all_reduce((sums,), batch_group)
+        stats = sums / (B * T * mesh.size(("dp", "sp")))
+    aux = X * (stats[0] * stats[1]).sum()
 
     gate_vals, experts = _top_k(probs, K)                        # [B,T,K]
     if K > 1:
@@ -284,25 +353,37 @@ def _moe_ffn(h, w, cfg):
         gate_vals = gate_vals / gate_vals.sum(
             dim=-1, keepdim=True).clamp_min(1e-9)
 
-    disp = combine = 0.0                                        # [B,T,X,C]
+    # This rank's experts: [e0, e0 + X_local).
+    X_local = w["w_gate"].shape[0]
+    e0 = mesh.coords["ep"] * X_local if mesh is not None else 0
+    sp_group = _live(mesh, ("sp",))
+    disp = combine = 0.0                                 # [B,T,X_local,C]
     offset = h.new_zeros((B, 1, X), dtype=torch.float32)
     for j in range(K):
         onehot = F.one_hot(experts[..., j], X).float()          # [B,T,X]
+        counts = onehot.sum(dim=1, keepdim=True)                # [B,1,X]
         pos = torch.cumsum(onehot, dim=1) - 1.0 + offset
+        if sp_group is not None:
+            # The tokens the earlier shards of the sequence sent.
+            every = transport.gather_along(counts[None], sp_group, 0)
+            pos = pos + every[:mesh.coords["sp"]].sum(dim=0)
+            counts = every.sum(dim=0)
+        onehot, pos = onehot[..., e0:e0 + X_local], pos[..., e0:e0 + X_local]
         keep = onehot * (pos < capacity)
         # keep x one_hot(slot), without a [B, T, X, C] int64 one-hot
-        slot = torch.zeros((B, T, X, capacity), dtype=torch.float32,
+        slot = torch.zeros((B, T, X_local, capacity), dtype=torch.float32,
                            device=h.device).scatter(
             -1, pos.clamp(0, capacity - 1).long()[..., None],
             keep[..., None])
         disp = disp + slot
         combine = combine + gate_vals[..., j, None, None] * slot
-        offset = offset + onehot.sum(dim=1, keepdim=True)
+        offset = offset + counts
     xin = torch.einsum("btxc,bte->xbce", disp, h.float()).to(h.dtype)
     g = F.silu(torch.einsum("xbce,xef->xbcf", xin, w["w_gate"]))
     u = torch.einsum("xbce,xef->xbcf", xin, w["w_up"])
     y = torch.einsum("xbcf,xfe->xbce", g * u, w["w_down"])
     out = torch.einsum("btxc,xbce->bte", combine, y.float())
+    out = _sum_over(out, mesh, ("ep", "tp"))
     return out.to(h.dtype), aux, stats
 
 
@@ -331,18 +412,22 @@ def _(x, name):
 checkpoint_name.register_autograd(lambda ctx, g: (g, None))
 
 
-def _layer_body(x, w, cfg, positions, mesh=None, return_kv=False):
+def _layer_body(x, w, cfg, positions, mesh=None, return_kv=False,
+                moe_stats=False):
     """One block over a sequence, or this rank's shard of it with a mesh
-    (weights ``w`` of one layer, in the compute dtype) -> (x, MoE aux or
-    None).  ``return_kv`` also returns this layer's post-RoPE,
-    pre-GQA-expand (k, v) [B, T, G, D] for the KV cache, as (x, aux,
-    (k, v))."""
+    (weights ``w`` of one layer, in the compute dtype, this rank's blocks
+    of them) -> (x, MoE aux or None; the [2, X] router statistics with
+    ``moe_stats``, which the pipeline accumulates).  ``return_kv`` also
+    returns this layer's post-RoPE, pre-GQA-expand (k, v) [B, T, G, D]
+    for the KV cache, as (x, aux, (k, v))."""
     B, T = x.shape[0], x.shape[1]
-    H, D, G = cfg.num_heads, cfg.head_dim, cfg.kv_heads
+    D = cfg.head_dim
     h = _rmsnorm(x, w["ln1"])
-    q = _rope((h @ w["wq"]).reshape(B, T, H, D), positions)
-    k = _rope((h @ w["wk"]).reshape(B, T, G, D), positions)
-    v = (h @ w["wv"]).reshape(B, T, G, D)
+    # This rank's heads under tp: H/tp query heads, G/tp K/V heads.
+    q = _rope((h @ w["wq"]).reshape(B, T, -1, D), positions)
+    k = _rope((h @ w["wk"]).reshape(B, T, -1, D), positions)
+    v = (h @ w["wv"]).reshape(B, T, -1, D)
+    H, G = q.shape[2], k.shape[2]
     kv = (k, v)
     if G != H:
         # jnp.repeat order: head i attends kv head i // (H/G).
@@ -353,8 +438,14 @@ def _layer_body(x, w, cfg, positions, mesh=None, return_kv=False):
     attn = attn.reshape(B, T, H * D)
     if cfg.remat == "attn" and torch.is_grad_enabled():
         attn = checkpoint_name(attn, "attn_out")
-    x = x + attn @ w["wo"]
-    out, aux = _mlp(_rmsnorm(x, w["ln2"]), w, cfg)
+    x = x + _sum_over(attn @ w["wo"], mesh, ("tp",))
+    h = _rmsnorm(x, w["ln2"])
+    if cfg.moe_experts:
+        out, aux, stats = _moe_ffn(h, w, cfg, mesh)
+        if moe_stats:
+            aux = stats
+    else:
+        out, aux = _sum_over(_ffn(h, w), mesh, ("tp",)), None
     x = x + out
     return (x, aux, kv) if return_kv else (x, aux)
 
@@ -381,17 +472,17 @@ def _save_attn_out(ctx, op, *args, **kwargs):
 _REMAT_POLICIES = {"dots": _save_matmuls, "attn": _save_attn_out}
 
 
-def _checkpointed_layer(x, w, cfg, positions, mesh):
+def _checkpointed_layer(x, w, cfg, positions, mesh, moe_stats=False):
     """``_layer_body`` under ``torch.utils.checkpoint``: remat=True keeps
     only the layer's input, a policy also what it names.  Under a mesh the
-    recompute repeats the layer's ring shifts or all-to-alls on every
-    rank, in the same order."""
+    recompute repeats the layer's collectives (ring shifts, all-to-alls,
+    the tp and ep sums) on every rank, in the same order."""
     policy = _REMAT_POLICIES.get(cfg.remat)
     context_fn = (functools.partial(create_selective_checkpoint_contexts,
                                     policy) if policy is not None
                   else torch.utils.checkpoint.noop_context_fn)
-    return checkpoint(_layer_body, x, w, cfg, positions, mesh,
-                      use_reentrant=False, context_fn=context_fn)
+    return checkpoint(_layer_body, x, w, cfg, positions, mesh, False,
+                      moe_stats, use_reentrant=False, context_fn=context_fn)
 
 
 def _head(w, x, cfg):
@@ -409,39 +500,129 @@ def _positions(tokens, mesh):
     return torch.arange(start, start + t, device=tokens.device)
 
 
-def _forward_hidden(w, tokens, cfg, mesh=None):
-    """(final hidden, mean per-layer MoE aux; 0 for the dense FFN)."""
-    x = w["embed"][tokens]
-    positions = _positions(tokens, mesh)
-    remat = cfg.remat and torch.is_grad_enabled()
+def _stacked(w):
+    return {name[len("layers."):]: p for name, p in w.items()
+            if name.startswith("layers.")}
+
+
+def _layers_of(stack, x, cfg, positions, mesh, layer_remat, moe_stats):
+    """This rank's layers of ``stack`` over ``x``: (x, per-layer aux or
+    router statistics)."""
     auxes = []
-    for i in range(cfg.num_layers):
-        layer = _checkpointed_layer if remat else _layer_body
-        x, aux = layer(x, _layer(w, i), cfg, positions, mesh)
+    for i in range(next(iter(stack.values())).shape[0]):
+        w = {name: p[i] for name, p in stack.items()}
+        if layer_remat:
+            x, aux = _checkpointed_layer(x, w, cfg, positions, mesh,
+                                         moe_stats)
+        else:
+            x, aux = _layer_body(x, w, cfg, positions, mesh,
+                                 moe_stats=moe_stats)
         auxes.append(aux)
-    if cfg.moe_experts:
-        return x, torch.stack(auxes).mean()
-    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+    return x, auxes
+
+
+def _forward_hidden(w, tokens, cfg, mesh=None, microbatches=0,
+                    stage_remat=False):
+    """(final hidden, mean per-layer MoE aux; 0 for the dense FFN).  Over
+    a mesh with pp > 1, or with ``microbatches``, the layers run as a
+    pipeline (``forward_pipelined``): of ``microbatches`` microbatches
+    (1 without), each stage under one checkpoint with ``stage_remat``,
+    each layer under its own with the config's remat otherwise."""
+    stack = _stacked(w)
+    positions = _positions(tokens, mesh)
+    layer_remat = bool(cfg.remat) and torch.is_grad_enabled()
+    moe = bool(cfg.moe_experts)
+    pp = mesh.shape["pp"] if mesh is not None else 1
+    if pp == 1 and not microbatches:
+        x, auxes = _layers_of(stack, w["embed"][tokens], cfg, positions,
+                              mesh, layer_remat, False)
+        if moe:
+            return x, torch.stack(auxes).mean()
+        return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+    M = microbatches or 1
+    if pp == 1 or mesh.coords["pp"] == 0:
+        x = w["embed"][tokens]
+    else:
+        # Only stage 0 reads the microbatches' values.
+        x = torch.empty(tuple(tokens.shape) + (cfg.dim,),
+                        dtype=cfg.compute_dtype, device=tokens.device)
+    layer_remat = layer_remat and not stage_remat
+
+    def stage_fn(stage_stack, x_mb):
+        x_mb, stats = _layers_of(stage_stack, x_mb, cfg, positions, mesh,
+                                 layer_remat, moe)
+        return (x_mb, torch.stack(stats)) if moe else x_mb
+
+    def finalize(stats, num_mb):
+        # stats: [L_stage, 2, X] sums of per-microbatch (frac, prob)
+        # means; / M gives the full batch's, so this stage's layers
+        # contribute their exact Switch aux, whatever M is.
+        f = stats[:, 0] / num_mb
+        p = stats[:, 1] / num_mb
+        return (cfg.moe_experts * (f * p).sum(-1)).sum()
+
+    out = pipeline_apply(stage_fn, stack, split_microbatches(x, M),
+                         mesh=mesh, num_microbatches=M, remat=stage_remat,
+                         with_aux=moe, aux_finalize=finalize)
+    if moe:
+        ym, aux_sum = out
+        # The sum covers every layer (the stages sum theirs): the mean
+        # per layer, as forward(return_aux=True) gives.
+        return merge_microbatches(ym), aux_sum / cfg.num_layers
+    return merge_microbatches(out), torch.zeros(
+        (), dtype=torch.float32, device=tokens.device)
 
 
 def forward_hidden(params, tokens, cfg, mesh=None):
     """tokens: [B, T] int -> (final hidden [B, T, dim] before ``ln_f``
     and the head, mean per-layer MoE aux loss), as the JAX function
     returns them; the dense FFN's aux is 0.  With a mesh, tokens and
-    hidden are this rank's shards [B/dp, T/sp]."""
+    hidden are this rank's shards [B/dp, T/sp] and ``params`` its blocks
+    (``shard_params``)."""
     _check_mesh(mesh, cfg)
-    return _forward_hidden(_cast(params, cfg), tokens, cfg, mesh)
+    return _forward_hidden(_cast(params, cfg, mesh=mesh), tokens, cfg, mesh)
 
 
 def forward(params, tokens, cfg, mesh=None, return_aux=False):
     """tokens: [B, T] int -> logits [B, T, V] float32; with
     ``return_aux`` (training an MoE), (logits, mean per-layer aux).  With
-    a mesh, tokens and logits are this rank's shards [B/dp, T/sp]."""
+    a mesh, tokens and logits are this rank's shards [B/dp, T/sp] and
+    ``params`` its blocks (``shard_params``)."""
     _check_mesh(mesh, cfg)
-    w = _cast(params, cfg)
+    w = _cast(params, cfg, mesh=mesh)
     hidden, aux = _forward_hidden(w, tokens, cfg, mesh)
     logits = _head(w, hidden, cfg)
     return (logits, aux) if return_aux else logits
+
+
+def forward_pipelined(params, tokens, cfg, mesh, num_microbatches,
+                      remat=False, return_aux=False, return_hidden=False):
+    """Microbatch-pipelined forward over the ``pp`` mesh axis.
+
+    The layer stack runs as a GPipe schedule (``parallel/pipeline.py``):
+    S = mesh.shape['pp'] stages, each this rank's layers, compute on
+    different microbatches, activations hopping stages by ring shifts;
+    the bubble fraction is (S-1)/(M+S-1).  ``remat`` checkpoints each
+    stage per microbatch.  With ``return_aux`` the MoE load-balance loss
+    equals the exact full-batch Switch statistic: the stages accumulate
+    the linear per-expert (frac, prob) statistics over their real ticks
+    and combine them after the loop.  The embedding lookup and the head
+    run outside the pipeline on every stage (the head on the merged
+    hidden states, so ``return_hidden`` composes with the chunked loss).
+    Attention is stage-local, so this path requires sp=1; dp, tp and ep
+    compose inside the stages."""
+    if mesh.shape.get("sp", 1) != 1:
+        raise ValueError(
+            "forward_pipelined requires sp=1 (stage-local attention); use "
+            "ring attention (plain forward) for sequence parallelism")
+    _check_mesh(mesh, cfg)
+    w = _cast(params, cfg, mesh=mesh)
+    hidden, aux = _forward_hidden(w, tokens, cfg, mesh,
+                                  microbatches=num_microbatches,
+                                  stage_remat=bool(remat))
+    out = hidden if return_hidden else _head(w, hidden, cfg)
+    return (out, aux) if return_aux else out
 
 
 # -- autoregressive decoding --------------------------------------------------
@@ -587,7 +768,8 @@ def _chunk_xent_sum(w, h_c, t_c, m_c, cfg):
     return (per_tok.reshape(t_c.shape) * m_c[None, :]).sum(dim=-1)
 
 
-def next_token_loss_chunked(params, hidden, tokens, cfg, chunk=512):
+def next_token_loss_chunked(params, hidden, tokens, cfg, chunk=512,
+                            mesh=None):
     """Next-token cross entropy from :func:`forward_hidden`'s hidden
     [B, T, E] without a [B, T, V] logits tensor: ln_f, the head matmul and
     the cross entropy run per T-chunk under ``torch.utils.checkpoint``,
@@ -604,7 +786,7 @@ def next_token_loss_chunked(params, hidden, tokens, cfg, chunk=512):
         targets = F.pad(targets, (0, pad))
     valid = (torch.arange(n + pad, device=hidden.device) < n).float()
     names = ("ln_f", "embed") if cfg.tied_embeddings else ("ln_f", "lm_head")
-    w = _cast(params, cfg, names)
+    w = _cast(params, cfg, names, mesh)
     total = torch.zeros((b,), dtype=torch.float32, device=hidden.device)
     for start in range(0, n + pad, chunk):
         end = start + chunk
@@ -631,8 +813,7 @@ def _from_jax_layout(value):
 
 def param_specs(cfg):
     """The JAX ``param_specs`` as a name tree: {parameter name: the mesh
-    axis each of its dims is sharded over, or None}.  Only the replicated
-    layout (no ``tp``, ``pp`` or ``ep``) is ported (``shard_params``)."""
+    axis each of its dims is sharded over, or None}."""
     layers = {"ln1": ("pp", None), "wq": ("pp", None, "tp"),
               "wk": ("pp", None, "tp"), "wv": ("pp", None, "tp"),
               "wo": ("pp", "tp", None), "ln2": ("pp", None)}
@@ -653,14 +834,15 @@ def param_specs(cfg):
 
 
 def shard_params(params, mesh, cfg):
-    """Place ``params`` (a :class:`TransformerLM`) on ``mesh`` by
-    ``param_specs``: replicated over ``dp`` and ``sp``, which is every
-    parameter on every rank, moved to the rank's device.  A mesh whose
-    ``tp``, ``pp`` or ``ep`` would shard a dimension raises (A18)."""
-    from elasticdl_tpu_torch.parallel.spmd_trainer import replicate
+    """Place ``params`` (a :class:`TransformerLM` holding the whole
+    arrays) on ``mesh`` by ``param_specs``: each parameter becomes this
+    rank's block of it (its stage's layers, its heads and share of the
+    FFN, its experts, its columns of the embedding), on the rank's
+    device.  Returns the module, its parameters replaced."""
+    from elasticdl_tpu_torch.parallel.spmd_trainer import place
 
     _check_mesh(mesh, cfg)
-    return replicate(params, param_specs(cfg), mesh)
+    return place(params, param_specs(cfg), mesh)
 
 
 def next_token_targets(tokens):
@@ -706,23 +888,28 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
     and ``moe_experts`` (> 0: top-``moe_top_k`` experts; training adds
     ``moe_aux_weight`` x the mean per-layer aux loss to the loss) as in
     the JAX entry; the optimizer is AdamW at ``learning_rate`` with weight
-    decay 0.01 (``optax.adamw``'s).  A ``mesh`` (which in the JAX entry
-    shards the parameters and feeds the forward) and pipelining raise
-    ``NotImplementedError`` naming their ROADMAP item (A18).  The
-    collective strategy needs neither: its trainer takes the spec as it
-    is and all-reduces the gradients over the world.
+    decay 0.01 (``optax.adamw``'s).  With a ``mesh`` (``parallel/mesh.py``)
+    ``init_fn`` places the parameters on it (``shard_params``) and
+    ``apply_fn`` takes this rank's shard of the batch, [B/dp, T/sp], and
+    runs the forward over the mesh; ``pipeline_microbatches`` > 0 with
+    pp > 1 and sp = 1 runs it as a pipeline of that many microbatches
+    (``forward_pipelined``, remat per stage), and warns and runs the
+    plain forward otherwise, as the JAX entry does.  ``loss_fn``'s
+    per-example loss shifts the labels within a sequence, so under
+    sp > 1 train through ``next_token_targets``, whose shift crosses the
+    shards (``parallel/spmd_trainer.py``).  The collective strategy takes
+    the spec with no mesh and all-reduces the gradients over its world.
     ``generate_fn(module, prompt, max_new_tokens, temperature, seed)``
     serves generation exports.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "the zoo entry's mesh (parameters sharded by it, the forward "
-            "over it) is not ported yet (ROADMAP A18); train over a dp/sp "
-            "mesh with parallel.spmd_trainer.SPMDTrainer, or over a "
-            "collective world with no mesh in the spec")
-    if pipeline_microbatches:
-        raise NotImplementedError(
-            "pipelining is not ported yet (ROADMAP A18)")
+    pipelined = (pipeline_microbatches > 0 and mesh is not None
+                 and mesh.shape["pp"] > 1 and mesh.shape["sp"] == 1)
+    if pipeline_microbatches > 0 and not pipelined:
+        # No mesh, pp=1, or sp>1 (ring attention needs the sequence
+        # axis): say so instead of ignoring the knob.
+        warnings.warn(
+            "pipeline_microbatches ignored: pipelining requires a mesh "
+            "with pp>1 and sp=1; using the scanned forward", stacklevel=2)
     if remat not in (False, True, "dots", "attn"):
         # CLI model_params arrive as strings; normalise the booleans and
         # reject typos instead of enabling remat on any truthy string.
@@ -745,23 +932,32 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
     def init_fn(device, seed=0):
         device = torch.device(device)
         gen = torch.Generator(device=device).manual_seed(seed)
-        return init_params(gen, cfg, device=device)
+        module = init_params(gen, cfg, device=device)
+        return module if mesh is None else shard_params(module, mesh, cfg)
 
     def apply_fn(module, tokens, train):
-        if xent_chunk and train:
+        chunked = bool(xent_chunk and train)
+        if pipelined:
+            out = forward_pipelined(
+                module, tokens, cfg, mesh, pipeline_microbatches,
+                remat=bool(cfg.remat),
+                return_aux=chunked or bool(cfg.moe_experts and train),
+                return_hidden=chunked)
+            return ("hidden",) + out + (module,) if chunked else out
+        if chunked:
             # The memory-lean loss path: hand the final hidden states (and
             # the module, for the head inside the chunked loss) to loss_fn
             # instead of materialising [B, T, V] logits.
-            hidden, aux = forward_hidden(module, tokens, cfg)
+            hidden, aux = forward_hidden(module, tokens, cfg, mesh=mesh)
             return ("hidden", hidden, aux, module)
-        return forward(module, tokens, cfg,
+        return forward(module, tokens, cfg, mesh=mesh,
                        return_aux=bool(cfg.moe_experts and train))
 
     def loss_fn(outputs, tokens):
         if isinstance(outputs, tuple) and outputs[0] == "hidden":
             _, hidden, aux, module = outputs
             loss = next_token_loss_chunked(module, hidden, tokens, cfg,
-                                           chunk=xent_chunk)
+                                           chunk=xent_chunk, mesh=mesh)
         elif isinstance(outputs, tuple):      # MoE training: (logits, aux)
             logits, aux = outputs
             loss = next_token_loss(logits, tokens)

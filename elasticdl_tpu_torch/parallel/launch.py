@@ -15,7 +15,11 @@ take the backend their caller names (``parallel/mesh.py``), gloo for
 ranks that share a card.
 
 ``fn`` must be importable by name in a fresh interpreter (a module-level
-function), and its arguments and result picklable.
+function), and its arguments and result picklable.  Each call reaches
+its process through a file, not the process's start-up pipe: a payload
+larger than the pipe's buffer holds the parent's write until the child
+has imported what unpickling it needs (torch), so the processes would
+start one after another.
 """
 
 import os
@@ -31,10 +35,12 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def _process_main(index, threads, fn, args, results):
+def _process_main(index, threads, call_path, results):
     if threads:
         torch.set_num_threads(threads)
     try:
+        with open(call_path, "rb") as f:
+            fn, args = pickle.load(f)
         out = fn(*args)
         # Pickled here: a tensor put on the queue as it is would be shared
         # through a descriptor that closes when this process exits.
@@ -59,9 +65,14 @@ def run(calls, timeout=600.0, threads=None):
     ctx = mp.get_context("spawn")
     results = ctx.Queue()
     n = len(calls)
+    tmp = tempfile.mkdtemp(prefix="edl-calls-")
+    paths = []
+    for i, (fn, args) in enumerate(calls):
+        paths.append(os.path.join(tmp, "call-%d.pkl" % i))
+        with open(paths[-1], "wb") as f:
+            pickle.dump((fn, tuple(args)), f)
     procs = [ctx.Process(target=_process_main, daemon=True, args=(
-        i, threads, fn, tuple(args), results))
-        for i, (fn, args) in enumerate(calls)]
+        i, threads, paths[i], results)) for i in range(n)]
     try:
         for p in procs:
             p.start()
@@ -98,6 +109,7 @@ def run(calls, timeout=600.0, threads=None):
                 p.kill()
             p.join(5)
         results.close()
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 def spawn(fn, world_size, args=(), timeout=600.0, threads=None):

@@ -1,12 +1,15 @@
-"""Process meshes for data and sequence parallelism (counterpart of
-``elasticdl_tpu/parallel/mesh.py``).
+"""Process meshes for data, pipeline, expert, tensor and sequence
+parallelism (counterpart of ``elasticdl_tpu/parallel/mesh.py``).
 
 The JAX mesh is one program's view of many devices: axes (dp, pp, ep,
 tp, sp) over an array of devices, and XLA inserts the collectives.  Here
 every rank is a process of an initialised ``torch.distributed`` world,
-and the mesh is that rank's view of the grid: its coordinates, and one
+and the mesh is that rank's view of the grid: its coordinates, one
 process group per axis holding the ranks that differ from it along that
-axis only.  Ranks take grid coordinates in the order of
+axis only, and one group per set of axes (the ranks that differ from it
+along those axes only): a gradient is summed over the axes its
+parameter's spec does not name, and MoE router statistics over ``dp``
+and ``sp`` together.  Ranks take grid coordinates in the order of
 ``np.arange(world).reshape(dp, pp, ep, tp, sp)``, as the JAX mesh lays
 out ``np.array(devices).reshape(dp, pp, ep, tp, sp)``.
 
@@ -16,10 +19,9 @@ for ranks on cards of their own, ``gloo`` for ranks that share one card
 stages CUDA tensors through the host on a gloo group.  A rank's device is
 ``cuda:(rank % device_count)`` unless the caller passes ``"cpu"``.
 
-Only ``dp`` and ``sp`` are ported: meshes with ``pp``, ``tp`` or ``ep``
-larger than 1 (tensor, pipeline and expert parallelism) raise
-``NotImplementedError`` naming ROADMAP A18.
 """
+
+import itertools
 
 import numpy as np
 import torch
@@ -33,8 +35,11 @@ AXES = ("dp", "pp", "ep", "tp", "sp")
 class Mesh:
     """One rank's view of the grid.  ``shape`` maps each axis to its size
     (the JAX ``mesh.shape``), ``coords`` to this rank's index along it;
-    ``group(axis)`` is the process group along an axis larger than 1 and
-    ``group()`` the whole mesh's."""
+    ``group(axis)`` is the process group along an axis larger than 1,
+    ``group((a, b, ...))`` the group along several (its ranks in the order
+    of ``np.arange(world).reshape(...)`` over those axes, in ``AXES``
+    order; None where every one of them is 1) and ``group()`` the whole
+    mesh's."""
 
     def __init__(self, shape, coords, groups, world_group, device):
         self.shape = shape
@@ -43,17 +48,22 @@ class Mesh:
         self._world_group = world_group
         self.device = device
 
+    def live(self, axes):
+        """The axes of ``axes`` (a name or names) larger than 1, in
+        ``AXES`` order."""
+        axes = (axes,) if isinstance(axes, str) else tuple(axes)
+        return tuple(a for a in AXES if a in axes and self.shape[a] > 1)
+
+    def size(self, axes):
+        return int(np.prod([self.shape[a] for a in self.live(axes)]))
+
     def group(self, axis=None):
-        return self._world_group if axis is None else self._groups[axis]
-
-
-def _check_ported(shape):
-    unported = {a: n for a, n in shape.items() if a in ("pp", "ep", "tp")
-                and n > 1}
-    if unported:
-        raise NotImplementedError(
-            "mesh axes %s are not ported yet (ROADMAP A18: tensor, pipeline "
-            "and expert parallelism); dp and sp are" % unported)
+        if axis is None:
+            return self._world_group
+        if isinstance(axis, str):
+            return self._groups[axis]
+        live = self.live(axis)
+        return self._groups.get(live) if live else None
 
 
 def build_mesh(dp=None, pp=1, tp=1, sp=1, ep=1, *, backend, device=None,
@@ -79,24 +89,32 @@ def build_mesh(dp=None, pp=1, tp=1, sp=1, ep=1, *, backend, device=None,
     if dp * fixed != n:
         raise ValueError("dp*pp*ep*tp*sp=%d != %d ranks" % (dp * fixed, n))
     shape = dict(zip(AXES, (dp, pp, ep, tp, sp)))
-    _check_ported(shape)
     rank = dist.get_rank()
     grid = np.arange(n).reshape(tuple(shape.values()))
     coords = dict(zip(AXES, (int(i) for i in
                              np.unravel_index(rank, grid.shape))))
-    groups = {}
-    for i, axis in enumerate(AXES):
-        if shape[axis] == 1:
-            continue
-        # Every line of the grid along this axis, in one fixed order.
-        lines = np.moveaxis(grid, i, -1).reshape(-1, shape[axis])
-        for line in lines:
-            group = dist.new_group([int(r) for r in line], backend=backend,
-                                   timeout=timeout)
-            if rank in line:
-                groups[axis] = group
     world_group = dist.new_group(list(range(n)), backend=backend,
                                  timeout=timeout)
+    live = [i for i, a in enumerate(AXES) if shape[a] > 1]
+    groups = {}
+    # Every set of live axes, one axis first, then pairs, ...; for each,
+    # every block of the grid along those axes, in one fixed order.
+    for k in range(1, len(live) + 1):
+        for dims in itertools.combinations(live, k):
+            key = tuple(AXES[i] for i in dims)
+            if k == len(live):
+                groups[key] = world_group
+                continue
+            size = int(np.prod([shape[AXES[i]] for i in dims]))
+            blocks = np.moveaxis(grid, dims, range(-k, 0)).reshape(-1, size)
+            for block in blocks:
+                group = dist.new_group([int(r) for r in block],
+                                       backend=backend, timeout=timeout)
+                if rank in block:
+                    groups[key] = group
+    for key in list(groups):
+        if len(key) == 1:
+            groups[key[0]] = groups[key]
     device = resolve_device(device)
     if device.type == "cuda" and device.index is None:
         device = torch.device("cuda", rank % torch.cuda.device_count())

@@ -14,10 +14,16 @@ the group (``parallel/mesh.py``):
    This is the route of ranks that share one card, which NCCL refuses.
    CPU tensors go as they are.
 
-The two autograd Functions are the differentiable forms the attention
-paths use: ``ring_shift`` (the JAX ``ppermute`` to the next rank; its
-gradient is the shift back) and ``all_to_all`` (the JAX tiled
-``all_to_all``, its own transpose).
+The autograd Functions are the differentiable forms the mesh paths use,
+each with the transpose GSPMD gives its JAX counterpart: ``ring_shift``
+(the JAX ``ppermute`` to the next rank; its gradient is the shift back:
+the ring and the pipeline's stage hop), ``all_to_all`` (the JAX tiled
+``all_to_all``, its own transpose: Ulysses), ``all_reduce`` (``psum``,
+whose gradient is a ``psum``: the row splits of tensor parallelism, the
+experts, the pipeline's last stage) and ``all_gather`` (an all-gather
+along a dimension, whose gradient is a reduce-scatter: the embedding's
+model dimension).  A rank that runs one forward must run its backward,
+as every rank of the group does.
 """
 
 import torch
@@ -182,3 +188,71 @@ class _AllToAll(torch.autograd.Function):
 def all_to_all(x, group):
     """``all_to_all_chunks``, differentiable (it is its own transpose)."""
     return _AllToAll.apply(group, x)
+
+
+def _summed(tensors, group):
+    """Copies of ``tensors`` summed over ``group`` (one collective per
+    dtype, so no value changes precision on the wire)."""
+    out = [t.detach().clone() for t in tensors]
+    by_dtype = {}
+    for t in out:
+        by_dtype.setdefault(t.dtype, []).append(t)
+    for same in by_dtype.values():
+        all_reduce_sum_(same, group)
+    return out
+
+
+class _AllReduce(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, *tensors):
+        ctx.group = group
+        ctx.like = [(t.shape, t.dtype, t.device) for t in tensors]
+        return tuple(_summed(tensors, group))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        grads = [g if g is not None else torch.zeros(s, dtype=d, device=v)
+                 for g, (s, d, v) in zip(grads, ctx.like)]
+        return (None,) + tuple(_summed(grads, ctx.group))
+
+
+def all_reduce(tensors, group):
+    """The sum of each of ``tensors`` over ``group`` on every rank of it,
+    differentiable (the JAX ``psum``: its gradient is the ``psum`` of the
+    gradients).  Returns a tuple."""
+    return _AllReduce.apply(group, *tensors)
+
+
+def gather_along(x, group, dim):
+    """Every rank's ``x`` (one shape on all of them) concatenated along
+    ``dim`` in the group's rank order, on every rank; not differentiable."""
+    n = dist.get_world_size(group)
+    x = x.detach().contiguous()
+    staged = _staged(group, x)
+    send = x.cpu() if staged else x
+    rows = [torch.empty_like(send) for _ in range(n)]
+    dist.all_gather(rows, send, group=group)
+    out = torch.cat(rows, dim=dim)
+    return out.to(x.device) if staged else out
+
+
+class _AllGather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, group, dim, x):
+        ctx.group, ctx.dim, ctx.size = group, dim, x.shape[dim]
+        return gather_along(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        # The reduce-scatter: the sum over the group, this rank's block.
+        summed = _summed([g], ctx.group)[0]
+        me = dist.get_rank(ctx.group)
+        return None, None, summed.narrow(ctx.dim, me * ctx.size,
+                                         ctx.size).contiguous()
+
+
+def all_gather(x, group, dim):
+    """``gather_along``, differentiable: the gradient of a rank's block is
+    the sum over the group of the gradients that reached that block (the
+    reduce-scatter that GSPMD gives an all-gather)."""
+    return _AllGather.apply(group, dim, x)

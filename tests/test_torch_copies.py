@@ -35,7 +35,7 @@ IDENTICAL = (
     "native/bindings.py", "native/kernels.cc",
     "preprocessing/__init__.py", "preprocessing/analyzer_utils.py",
     "preprocessing/feature_column.py",
-    "proto/elastic_pb2.py", "proto/rpc.py",
+    "proto/elastic.proto", "proto/elastic_pb2.py", "proto/rpc.py",
     "ps/optimizer.py", "ps/parameters.py", "ps/server.py", "ps/servicer.py",
     "serving/batcher.py", "serving/embedding_service.py",
     "serving/fleet.py", "serving/router.py",

@@ -40,6 +40,7 @@ def test_port_imports_no_jax_and_nothing_of_the_jax_package():
                  "ops.flash_attention", "parallel.ring_attention",
                  "parallel.mesh", "parallel.transport", "parallel.ulysses",
                  "parallel.spmd_trainer", "parallel.launch",
+                 "parallel.pipeline",
                  "models.transformer", "models.lora",
                  "models.mnist", "models.resnet", "models.spec",
                  "utils.checkpoint", "utils.metrics",

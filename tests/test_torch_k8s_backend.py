@@ -686,3 +686,64 @@ def test_rendered_submission_matches_the_reference(extra, capsys):
     args = pod["spec"]["containers"][0]["args"]
     assert args[args.index("--worker_backend") + 1] == (
         "process" if "process" in extra else "k8s")
+
+
+# -- C-c: a relaunched pool worker dials the Service ---------------------------
+
+
+def _master_addr(pod):
+    env = pod.manifest["spec"]["containers"][0]["env"]
+    return next(e["value"] for e in env if e["name"] == "MASTER_ADDR")
+
+
+def test_relaunched_pool_worker_dials_the_master_service(monkeypatch,
+                                                         tmp_path):
+    """A ``--jobs_spec`` pool under ``--worker_backend k8s``: a worker pod
+    deleted and relaunched by the manager carries the master Service's DNS
+    name, as the pool's first pods do.  The multi-tenant master's
+    ``prepare()`` (master/scheduler.py, a copy of the reference's) sets
+    ``localhost:<port>``, which a pod cannot reach; the port's
+    master/main.py rewrites it as it is set."""
+    import socket
+
+    from elasticdl_tpu_torch.master import main as master_main
+    from elasticdl_tpu_torch.master.scheduler import MultiTenantMaster
+    from elasticdl_tpu_torch.utils.args import parse_master_args
+
+    api = FakeCoreV1Api()
+
+    def build_backend(args, worker_args):
+        return K8sWorkerBackend(args.job_name, "img",
+                                namespace=args.namespace, core_api=api,
+                                poll_secs=0.05, worker_args=worker_args)
+
+    seen = {}
+
+    def run(self):
+        try:
+            seen["first"] = _master_addr(api.pods["pool-worker-0"])
+            api.delete_namespaced_pod("pool-worker-0", "ns")
+            for _ in range(100):
+                if "pool-worker-1" in api.pods:
+                    break
+                threading.Event().wait(0.1)
+            seen["relaunched"] = _master_addr(api.pods["pool-worker-1"])
+        finally:
+            self.stop()
+        return 0
+
+    monkeypatch.setattr(master_main, "_build_worker_backend", build_backend)
+    monkeypatch.setattr(MultiTenantMaster, "run", run)
+    spec_path = str(tmp_path / "jobs.json")
+    with open(spec_path, "w") as f:
+        json.dump([{"name": "a", "data_origin": "synthetic_mnist:128"}], f)
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        port = s.getsockname()[1]
+    args = parse_master_args([
+        "--jobs_spec", spec_path, "--num_workers", "1",
+        "--worker_backend", "k8s", "--job_name", "pool",
+        "--namespace", "ns", "--port", str(port), "--status_port", "-1"])
+    assert master_main._run_multitenant(args) == 0
+    want = "pool-master.ns.svc:%d" % port
+    assert seen == {"first": want, "relaunched": want}

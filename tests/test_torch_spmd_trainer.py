@@ -246,37 +246,51 @@ def test_checkpoints_move_between_packages_across_layouts(runs):
 @pytest.mark.parametrize("moe", [0, 2])
 def test_param_specs_and_shard_params(moe):
     """``param_specs`` is the JAX PartitionSpec tree by parameter name;
-    ``shard_params`` replicates over dp and sp and refuses what would
-    shard a dimension (tp, pp, ep) or MoE under sp, naming A18."""
+    ``shard_params`` gives a rank the block of each parameter that the
+    JAX ``NamedSharding`` puts on the device at the rank's coordinates,
+    for every layout of 4 ranks and every rank of it."""
     import types
 
     import jax
-    from jax.sharding import PartitionSpec as P
+    from jax.sharding import NamedSharding, PartitionSpec as P
 
     from elasticdl_tpu.models import transformer as tfm
+    from elasticdl_tpu.parallel.mesh import build_mesh
+    from elasticdl_tpu.utils.pytree import flatten_with_names
     from elasticdl_tpu_torch.models import transformer as ttfm
+    from elasticdl_tpu_torch.parallel.mesh import AXES
 
     cfg = dict(CFG, moe_experts=moe)
+    jcfg = tfm.TransformerConfig(**cfg)
     leaves = jax.tree_util.tree_flatten_with_path(
-        tfm.param_specs(tfm.TransformerConfig(**cfg)),
-        is_leaf=lambda x: isinstance(x, P))[0]
+        tfm.param_specs(jcfg), is_leaf=lambda x: isinstance(x, P))[0]
     jspecs = {".".join(str(k.key) for k in path): tuple(spec)
               for path, spec in leaves}
     tcfg = ttfm.TransformerConfig(**cfg)
     assert ttfm.param_specs(tcfg) == jspecs
-    module = ttfm.TransformerLM(tcfg)
-
-    def mesh(**axes):
-        shape = dict(dp=1, pp=1, ep=1, tp=1, sp=1)
-        shape.update(axes)
-        return types.SimpleNamespace(shape=shape, device=torch.device("cpu"))
-
-    assert ttfm.shard_params(module, mesh(dp=2), tcfg) is module
-    for axes in ({"tp": 2}, {"pp": 2}, {"ep": 2}):
-        with pytest.raises(NotImplementedError, match="A18"):
-            ttfm.shard_params(module, mesh(**axes), tcfg)
-    if moe:
-        with pytest.raises(NotImplementedError, match="A18"):
-            ttfm.shard_params(module, mesh(sp=2), tcfg)
-    else:
-        assert ttfm.shard_params(module, mesh(sp=2), tcfg) is module
+    named = flatten_with_names(tfm.init_params(jax.random.PRNGKey(0),
+                                               jcfg))[0]
+    for axes in ({"dp": 4}, {"tp": 2, "sp": 2}, {"pp": 2, "tp": 2},
+                 {"ep": 2, "tp": 2}, {"dp": 2, "pp": 2}):
+        jmesh = build_mesh(**axes, devices=jax.devices()[:4])
+        ids = np.vectorize(lambda d: d.id)(jmesh.devices)
+        shards = {}
+        for name, value in named.items():
+            placed = jax.device_put(value, NamedSharding(
+                jmesh, P(*jspecs[name.replace("/", ".")])))
+            shards[name] = {s.device.id: np.asarray(s.data)
+                            for s in placed.addressable_shards}
+        for rank in range(4):
+            where = np.argwhere(ids == rank)[0]
+            mesh = types.SimpleNamespace(
+                shape=dict(jmesh.shape), device=torch.device("cpu"),
+                coords={a: int(i) for a, i in zip(AXES, where)})
+            module = ttfm.TransformerLM(tcfg)
+            module.load_state_dict(ttfm.params_from_jax(named))
+            assert ttfm.shard_params(module, mesh, tcfg) is module
+            got = ttfm.params_to_jax(module)
+            assert sorted(got) == sorted(named)
+            for name, value in got.items():
+                np.testing.assert_array_equal(
+                    value, shards[name][rank],
+                    err_msg="%s %s rank %d" % (axes, name, rank))

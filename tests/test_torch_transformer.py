@@ -14,6 +14,8 @@ import dataclasses
 import http.client
 import json
 import threading
+import types
+import warnings
 
 import jax
 import jax.numpy as jnp
@@ -195,11 +197,23 @@ def test_config_and_export_validation(tmp_path):
     with pytest.raises(ValueError, match="num_kv_heads"):
         ttfm.model_spec(vocab_size=64, dim=32, num_heads=4, num_layers=2,
                         seq_len=16, num_kv_heads=3)
-    for kwargs, item in (({"pipeline_microbatches": 2}, "A18"),
-                         ({"mesh": object()}, "A18")):
-        with pytest.raises(NotImplementedError, match=item):
+    # Pipelining needs a mesh with pp > 1 and sp = 1; otherwise the entry
+    # warns and runs the plain forward, as the JAX entry does.
+    def mesh(**axes):
+        shape = dict(dp=1, pp=1, ep=1, tp=1, sp=1)
+        shape.update(axes)
+        return types.SimpleNamespace(shape=shape)
+
+    for kwargs in ({}, {"mesh": mesh(pp=2, sp=2)}, {"mesh": mesh(tp=2)}):
+        with pytest.warns(UserWarning, match="pipeline_microbatches ignored"):
             ttfm.model_spec(vocab_size=64, dim=32, num_heads=2,
-                            num_layers=1, seq_len=16, **kwargs)
+                            num_layers=1, seq_len=16,
+                            pipeline_microbatches=2, **kwargs)
+    with warnings.catch_warnings():
+        warnings.simplefilter("error")
+        ttfm.model_spec(vocab_size=64, dim=32, num_heads=2, num_layers=2,
+                        seq_len=16, pipeline_microbatches=2,
+                        mesh=mesh(pp=2))
     with pytest.raises(ValueError, match="attention_impl"):
         ttfm.model_spec(vocab_size=64, dim=32, num_heads=2, num_layers=1,
                         seq_len=16, attention_impl="ringg")
