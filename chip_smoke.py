@@ -71,7 +71,14 @@ Phases, in order; any failure exits non-zero:
     with plain attention: teacher forcing over the generated sequences,
     prefill logits in bf16, and in float32 with TF32 off at T=2048,
     batch 2; then prefill time at batch 8, T=128 and T=2048, with the
-    kernel and with plain attention;
+    kernel and with plain attention; then A12b (A12B_NEW): a second
+    export with 32 new tokens served by a batching endpoint (pad buckets
+    1, 2, 4, 8) to concurrent clients of 1-3 prompts, each answer its
+    rows of the padded batch the executor ran and that batch a direct
+    predict's bit for bit, B3 12 launches a batch; batches, occupancy,
+    p50/p99 latency, generated tokens/s, the share equal served alone;
+    then generate's ms a token at batch 8, greedy and sampled
+    (SAMPLED_TEMPERATURE);
 10. flash attention backward kernels against plain: dq (B4) and dk, dv
     (B5) against their plain version (``_flash_bwd_ref``) on the forward
     kernel's residuals and a random g, at the flagship training shape
@@ -116,7 +123,7 @@ Phases, in order; any failure exits non-zero:
     whole sequence drops tokens past an expert's capacity, a decode step
     never does), the share past LM_TF_TOL held against plain-vs-plain
     (MOE_TF_SHARE), and the prefill logits held against plain attention's
-    as the dense LM's;
+    as the dense LM's; then phase 9's A12b leg on the MoE module;
 13. MoE training at MOE_TRAIN_LAYERS (6) of its 24 layers, batch 8 x
     2048, bf16 compute, AdamW, remat: step-1 gradients with the kernels
     against the plain Function, leaf by leaf against their floors (router
@@ -140,7 +147,9 @@ Phases, in order; any failure exits non-zero:
     acc, l and m) at the sp=2 ring's blocks ([8, 16, 1024, 64], causal
     and not, both dtypes), head_dim 128, windows of 64 and 128 keys and
     T = 1, 127, 129, 257 (PARTIAL_CHECKS), bitwise across two runs, and
-    timed against its bound and ``_partial_ref``; then ranks spawned on
+    timed against its bound, ``_partial_ref`` and, in bf16,
+    ``aten._scaled_dot_product_flash_attention`` (its output and
+    log-sum-exp carry acc, l and m); then ranks spawned on
     the card (``parallel/launch.py``: one process each, gloo groups whose
     transport stages tensors through the host, joins under a time limit):
     at sp=2, ring attention at the flagship's attention shape in bf16
@@ -185,7 +194,14 @@ Phases, in order; any failure exits non-zero:
     0 killed -9 after its first checkpoint: its task requeued, a
     replacement launched that restores the checkpoint and trains, the
     job finishing with exit 0 and no failed task; start-up, checkpoint
-    and recovery seconds;
+    and recovery seconds; and the killed-master drill
+    (``run_master_kill_drill``, DRILL_RECORDS), run beside phase 16's
+    worlds (``Beside``) and waited for before leg 1: a journaled
+    resnet50_cifar10 job of two worker processes on the card, its master
+    SIGKILLed and restarted with --num_workers 0 on the same port, the
+    same workers riding the outage; every task completed once, none
+    failed, one connected trace, B1/B2 53 a pass; kill -9 to the first
+    task after the restart;
 18. the managed elastic-collective path: ResNet-50 at full size (224x224,
     1000 classes, float32, TF32 off) trained by two ranks spawned on the
     card, each at batch 32 over a data mesh whose world is formed through
@@ -219,7 +235,13 @@ Phases, in order; any failure exits non-zero:
     leaver (the moments restarted, the parameters kept); then phase 18's
     CLI job with ``--zero1 true`` and a kill -9: the ZeRO-1 placement
     logged at a world of 2, the survivor's moment restart at the shrink,
-    exit 0 with no failed task;
+    exit 0 with no failed task.  Between the two, the A4c mesh leg
+    (MESH_ROWS_SEED): the last world of 2 re-formed under
+    ``elastic_mesh_builder(tp=2)`` (dp=1, tp=2), a step on rows both
+    replicas share (one loss, both states bit for bit on the ranks' own
+    cuDNN settings, B1/B2 53, within phase 18's limits of the mean of
+    the two ranks' steps alone from the same state, ZeRO-1 over dp
+    alone), then the data mesh again;
 20. the collective LM: the flagship's widths at MULTI_RANK_LAYERS (2)
     layers (bf16, AdamW, remat) trained by two ranks spawned on the card
     at batch 4 each, the world formed as phase 18's: step-1 loss and
@@ -235,7 +257,10 @@ Phases, in order; any failure exits non-zero:
     the AdamW state a rank, ms a step both ways and the parameter
     all-gather's ms; then the port's wrap-your-own-loop example
     (``models/mnist_torch.py``: an ElasticDataset, 16 batches of 32, a
-    port master in this process) on the card;
+    port master in this process) on the card; then the LoRA collective
+    CLI job (LORA_CLI_PARAMS, ``--zero1 true``, two workers) with worker
+    0 killed -9: exit 0 with no failed task, B3 2 L and B4, B5 L launches
+    a pass in each surviving worker;
 21. MobileNetV2 and the job types: MobileNetV2 (2,236,682 parameters,
     the CIFAR-10 stem, flax's GroupNorm in plain torch ops) through the
     port's CollectiveTrainer at batch 128, float32 with TF32 off and
@@ -432,9 +457,11 @@ import argparse
 import contextlib
 import http.client
 import json
+import logging
 import math
 import os
 import re
+import shutil
 import signal
 import subprocess
 import sys
@@ -577,6 +604,21 @@ def lm_params_at(layers):
 # needed the room: the export 1.74 GB at 24 layers, PERF.md §6, PR 21).
 LM_SERVE_LAYERS = 12
 LM_SERVE_PARAMS = lm_params_at(LM_SERVE_LAYERS)
+# A12b: generation through the micro-batcher (phases 9 and 12).  A second
+# export of the served module with A12B_NEW new tokens (LM_NEW cut for
+# time: a size cut), served by an endpoint that batches: A12B_CLIENTS
+# concurrent clients send A12B_REQUESTS requests each of 1-3 prompts,
+# coalesced and padded to the buckets.  Gates: each answer is its rows of
+# the batch the executor formed, and that batch's output what one direct
+# predict of the same padded input gives, bit for bit; one B3 launch a
+# layer per executed batch.  The share of requests whose tokens equal the
+# request served alone is reported, not gated: bf16 GEMMs may round
+# otherwise at another batch M.
+A12B_NEW = 32
+A12B_BUCKETS = [1, 2, 4, 8]
+A12B_CLIENTS = 8
+A12B_REQUESTS = 2
+A12B_TIMEOUT_MS = 20.0
 
 
 LM_TOL = {"bfloat16": 2e-2, "float32": 1e-3}
@@ -1839,6 +1881,161 @@ def serve_lm(torch, fa, export_dir, prompts, name="lm"):
     return generated, latencies, launches, endpoint
 
 
+def batched_lm_leg(torch, fa, module, cfg, tmp, name, seed):
+    """A12b (see A12B_NEW): ``module`` exported for generation with
+    A12B_NEW new tokens under ``tmp``, served by a batching endpoint to
+    concurrent clients."""
+    from elasticdl_tpu_torch.models import transformer as tfm
+    from elasticdl_tpu_torch.serving.batcher import BatchConfig
+    from elasticdl_tpu_torch.serving.server import ModelEndpoint
+
+    base = os.path.join(tmp, name + "_batched")
+    t0 = time.perf_counter()
+    tfm.export_generate(os.path.join(base, "1"), module, cfg,
+                        max_new_tokens=A12B_NEW, prompt_len=LM_PROMPT,
+                        model_name=name, version=1)
+    export_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    endpoint = ModelEndpoint(base, device=DEVICE, batching=BatchConfig(
+        max_batch_size=A12B_BUCKETS[-1], batch_timeout_ms=A12B_TIMEOUT_MS,
+        pad_buckets=A12B_BUCKETS, warm=False))
+    load_s = time.perf_counter() - t0
+    model = endpoint.model
+    direct, batches = model.predict, []
+
+    def recorded(inputs):
+        # The executor's one predict a batch: its padded input, output
+        # and B3 launches.
+        before = fa.LAUNCHES
+        got = direct(inputs)
+        batches.append((np.array(inputs), np.array(got),
+                        fa.LAUNCHES - before))
+        return got
+
+    rng = np.random.RandomState(seed)
+    requests = [[rng.randint(0, cfg.vocab_size, size=(
+        rng.randint(1, 4), LM_PROMPT)).astype(np.int32)
+        for _ in range(A12B_REQUESTS)] for _ in range(A12B_CLIENTS)]
+    answers, latencies, errors = {}, [], []
+    go = threading.Barrier(A12B_CLIENTS)
+
+    def client(c):
+        try:
+            go.wait()
+            for i, rows in enumerate(requests[c]):
+                t = time.perf_counter()
+                resp = endpoint.predict({"instances": rows.tolist()})
+                latencies.append((time.perf_counter() - t) * 1e3)
+                answers[(c, i)] = np.asarray(resp["predictions"])
+        except Exception as e:  # noqa: BLE001 — failed below
+            errors.append(repr(e))
+
+    model.predict = recorded
+    threads = [threading.Thread(target=client, args=(c,), daemon=True)
+               for c in range(A12B_CLIENTS)]
+    t0 = time.perf_counter()
+    try:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(timeout=300)
+        wall_s = time.perf_counter() - t0
+        stats = endpoint.stats()
+    finally:
+        model.predict = direct
+        endpoint.close()
+    what = "%s through the batcher" % name
+    if errors or len(answers) != A12B_CLIENTS * A12B_REQUESTS:
+        fail("%s: %d answers, errors %s" % (what, len(answers), errors[:3]))
+    # Each answer is its rows of exactly one executed batch (the batcher
+    # pads with copies of a batch's first row, so the first request's
+    # rows may match there twice); each batch's output is what a direct
+    # predict of its padded input gives.
+    for (c, i), answer in answers.items():
+        rows = requests[c][i]
+        found = {b for b, (inp, out, _) in enumerate(batches)
+                 for at in range(len(inp) - len(rows) + 1)
+                 if np.array_equal(inp[at:at + len(rows)], rows)
+                 and np.array_equal(out[at:at + len(rows)], answer)}
+        if len(found) != 1:
+            fail("%s: request %d of client %d is its rows of %d executed "
+                 "batches, want 1" % (what, i, c, len(found)))
+    redo = [np.array_equal(direct(inp), out) for inp, out, _ in batches]
+    launches = [n for _, _, n in batches]
+    sizes = [len(inp) for inp, _, _ in batches]
+    if not all(redo) or launches != [cfg.num_layers] * len(batches) or any(
+            n not in A12B_BUCKETS for n in sizes):
+        fail("%s: a direct predict of each padded batch equal %s, B3 "
+             "launches a batch %s (want %d), batch sizes %s" % (
+                 what, redo, launches, cfg.num_layers, sizes))
+    alone = [np.array_equal(direct(requests[c][i]), answer)
+             for (c, i), answer in sorted(answers.items())]
+    rows = sum(len(r) for reqs in requests for r in reqs)
+    shutil.rmtree(base)
+    out = {"export_s": export_s, "load_s": load_s, "wall_s": wall_s,
+           "requests": len(answers), "rows": rows, "batches": len(batches),
+           "batch_sizes": sizes,
+           "mean_occupancy": stats["mean_batch_occupancy"],
+           "latency_ms_p50": float(np.percentile(latencies, 50)),
+           "latency_ms_p99": float(np.percentile(latencies, 99)),
+           "generated_tokens_per_s": rows * A12B_NEW / wall_s,
+           "b3_launches_per_batch": launches,
+           "alone_share": sum(alone) / len(alone)}
+    print("%s (A12b; prompt %d, %d new tokens, buckets %s, %d clients x %d "
+          "requests of 1-3 prompts, %d rows): %d batches padded to %s rows, "
+          "mean occupancy %.2f; latency p50 %.1f ms, p99 %.1f ms; "
+          "%.1f generated tokens/s over %.2f s; B3 %s a batch; every "
+          "answer its rows of the padded batch, bit for bit a direct "
+          "predict of it; %.0f %% of requests equal served alone; export "
+          "%.1f s, load %.1f s" % (
+              what, LM_PROMPT, A12B_NEW, A12B_BUCKETS, A12B_CLIENTS,
+              A12B_REQUESTS, rows, len(batches), sizes,
+              out["mean_occupancy"], out["latency_ms_p50"],
+              out["latency_ms_p99"], out["generated_tokens_per_s"], wall_s,
+              launches, 100 * out["alone_share"], export_s, load_s))
+    if name == "lm":
+        out["decode_ms_a_token"] = sampled_decode_ms(torch, tfm, module, cfg,
+                                                     seed)
+    return out
+
+
+# The sampled decode's cost (phase 9, after A12b): generate at a full
+# bucket of A12B_BUCKETS[-1] prompts and A12B_NEW new tokens, greedy and
+# sampled at SAMPLED_TEMPERATURE (the Gumbel noise hashed on the card,
+# models/transformer._step_uniforms), SAMPLED_REPS calls each after one
+# warm call; the fastest call's ms over its new tokens, prefill in it.
+SAMPLED_TEMPERATURE = 0.8
+SAMPLED_REPS = 2
+
+
+def sampled_decode_ms(torch, tfm, module, cfg, seed):
+    rng = np.random.RandomState(seed)
+    prompt = rng.randint(0, cfg.vocab_size, size=(
+        A12B_BUCKETS[-1], LM_PROMPT)).astype(np.int32)
+    out = {}
+    for mode, temperature in (("greedy", 0.0),
+                              ("sampled", SAMPLED_TEMPERATURE)):
+        times = []
+        for _ in range(SAMPLED_REPS + 1):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            tokens = tfm.generate(module, cfg, prompt, A12B_NEW,
+                                  temperature=temperature, seed=seed)
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3 / A12B_NEW)
+        if tokens.shape != (len(prompt), LM_PROMPT + A12B_NEW) or not bool(
+                ((tokens >= 0) & (tokens < cfg.vocab_size)).all()):
+            fail("lm %s generate: tokens of shape %s out of the vocab" % (
+                mode, tuple(tokens.shape)))
+        out[mode] = min(times[1:])
+    print("lm generate at batch %d, prompt %d, %d new tokens: %.2f ms a "
+          "token greedy, %.2f sampled at temperature %.1f (noise hashed "
+          "on the card), prefill included" % (
+              len(prompt), LM_PROMPT, A12B_NEW, out["greedy"],
+              out["sampled"], SAMPLED_TEMPERATURE))
+    return out
+
+
 def teacher_forced_logits(torch, served, cfg, seq, prompt_len):
     """The logits that predict each generated token of ``seq`` [B, T]:
     one forward over the whole sequence, or, for an MoE, prefill over the
@@ -2074,7 +2271,9 @@ def transformer_phase(torch, fa, tmp):
                   "attention %.2f ms" % (LM_BATCH, T, prefill[T]["kernel"],
                                          prefill[T]["plain"]))
         out["prefill_ms"] = prefill
-    del served, endpoint
+    del endpoint
+    out["batched"] = batched_lm_leg(torch, fa, served, cfg, tmp, "lm", 9)
+    del served
     torch.cuda.empty_cache()
     return out
 
@@ -2534,7 +2733,9 @@ def moe_serving_phase(torch, fa, tmp):
           "generate" % (len(errs), max(errs), *FLASH_TOL["bfloat16"]))
     out.update(check_lm_against_plain(torch, fa, served, cfg, prompts,
                                       generated, "moe"))
-    del served, endpoint
+    del endpoint
+    out["batched"] = batched_lm_leg(torch, fa, served, cfg, tmp, "moe", 12)
+    del served
     torch.cuda.empty_cache()
     return out
 
@@ -2874,8 +3075,11 @@ def partial_phase(torch, fa):
     m), bitwise across two runs at the ring's shapes; then, at
     PARTIAL_TIMED causal and non-causal in both dtypes, the kernel's time,
     the plain version's and the bound.  No PyTorch call returns the
-    unnormalised acc (scaled_dot_product_attention normalises), so there
-    is no library time."""
+    unnormalised acc; the nearest one call is
+    ``aten._scaled_dot_product_flash_attention`` (bf16 only), whose
+    normalised output and log-sum-exp carry the same information as
+    (acc, l, m) with m = lse and l = 1: its time is the library time in
+    bf16, none in float32."""
     dev = torch.device(DEVICE)
     gen = torch.Generator(device=dev).manual_seed(13)
     worst = {"float32": 0.0, "bfloat16": 0.0}    # of |err| / (l + |ref|)
@@ -2938,15 +3142,22 @@ def partial_phase(torch, fa):
                        q, k, v, causal=causal), flush),
                    "plain_ms": time_ms(torch, lambda: fa._partial_ref(
                        q, k, v, causal, D ** -0.5, 0), flush, reps=5),
-                   "library_ms": None}
+                   "library_ms": time_ms(
+                       torch, lambda: torch.ops.aten.
+                       _scaled_dot_product_flash_attention(
+                           q, k, v, 0.0, causal, False, scale=D ** -0.5),
+                       flush) if name == "bfloat16" else None}
             row.update(flash_bound(B, H, T, D, q.element_size(), causal, 0,
                                    "partial"))
             row["bound_share"] = row["bound_ms"] / row["ms"]
             timed[(name, causal)] = row
             print("time flash_partial B=%d H=%d T=%d D=%d %s causal=%s: "
-                  "kernel %.4f ms, plain %.4f ms, bound %.4f ms (%s; %.2f "
-                  "GFLOP, %.1f MB), %.1f %% of the bound" % (
+                  "kernel %.4f ms, plain %.4f ms, library (aten._scaled_dot_"
+                  "product_flash_attention: out and lse) %s ms, bound %.4f "
+                  "ms (%s; %.2f GFLOP, %.1f MB), %.1f %% of the bound" % (
                       B, H, T, D, name, causal, row["ms"], row["plain_ms"],
+                      "none" if row["library_ms"] is None
+                      else "%.4f" % row["library_ms"],
                       row["bound_ms"], row["bound_by"], row["gflop"],
                       row["bytes_ms"] * 1e-3 * HBM_BYTES_PER_S / 1e6,
                       100 * row["bound_share"]))
@@ -3397,9 +3608,10 @@ def a18_launch_counts(sp, i):
             for got in sp["a18"]["legs"]}
 
 
-def sp_phase(torch, fa, lm_refs):
+def sp_phase(torch, fa, lm_refs, beside=None):
     """Sequence parallelism on the card (module docstring, phase 16);
-    ``lm_refs``: ``multi_rank_refs``."""
+    ``lm_refs``: ``multi_rank_refs``.  ``beside`` (a ``Beside``) starts
+    once the kernel timings are done, to run beside the worlds."""
     from elasticdl_tpu_torch.models.spec import load_model_spec
     from elasticdl_tpu_torch.utils.checkpoint import CheckpointSaver
     from elasticdl_tpu_torch.worker.collective_trainer import (
@@ -3410,6 +3622,8 @@ def sp_phase(torch, fa, lm_refs):
     out["partial_worst"], out["partial_max_abs_err"], out["partial_timed"] = (
         partial_phase(torch, fa))
     out["partial_s"] = time.perf_counter() - t0
+    if beside is not None:
+        beside.start()
 
     toks = torch.from_numpy(lm_refs["bf16"]["tokens"]).to(DEVICE)
     tmp = tempfile.TemporaryDirectory()
@@ -3540,7 +3754,8 @@ CLI_LAYERS = 4
 CLI_PARAMS = ("vocab_size=32768;dim=1024;num_heads=16;num_layers=%d;"
               "seq_len=2048;dtype=bfloat16;remat=true" % CLI_LAYERS)
 # 160 tasks of 4 minibatches: enough that the surviving worker cannot
-# finish the job before the replacement's first step.
+# finish the job before the replacement's first step (96 were not: on an
+# H100 80GB HBM3, 700 W, the survivor once ran all of them before it).
 CLI_RECORDS = 5120
 CLI_CHECKPOINT_STEPS = 8
 CLI_TIMEOUT_S = 420
@@ -3901,8 +4116,414 @@ def cli_leg(torch):
     return out
 
 
-def process_phase(torch, fa):
-    return {"in_process": process_leg(torch, fa), "cli": cli_leg(torch)}
+# -- the killed-master drill harness ---------------------------------------
+#
+# The killed-master drill on port processes (counterpart of the JAX
+# package's ``bench_elastic.run_master_kill_drill``), run by phase 17's
+# leg 3 on the card and by tests/test_torch_master_recovery.py on the CPU.
+#
+# A first master (``python -m elasticdl_tpu_torch.master.main``) launches
+# process workers and journals the job (``--journal_dir``).  Once a few
+# training tasks are done the master is SIGKILLed: the workers are
+# orphaned, and their outage-riding clients (``utils/retry.py``) keep
+# retrying against the master's fixed port.  A second master starts with
+# ``--num_workers 0`` on the same port: it replays the journal, requeues
+# the tasks that were in flight, and the same worker processes reconnect
+# without a restart and finish the job.  The drill measures the recovery
+# time (kill -> the first task completed after the restart, read from the
+# live journal) and checks the accounting: every training task completed
+# exactly once (a doubled one would overshoot, a lost one would hang or
+# undershoot), none failed, the second master exits 0 and launched no
+# worker, and the workers that finished the job are the first master's
+# (their pids alive at the recovery).  Which orphans exited by themselves
+# and wrote their trace dumps is reported: an idle one that asks again
+# only after the job has ended rides its outage budget out, and is reaped
+# once the others have exited and a grace has passed, as the JAX drill
+# reaps its orphans.
+#
+# Trace gate: every process runs with ``$ELASTICDL_TRACE_DIR`` set; the
+# survivors' flight-recorder dumps and the restarted master's stitch into
+# one connected trace holding the workers' ``rpc_retry`` events in the
+# outage, the second master's ``journal.replayed`` (inside its
+# ``master.journal_replay`` span, linked to by every later event of it)
+# and a task completed after the restart (``task.completed`` with
+# ``restart`` set).
+#
+# ``run_master_kill_drill`` returns a dict of what it saw; the caller
+# gates on it (``tests/test_torch_master_recovery.py`` on the CPU,
+# ``chip_smoke.py`` on the card).  Every process it starts is stopped
+# before it returns.
+
+
+DRILL_MASTER_MODULE = "elasticdl_tpu_torch.master.main"
+DRILL_WORKERS = 2
+# Training tasks journaled done before the kill.
+DRILL_KILL_AFTER_TASKS = 3
+DRILL_POLL_S = 0.25
+# After the restarted master's exit: how long the orphans get once one of
+# them has exited (the JAX drill waits 10 s for its dumps), and how long
+# past its outage budget the first may take (a loaded host's teardown).
+DRILL_EXIT_GRACE_S = 10
+DRILL_EXIT_MARGIN_S = 30
+
+
+def _drill_worker_pids(master_pid):
+    """{pid: worker id} of the master's children that run a worker (a
+    thread listed in the children file is not a process of its own)."""
+    path = "/proc/%d/task/%d/children" % (master_pid, master_pid)
+    try:
+        with open(path) as f:
+            children = [int(p) for p in f.read().split()]
+    except OSError:
+        return {}
+    out = {}
+    for pid in children:
+        try:
+            with open("/proc/%d/status" % pid) as f:
+                tgid = int(re.search(r"^Tgid:\s*(\d+)", f.read(),
+                                     re.M).group(1))
+            if tgid != pid:
+                continue
+            with open("/proc/%d/environ" % pid, "rb") as f:
+                env = f.read().split(b"\0")
+        except OSError:
+            continue
+        for item in env:
+            if item.startswith(b"WORKER_ID="):
+                out[pid] = int(item[len(b"WORKER_ID="):])
+    return out
+
+
+def _alive(pid):
+    """Whether ``pid`` runs (an orphan is not this process's child, so
+    its exit is read from /proc: a zombie counts as gone)."""
+    try:
+        with open("/proc/%d/status" % pid) as f:
+            return not re.search(r"^State:\s*Z", f.read(), re.M)
+    except OSError:
+        return False
+
+
+def _drill_trace_connected(events):
+    """Whether one connected component of the dumps holds the workers'
+    ``rpc_retry``, the restarted master's ``journal.replayed`` and a task
+    completed after the restart."""
+    from elasticdl_tpu_torch.utils import tracing
+
+    for component in tracing.trace_components(events):
+        names = {e["name"] for e in component}
+        if {"rpc_retry", "journal.replayed", "task.completed"} <= names and \
+                any(e.get("restart") for e in component
+                    if e["name"] == "task.completed"):
+            return True
+    return False
+
+
+def run_master_kill_drill(master_args, env=None, cwd=None,
+                          rpc_deadline_secs=45, deadline_secs=240.0):
+    """Run the drill on a job of ``master_args`` (the master CLI's flags
+    without ``--journal_dir``, ``--port`` and ``--num_workers``):
+    DRILL_WORKERS process workers, the kill once DRILL_KILL_AFTER_TASKS
+    training tasks are journaled done.  ``env`` is the processes' environment (the
+    CPU or the card is its choice), ``deadline_secs`` bounds each of the
+    two masters' waits, ``rpc_deadline_secs`` is how long an orphaned
+    worker rides the outage.
+    Returns {expected and completed tasks, failed tasks, restarts,
+    seconds (kill -> recovery, the whole drill), worker pids before and
+    at recovery, exit codes, the two masters' logs, the trace gate}."""
+    from elasticdl_tpu_torch.master.journal import replay_journal
+    from elasticdl_tpu_torch.proto import elastic_pb2 as pb
+    from elasticdl_tpu_torch.utils import tracing
+    from elasticdl_tpu_torch.utils.grpc_utils import find_free_port
+
+    tmp = tempfile.mkdtemp(prefix="edl-master-kill-")
+    jdir = os.path.join(tmp, "journal")
+    tdir = os.path.join(tmp, "traces")
+    port = find_free_port()
+    env = dict(os.environ if env is None else env)
+    env["ELASTICDL_RPC_DEADLINE_SECS"] = str(rpc_deadline_secs)
+    env["ELASTICDL_TRACE_DIR"] = tdir
+    base = ([sys.executable, "-m", DRILL_MASTER_MODULE] + list(master_args)
+            + ["--journal_dir", jdir, "--port", str(port)])
+    logs = [os.path.join(tmp, "master%d.log" % i) for i in (1, 2)]
+
+    def completed():
+        state = replay_journal(jdir)
+        return 0 if state is None else state.completed_counts.get(
+            int(pb.TRAINING), 0)
+
+    def start(log, workers):
+        with open(log, "w") as f:
+            # The workers inherit the master's stderr: the first
+            # master's log goes on collecting theirs after the kill.
+            return subprocess.Popen(
+                base + ["--num_workers", str(workers)], env=env, cwd=cwd,
+                stdout=subprocess.DEVNULL, stderr=f)
+
+    out = {"port": port}
+    masters, pids = [], {}
+    # The journal is read every poll: its replay's log line stays quiet.
+    journal_log = logging.getLogger(replay_journal.__module__)
+    level = journal_log.level
+    journal_log.setLevel(logging.WARNING)
+    t0 = time.perf_counter()
+    try:
+        masters.append(start(logs[0], DRILL_WORKERS))
+        deadline = time.monotonic() + deadline_secs
+        while completed() < DRILL_KILL_AFTER_TASKS:
+            if masters[0].poll() is not None or time.monotonic() > deadline:
+                raise RuntimeError(
+                    "the first master (rc %s) journaled %d of %d tasks "
+                    "done before the kill was due:\n%s" % (
+                        masters[0].poll(), completed(), DRILL_KILL_AFTER_TASKS,
+                        _file_tail(logs[0])))
+            pids.update(_drill_worker_pids(masters[0].pid))
+            time.sleep(DRILL_POLL_S)
+        pids.update(_drill_worker_pids(masters[0].pid))
+        t_kill = time.perf_counter()
+        masters[0].send_signal(signal.SIGKILL)
+        masters[0].wait(timeout=30)
+        # Read once the master is dead: the journal is final, so any
+        # later completion is the second master's.
+        out["tasks_done_at_kill"] = done_at_kill = completed()
+        out["kill_at_s"] = t_kill - t0
+        out["worker_pids"] = {w: pid for pid, w in sorted(pids.items())}
+        masters.append(start(logs[1], 0))
+        recovery = None
+        deadline = time.monotonic() + deadline_secs
+        while masters[1].poll() is None and time.monotonic() < deadline:
+            if recovery is None and completed() > done_at_kill:
+                recovery = time.perf_counter() - t_kill
+                out["pids_alive_at_recovery"] = {
+                    w: _alive(pid) for pid, w in pids.items()}
+            time.sleep(DRILL_POLL_S)
+        if masters[1].poll() is None:
+            out["error"] = "the restarted master did not finish in time"
+        out["recovery_s"] = recovery
+        out["drill_s"] = time.perf_counter() - t0
+        out["master2_rc"] = masters[1].poll()
+        state = replay_journal(jdir)
+        out["tasks_completed"] = state.completed_counts.get(
+            int(pb.TRAINING), 0)
+        out["tasks_failed"] = sum(state.failed_counts.values())
+        out["restarts"] = state.restarts
+        # The orphans exit (and dump their traces) once the second
+        # master has said the job is done, or once their outage budget
+        # runs out if they ask again only after it has ended.  Once one
+        # has exited the others get DRILL_EXIT_GRACE_S; the rest are reaped
+        # below, as the JAX drill reaps its orphans (its trace gate needs
+        # one worker's dump beside the master's).
+        now = time.monotonic()
+        deadline = now + rpc_deadline_secs + DRILL_EXIT_MARGIN_S
+        grace_end = now + DRILL_EXIT_GRACE_S
+        while True:
+            living = [p for p in pids if _alive(p)]
+            now = time.monotonic()
+            if not living or now > deadline or (
+                    len(living) < len(pids) and now > grace_end):
+                break
+            time.sleep(DRILL_POLL_S)
+        out["workers_exited"] = not any(_alive(p) for p in pids)
+        dumps = sorted(os.listdir(tdir)) if os.path.isdir(tdir) else []
+        out["worker_dumps"] = {
+            w: "worker-%d.trace.json" % pid in dumps
+            for pid, w in pids.items()}
+        events = tracing.load_dumps(tdir)
+        out["trace_events"] = len(events)
+        out["trace_connected"] = _drill_trace_connected(events)
+    finally:
+        journal_log.setLevel(level)
+        for proc in masters:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=10)
+        for pid in pids:
+            if _alive(pid):
+                try:
+                    os.kill(pid, signal.SIGKILL)
+                except OSError:
+                    pass
+        out["logs"] = [_read_file(log) for log in logs]
+        shutil.rmtree(tmp, ignore_errors=True)
+    out["master2_launched"] = len(re.findall(r"launched worker \d+",
+                                             out["logs"][1]))
+    return out
+
+
+def _read_file(path):
+    try:
+        with open(path) as f:
+            return f.read()
+    except OSError:
+        return ""
+
+
+def _file_tail(path, n=40):
+    return "".join(_read_file(path).splitlines(True)[-n:])
+
+
+# The killed-master drill (phase 17, leg 3; ROADMAP A4c): the port's twin
+# of bench_elastic.py's run_master_kill_drill (run_master_kill_drill
+# above) on a resnet50_cifar10 job
+# (the ResNet-50 stages at full width on 32x32 synthetic_cifar10) of two
+# process workers on the card, journaled.  The master is SIGKILLed once
+# 3 training tasks are journaled done and restarted with
+# --num_workers 0 on the same port; the same two worker processes ride
+# the outage and finish the job.  Gates: every task completed once and
+# none failed, one restart, the second master exits 0 having launched no
+# worker, the first master's worker pids alive at the first task after
+# the restart, one connected trace (the workers' rpc_retry, the restarted
+# master's journal.replayed, a task completed after the restart), and B1
+# and B2 53 launches a pass in each worker that logged its launches at
+# its exit, one at least (an orphan still riding its outage budget past
+# the job's end is reaped, as the JAX drill reaps its orphans).
+# 16 tasks (32 before: a size cut), the kill after 3.
+DRILL_RECORDS = 2048
+DRILL_BATCH = 32
+# How long an orphaned worker rides an outage: the restart, a process that
+# imports torch, took 9.9-17.0 s to its first task when the drill ran
+# alone (PERF.md §6), and it runs beside phase 16's worlds; a worker that
+# asks again only after the restarted master has ended the job gives up
+# after it (and then logs its launches and exits), and is reaped once the
+# other has exited and the drill's grace has passed.  The JAX drill's
+# budget.
+DRILL_RPC_DEADLINE_S = 45
+
+
+def _worker_env():
+    """The environment of a CLI job's workers on the card: the device
+    variable unset (their default: cuda), the build phase's libraries
+    (the workers load, never build), the checkout on the path."""
+    from elasticdl_tpu_torch.ops import build
+
+    repo = os.path.dirname(os.path.abspath(__file__))
+    env = dict(os.environ)
+    env.pop("ELASTICDL_TORCH_DEVICE", None)
+    env["ELASTICDL_TORCH_BUILD_DIR"] = build.BUILD_DIR
+    env["PYTHONPATH"] = os.pathsep.join(
+        [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+    return env
+
+
+def _logged_launches(log, worker_id, what):
+    m = re.search(r"\[worker-%d\] .*kernel launches: (\{.*\})"
+                  % worker_id, log)
+    if not m:
+        fail("%s: worker %d logged no kernel launches" % (what, worker_id))
+    return json.loads(m.group(1))
+
+
+def master_kill_leg(torch):
+    what = "process path, leg 3 (killed master)"
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        out = run_master_kill_drill(
+            ["--model_zoo", "resnet", "--model_params",
+             "variant=resnet50_cifar10", "--data_origin",
+             "synthetic_cifar10:%d" % DRILL_RECORDS,
+             "--batch_size", str(DRILL_BATCH),
+             "--num_minibatches_per_task", "4", "--num_epochs", "1"],
+            env=_worker_env(), cwd=tmp.name,
+            rpc_deadline_secs=DRILL_RPC_DEADLINE_S)
+    finally:
+        tmp.cleanup()
+    logs = out.pop("logs")
+    tasks = DRILL_RECORDS // (DRILL_BATCH * 4)
+    on_card = sorted(set(re.findall(r"worker (\d+) training on (\S+)",
+                                    logs[0])))
+    # A worker logs its launches at its exit; an orphan reaped after its
+    # outage budget (the drill harness above) logs none.
+    launches = {}
+    for w in (0, 1):
+        m = re.search(r"\[worker-%d\] .*kernel launches: (\{.*\})" % w,
+                      logs[0])
+        if m:
+            launches[w] = json.loads(m.group(1))
+    checks = {
+        "every task completed once": out["tasks_completed"] == tasks,
+        "none failed": out["tasks_failed"] == 0,
+        "one restart": out["restarts"] == 1,
+        "the restarted master exits 0": out["master2_rc"] == 0,
+        "it launched no worker": out["master2_launched"] == 0,
+        "the same worker processes": out.get("pids_alive_at_recovery")
+        == {0: True, 1: True},
+        "one connected trace": out["trace_connected"],
+        "workers on the card": [w for w, _ in on_card] == ["0", "1"]
+        and all(d.startswith("cuda") for _, d in on_card),
+        "B1/B2 %d a pass" % GN_PER_FORWARD: bool(launches) and all(
+            c["train_passes"] > 0 and c["group_norm_fwd"]
+            == c["group_norm_bwd"] == GN_PER_FORWARD * c["train_passes"]
+            for c in launches.values()),
+    }
+    bad = [k for k, ok in checks.items() if not ok]
+    if bad or "error" in out:
+        fail("%s: %s %s; the restarted master's tail:\n%s" % (
+            what, bad, out.get("error", ""),
+            "".join(logs[1].splitlines(True)[-30:])))
+    out["launches"] = launches
+    out["tasks_expected"] = tasks
+    out["checks"] = sorted(checks)
+    print("%s (resnet50_cifar10, 2 process workers on the card, %d "
+          "records, batch %d): SIGKILL at %.1f s with %d of %d tasks done; "
+          "kill -9 -> the first task after the restart %.2f s; %d "
+          "completed, 0 failed, restarts %d, the restarted master exit %d "
+          "launching none; workers %s rode it (pids alive), exited by "
+          "themselves: %s; trace %d events, connected; B1/B2 by worker %s; "
+          "drill %.1f s" % (
+              what, DRILL_RECORDS, DRILL_BATCH, out["kill_at_s"],
+              out["tasks_done_at_kill"], tasks, out["recovery_s"],
+              out["tasks_completed"], out["restarts"], out["master2_rc"],
+              out["worker_pids"], out["workers_exited"], out["trace_events"],
+              {w: (c["group_norm_fwd"], c["group_norm_bwd"])
+               for w, c in launches.items()}, out["drill_s"]))
+    return out
+
+
+class Beside:
+    """A leg run on a thread of its own beside a later phase, to make
+    room in the script's time limit: its gates read nothing that the
+    other's load can move (no time, no race against a survivor).
+    ``start`` launches it; ``result`` waits for it and returns its
+    output, or raises what it raised (``fail``'s exit included)."""
+
+    def __init__(self, fn, *args):
+        self._fn, self._args = fn, args
+        self._thread, self._out, self._error = None, None, None
+        self.seconds = None
+
+    def start(self):
+        t0 = time.perf_counter()
+
+        def main():
+            try:
+                self._out = self._fn(*self._args)
+            except BaseException as e:  # noqa: BLE001 — raised in result()
+                self._error = e
+            self.seconds = time.perf_counter() - t0
+
+        # Not a daemon: if another phase fails meanwhile, the interpreter
+        # waits for the leg at exit, and the leg stops what it started.
+        self._thread = threading.Thread(target=main)
+        self._thread.start()
+
+    def result(self):
+        if self._thread is None:
+            self.start()
+        self._thread.join()
+        if self._error is not None:
+            raise self._error
+        return self._out
+
+
+def process_phase(torch, fa, master_kill):
+    """Legs 1 and 2; leg 3 (``master_kill``, a ``Beside``) ran beside
+    phase 16's worlds and is waited for first, so nothing of it runs
+    beside legs 1 and 2."""
+    drill = master_kill.result()
+    print("process path, leg 3 (killed master) ran beside phase 16: %.1f s"
+          % master_kill.seconds, flush=True)
+    return {"in_process": process_leg(torch, fa), "cli": cli_leg(torch),
+            "master_kill": drill}
 
 
 # The managed elastic-collective path (phase 18).  Leg 1: ResNet-50 at
@@ -4241,17 +4862,9 @@ def collective_cli_leg(torch, zero1=False):
     ``zero1`` (phase 19) the job runs ``--zero1 true``: the workers log
     the ZeRO-1 placement at a world of 2, and the survivor restarts its
     moments at the shrink."""
-    from elasticdl_tpu_torch.ops import build
-
     records = COLL_CLI_RECORDS
-    repo = os.path.dirname(os.path.abspath(__file__))
     tmp = tempfile.TemporaryDirectory()
-    env = dict(os.environ)
-    env.pop("ELASTICDL_TORCH_DEVICE", None)     # the workers' default: cuda
-    # The libraries the build phase made: the workers load, never build.
-    env["ELASTICDL_TORCH_BUILD_DIR"] = build.BUILD_DIR
-    env["PYTHONPATH"] = os.pathsep.join(
-        [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+    env = _worker_env()
     args = ["--model_zoo", "resnet", "--model_params",
             "variant=resnet50_cifar10",
             "--data_origin", "synthetic_cifar10:%d" % records,
@@ -4393,6 +5006,20 @@ def collective_phase(torch):
 # benchmark = False, and two zero1=False legs under the defaults first
 # record whether the defaults reproduce (printed, not gated).
 ZERO_STEPS = COLL_TIMED_STEPS + 1      # a first step, then the timed ones
+# The A4c mesh leg (ROADMAP A4c): the two ranks of leg 1's last world
+# re-formed under elastic_mesh_builder(tp=2), a mesh of dp=1 and tp=2:
+# both replicas step on the same COLL_BATCH rows (drawn from this seed),
+# and each step is held against trainers alone from the same state
+# (parameters and the whole optimizer state) on those rows, one in each
+# replica's process: the loss within COLL_LOSS_RTOL of this process's,
+# every gradient leaf of the two processes' mean (what the world's sum
+# computes) within phase 18's limit, COLL_FLOOR_X x its floor and
+# COLL_GRAD_MIN at least, its floor the distance between the two steps
+# alone (rank 0 runs leg 1's deterministic cuDNN algorithms, the joiner
+# the defaults; on an H100 80GB HBM3, 700 W, the defaults' gradients
+# moved up to 1.7e-5 of norm from run to run); then the data mesh
+# again.
+MESH_ROWS_SEED = 1919
 
 
 def _fingerprint(torch, tensors):
@@ -4553,7 +5180,83 @@ def zero_rank(role, epochs, named):
     out["state_2"] = _state_print(torch, z)
     out["counters_2"] = counters(z)
     out["loss_2"] = steps(z, data[ZERO_STEPS + 1:])[0][0]
+    out["mesh"] = mesh_leg(torch, z, spec, {0: 0, 2: 1}[rank], epochs[3:])
     tdist.reset_single_process()
+    return out
+
+
+def mesh_leg(torch, z, spec, world_rank, epochs):
+    """The A4c mesh leg of phase 19 (see MESH_ROWS_SEED), on one of the
+    two ranks of its last world: the trainer ``z`` (ZeRO-1 on) re-formed
+    under ``elastic_mesh_builder(tp=2)``, a step on the rows both ranks
+    share, against a trainer alone from the same state; then the data
+    mesh again and a step on this rank's own rows."""
+    from elasticdl_tpu_torch.ops import group_norm as gn
+    from elasticdl_tpu_torch.parallel import distributed as tdist
+    from elasticdl_tpu_torch.parallel import transport
+    from elasticdl_tpu_torch.worker.collective_trainer import (
+        CollectiveTrainer)
+
+    # No cuDNN setting of its own: rank 0 runs on leg 1's deterministic
+    # algorithms, the joiner on the defaults, and the trainer's step over
+    # the whole world keeps the two replicas one state all the same.
+    rng = np.random.RandomState(MESH_ROWS_SEED)
+    x = rng.rand(COLL_BATCH, COLL_IMAGE, COLL_IMAGE, 3).astype(np.float32)
+    y = rng.randint(0, 1000, size=COLL_BATCH).astype(np.int32)
+    out = {}
+    z.snapshot_to_host()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mesh = tdist.elastic_mesh_builder(tp=2, device=DEVICE, timeout_secs=(
+        COLL_RANKS_TIMEOUT_S))(world_rank, 2, epochs[0])
+    z.rebuild(mesh)
+    torch.cuda.synchronize()
+    out["form_s"] = time.perf_counter() - t0
+    out["shape"] = dict(mesh.shape)
+    out["report"] = z.zero1_report()
+    ref = CollectiveTrainer(spec, batch_size=COLL_BATCH, device=DEVICE)
+    ref.module.load_state_dict(z.module.state_dict())
+    ref._load_whole_state(z._whole_state())
+    torch.cuda.synchronize()
+    gn.LAUNCHES = gn.BWD_LAUNCHES = 0
+    t0 = time.perf_counter()
+    out["loss"] = float(z.train_minibatch(x, y)[0])
+    out["step_ms"] = (time.perf_counter() - t0) * 1e3
+    out["launches"] = (gn.LAUNCHES, gn.BWD_LAUNCHES)
+    out["loss_alone"] = float(ref.train_minibatch(x, y)[0])
+    # The world's step is the mean of the replicas' steps, each computed
+    # on its own process's cuDNN algorithms: it is held against the mean
+    # of the two steps alone, each leaf within COLL_FLOOR_X x its floor,
+    # the distance between the two steps alone (COLL_GRAD_MIN at least),
+    # as phase 18 holds its steps; its gap to this rank's own is reported.
+    own = {n: p.grad for n, p in ref.module.named_parameters()}
+    both = {n: g.clone() for n, g in own.items()}
+    transport.all_reduce_sum_(list(both.values()), mesh.group())
+    got = dict(z.module.named_parameters())
+    errs = {n: norm_rel(got[n].grad, g / 2) for n, g in both.items()}
+    floor = {n: norm_rel(g - own[n], own[n]) for n, g in both.items()}
+    out["grad_rel_err"] = max(errs.values())
+    out["grad_floor_max"] = max(floor.values())
+    out["grad_over_limit_max"] = max(
+        errs[n] / max(COLL_GRAD_MIN, COLL_FLOOR_X * floor[n]) for n in errs)
+    out["grad_rel_err_own"] = max(norm_rel(got[n].grad, g)
+                                  for n, g in own.items())
+    out["state"] = _state_print(torch, z)
+    out["bitwise_alone"] = _state_print(torch, ref)[:2] == out["state"][:2]
+    del ref, own, both, got
+    torch.cuda.empty_cache()
+    z.snapshot_to_host()
+    t0 = time.perf_counter()
+    z.rebuild(tdist.data_mesh_builder(DEVICE, COLL_RANKS_TIMEOUT_S)(
+        world_rank, 2, epochs[1]))
+    torch.cuda.synchronize()
+    out["back_s"] = time.perf_counter() - t0
+    out["report_back"] = z.zero1_report()
+    own = np.random.RandomState(MESH_ROWS_SEED + 1 + world_rank)
+    out["loss_back"] = float(z.train_minibatch(
+        own.rand(*x.shape).astype(np.float32),
+        own.randint(0, 1000, size=COLL_BATCH).astype(np.int32))[0])
+    out["state_back"] = _state_print(torch, z)
     return out
 
 
@@ -4571,8 +5274,9 @@ def zero1_leg(torch):
         spec, batch_size=COLL_BATCH, device=DEVICE).module, seed=19)
     torch.cuda.empty_cache()
     svcs = [tdist.MasterCoordinationService(reap_secs=COLL_RANKS_TIMEOUT_S)
-            for _ in range(3)]
-    epochs = [svc.start_epoch(n) for svc, n in zip(svcs, (2, 3, 2))]
+            for _ in range(5)]
+    epochs = [svc.start_epoch(n)
+              for svc, n in zip(svcs, (2, 3, 2, 2, 2))]
     roles = ("rank0", "rank1", "joiner")
     t0 = time.perf_counter()
     r0, r1, joiner = launch.run(
@@ -4613,10 +5317,34 @@ def zero1_leg(torch):
         "finite losses": all(map(math.isfinite, r0["on_losses"] + [
             r0["loss_3"], r0["loss_2"], joiner["loss_2"]])),
     }
+    m0, m1 = r0["mesh"], joiner["mesh"]
+    checks.update({
+        "A4c: a (dp=1, tp=2) mesh": m0["shape"] == m1["shape"] == {
+            "dp": 1, "pp": 1, "ep": 1, "tp": 2, "sp": 1},
+        "A4c: one loss, both states bitwise": m0["loss"] == m1["loss"]
+        and m0["state"][:2] == m1["state"][:2],
+        "A4c: the step within the floors of the steps alone": all(
+            abs(m["loss"] - m["loss_alone"]) <= COLL_LOSS_RTOL * abs(
+                m["loss_alone"]) and m["grad_over_limit_max"] <= 1.0
+            for m in (m0, m1)),
+        "A4c: B1/B2 %d in the step" % GN_PER_FORWARD: all(
+            tuple(m["launches"]) == (GN_PER_FORWARD, GN_PER_FORWARD)
+            for m in (m0, m1)),
+        "A4c: ZeRO-1 over dp alone": m0["report"]["num_shards"] == 1
+        and m0["report_back"]["num_shards"] == 2
+        and m0["report_back"]["mode"] == "zero1",
+        "A4c: back on the data mesh, one state": m0["loss_back"]
+        == m1["loss_back"] and m0["state_back"][:2] == m1["state_back"][:2]
+        and math.isfinite(m0["loss_back"]),
+    })
     bad = [k for k, ok in checks.items() if not ok]
     if bad:
-        fail("ZeRO-1 path, leg 1: %s (losses on %s, off %s)" % (
-            bad, r0["on_losses"], r0["off_losses"]))
+        fail("ZeRO-1 path, leg 1: %s (losses on %s, off %s; mesh leg %s)"
+             % (bad, r0["on_losses"], r0["off_losses"], {
+                 k: (m0[k], m1[k]) for k in (
+                     "loss", "loss_alone", "grad_rel_err", "grad_floor_max",
+                     "grad_over_limit_max", "grad_rel_err_own", "launches",
+                     "report")}))
     ag = r0["all_gather_ms"]
     (d1_losses, d1_ms, d1_state), (d2_losses, d2_ms, d2_state) = r0[
         "default_legs"]
@@ -4639,7 +5367,32 @@ def zero1_leg(torch):
            "join_s": joiner["grow_s"], "shrink_s": r0["shrink_s"],
            "reshard_bytes_3": r0["counters_3"].get("zero1_reshard_bytes"),
            "peak_gb": [r0["peak_gb"], r1["peak_gb"]], "ranks_s": ranks_s,
+           "mesh_leg": {k: m0[k] for k in (
+               "form_s", "step_ms", "loss", "loss_alone", "grad_rel_err",
+               "grad_floor_max", "grad_over_limit_max", "grad_rel_err_own",
+               "bitwise_alone", "launches", "report", "back_s",
+               "loss_back")},
+           "mesh_leg_rank1": {k: m1[k] for k in (
+               "step_ms", "grad_rel_err", "grad_over_limit_max",
+               "grad_rel_err_own")},
            "checks": sorted(checks)}
+    print("ZeRO-1 path, A4c mesh leg (the last world of 2 re-formed under "
+          "elastic_mesh_builder(tp=2): dp=1, tp=2, both ranks on the same "
+          "%d rows): re-formed in %.2f s, a step %.1f ms (rank 1 %.1f), "
+          "loss %.6f against %.6f alone from the same state (gradients "
+          "within %.3g of norm of the mean of the two ranks' steps alone, "
+          "%.3g of its limit, the two steps alone %.3g apart; %.3g and "
+          "%.3g from each rank's own; states %s), B1/B2 %s, ZeRO-1 over %d "
+          "shard(s); back on the data mesh in %.2f s, %d shards, a step "
+          "with one loss %.6f" % (
+              COLL_BATCH, m0["form_s"], m0["step_ms"], m1["step_ms"],
+              m0["loss"], m0["loss_alone"], m0["grad_rel_err"],
+              max(m0["grad_over_limit_max"], m1["grad_over_limit_max"]),
+              m0["grad_floor_max"], m0["grad_rel_err_own"],
+              m1["grad_rel_err_own"],
+              "bitwise" if m0["bitwise_alone"] else "not bitwise",
+              m0["launches"], m0["report"]["num_shards"], m0["back_s"],
+              m0["report_back"]["num_shards"], m0["loss_back"]))
     print("ZeRO-1 path, leg 1 (ResNet-50 %dx%d f32, 2 ranks x batch %d on "
           "the card, gloo through the host, %d steps): two zero1=False legs "
           "under cuDNN's default algorithms %s (losses %s; %.1f, %.1f ms a "
@@ -4691,8 +5444,7 @@ def zero1_phase(torch):
 # CLM_RANKS_TIMEOUT_S for a peer (the joiner waits for rank 0's first
 # legs).  Leg 2: the port's wrap-your-own-loop example
 # (models/mnist_torch.py) on the card against a port master in this
-# process.  The LoRA CLI job with a kill -9 is not driven here (ROADMAP
-# A4c): the script's time limit holds no fourth CLI job.
+# process.  Leg 3: the LoRA CLI job with a kill -9 (LORA_CLI_PARAMS).
 CLM_BATCH = LM_TRAIN_BATCH // 2
 CLM_GRAD_BATCH = LM_GRAD_BATCH // 2
 # Steps a leg, each timed: the second reads the moments of the first.
@@ -5089,9 +5841,120 @@ def mnist_torch_leg(torch):
     return {"batches": batches, "loss": loss, "loop_s": loop_s}
 
 
+# The LoRA collective CLI job with a kill -9 (phase 20, leg 3; ROADMAP
+# A4c): --model_zoo lora at the flagship's widths and LORA_CLI_LAYERS
+# layers (remat, rank 8, alpha 16, seeded random base), --distribution_
+# strategy collective --zero1 true, two workers on the card at
+# LORA_CLI_BATCH x 2048 tokens a worker; worker 0 killed -9 once both
+# have stepped LORA_CLI_KILL_STEPS times in a world of 2.  Gates: the
+# survivor's in-band failure, a world of 1 and its step, the relaunch, a
+# world of 2 again, exit 0 with no failed task, and in each surviving
+# worker B3 2 L, B4 and B5 L launches a pass (remat: the forward again in
+# the backward).
+LORA_CLI_LAYERS = 4
+LORA_CLI_PARAMS = lm_params_at(LORA_CLI_LAYERS) + ";remat=true;rank=8;alpha=16"
+LORA_CLI_BATCH = 4
+LORA_CLI_KILL_STEPS = 2
+# Records enough that the survivor, alone (~16 steps/s of 4 rows on an
+# H100 80GB HBM3, 700 W), is still at work when its replacement joins.
+LORA_CLI_RECORDS = 2048
+LORA_CLI_TIMEOUT_S = 300
+
+
+def lora_cli_leg(torch):
+    what = "collective LM, leg 3 (LoRA CLI job, kill -9)"
+    tmp = tempfile.TemporaryDirectory()
+    args = ["--model_zoo", "lora", "--model_params", LORA_CLI_PARAMS,
+            "--data_origin", "synthetic_lm:%d:2048:32768" % LORA_CLI_RECORDS,
+            "--batch_size", str(LORA_CLI_BATCH),
+            "--num_minibatches_per_task", "4", "--num_workers", "2",
+            "--distribution_strategy", "collective", "--zero1", "true",
+            "--log_loss_steps", "1"]
+    job = _MasterProcess(args, _worker_env(), tmp.name, what=what)
+    deadline = job.t0 + LORA_CLI_TIMEOUT_S
+    epoch = r"rendezvous epoch (\d+): world=\[%s\]"
+    step = r"\[worker-%d\] .* step \d+ loss"
+    try:
+        t_w2, _ = job.wait_for(epoch % r"'worker-\d', 'worker-\d'", deadline)
+        for w in (0, 1):
+            job.wait_for(step % w, deadline, after=t_w2,
+                         count=LORA_CLI_KILL_STEPS)
+        os.kill(job.worker_pid(0), signal.SIGKILL)
+        t_kill = time.perf_counter()
+        t_fail, _ = job.wait_for(r"\[worker-1\] .*minibatch failed "
+                                 r"\(attempt 1\)", deadline, after=t_kill)
+        t_w1, _ = job.wait_for(epoch % r"'worker-1'", deadline, after=t_kill)
+        t_s1, _ = job.wait_for(step % 1, deadline, after=t_w1)
+        t_launch, _ = job.wait_for(r"launched worker 2\b", deadline,
+                                   after=t_kill)
+        try:
+            rc = job.proc.wait(timeout=max(1.0, deadline
+                                           - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            fail("%s: the job did not finish within %d s; its tail:\n%s"
+                 % (what, LORA_CLI_TIMEOUT_S, job.tail()))
+        t_end = time.perf_counter()
+    finally:
+        job.stop()
+        tmp.cleanup()
+    log = "".join(line for _, line in job.lines)
+    finished = re.search(r"job finished: .*'failed': \{0: 0, ", log)
+    if rc != 0 or not finished:
+        fail("%s: rc %s, job finished with no failed task: %s; tail:\n%s"
+             % (what, rc, bool(finished), job.tail()))
+    steps = {w: [t for t, line in job.lines if re.search(step % w, line)]
+             for w in (0, 1, 2)}
+    regrown = [t for t, line in job.lines if t >= t_launch and re.search(
+        epoch % r"'worker-1', 'worker-2'", line)]
+    L = LORA_CLI_LAYERS
+    launches = {}
+    for w in (1, 2):
+        c = _logged_launches(log, w, what)
+        n = c["train_passes"]
+        if steps[w] and not (n >= len(steps[w]) and c["flash_fwd"] == 2 * L
+                             * n and c["flash_bwd_dq"] == c["flash_bwd_dkv"]
+                             == L * n):
+            fail("%s: worker %d launched %s over %d logged steps, want B3 "
+                 "%d, B4 and B5 %d a pass" % (what, w, c, len(steps[w]),
+                                               2 * L, L))
+        launches[w] = c
+    placed = r"\[worker-%d\] .*zero1: optimizer state sharded 2 ways"
+    if not all(any(re.search(placed % w, line) for t, line in job.lines
+                   if t < t_kill) for w in (0, 1)):
+        fail("%s: the workers logged no ZeRO-1 placement at a world of 2"
+             % what)
+    out = {"records": LORA_CLI_RECORDS, "batch": LORA_CLI_BATCH,
+           "layers": L, "job_s": t_end - job.t0,
+           "world2_at_s": t_w2 - job.t0, "kill_at_s": t_kill - job.t0,
+           "kill_to_failure_s": t_fail - t_kill,
+           "kill_to_world1_step_s": t_s1 - t_kill,
+           "kill_to_relaunch_s": t_launch - t_kill,
+           "kill_to_world2_epoch_s": (regrown[0] - t_kill) if regrown
+           else None,
+           "steps": {w: len(s) for w, s in steps.items()},
+           "launches": launches, "rc": rc}
+    print("%s (flagship widths at %d layers, LoRA rank 8, remat, ZeRO-1, 2 "
+          "workers x %d x 2048 tokens on the card, %d records): world of 2 "
+          "at %.1f s, kill -9 of worker 0 at %.1f s; the survivor's failure "
+          "%.2f s after, its first step alone %.2f s after, the relaunch "
+          "%.2f s after, a world of 2 again %s; steps by worker %s; "
+          "launches %s; exit 0 in %.1f s, 0 failed tasks" % (
+              what, L, LORA_CLI_BATCH, LORA_CLI_RECORDS, out["world2_at_s"],
+              out["kill_at_s"], out["kill_to_failure_s"],
+              out["kill_to_world1_step_s"], out["kill_to_relaunch_s"],
+              "%.2f s after" % out["kill_to_world2_epoch_s"] if regrown
+              else "never (the job ended first)", out["steps"],
+              json.dumps({w: {k: c[k] for k in ("flash_fwd", "flash_bwd_dq",
+                                                "flash_bwd_dkv",
+                                                "train_passes")}
+                          for w, c in launches.items()}), out["job_s"]))
+    return out
+
+
 def collective_lm_phase(torch, lm_refs):
     return {"ranks": clm_ranks_leg(torch, lm_refs),
-            "mnist_torch": mnist_torch_leg(torch)}
+            "mnist_torch": mnist_torch_leg(torch),
+            "lora_cli": lora_cli_leg(torch)}
 
 
 # MobileNetV2, the predict and evaluate jobs, and the job's observability
@@ -7453,15 +8316,8 @@ def control_plane_pool_leg(torch, tmp):
     """Leg 1 of phase 26; returns its numbers."""
     from elasticdl_tpu_torch.master.journal import journal_path, scan_frames
     from elasticdl_tpu_torch.models.spec import load_model_spec
-    from elasticdl_tpu_torch.ops import build
 
-    repo = os.path.dirname(os.path.abspath(__file__))
-    env = dict(os.environ)
-    env.pop("ELASTICDL_TORCH_DEVICE", None)     # the workers' default: cuda
-    # The libraries the build phase made: the workers load, never build.
-    env["ELASTICDL_TORCH_BUILD_DIR"] = build.BUILD_DIR
-    env["PYTHONPATH"] = os.pathsep.join(
-        [repo] + [p for p in [env.get("PYTHONPATH")] if p])
+    env = _worker_env()
     ckpt, jdir = os.path.join(tmp, "ckpt_b"), os.path.join(tmp, "journal")
     jobs = [
         {"name": "jobA", "model_zoo": "mnist",
@@ -7826,8 +8682,10 @@ def main():
     finally:
         exports.cleanup()
     refs = run("multi-rank references", multi_rank_refs, torch, fa)
-    sp = run("sequence parallelism", sp_phase, torch, fa, refs)
-    proc = run("process path", process_phase, torch, fa)
+    # Phase 17's killed-master drill runs beside phase 16's worlds.
+    master_kill = Beside(master_kill_leg, torch)
+    sp = run("sequence parallelism", sp_phase, torch, fa, refs, master_kill)
+    proc = run("process path", process_phase, torch, fa, master_kill)
     coll = run("collective path", collective_phase, torch)
     zero = run("ZeRO-1 path", zero1_phase, torch)
     clm = run("collective LM", collective_lm_phase, torch, refs)
@@ -7870,6 +8728,11 @@ def main():
         "launches_zero1_job": {
             w: c["group_norm_fwd"]
             for w, c in zero["cli"]["launches"].items()},
+        "launches_a4c_mesh_step_per_rank":
+            zero["ranks"]["mesh_leg"]["launches"][0],
+        "launches_master_kill_drill": {
+            w: c["group_norm_fwd"]
+            for w, c in proc["master_kill"]["launches"].items()},
         "launches_predict_job": jobs["jobs"]["launches_predict_job"],
         "launches_serving_fleet": {
             "total": fleet["leg1"]["batched"]["launches"],
@@ -7911,6 +8774,11 @@ def main():
         "launches_zero1_job": {
             w: c["group_norm_bwd"]
             for w, c in zero["cli"]["launches"].items()},
+        "launches_a4c_mesh_step_per_rank":
+            zero["ranks"]["mesh_leg"]["launches"][1],
+        "launches_master_kill_drill": {
+            w: c["group_norm_bwd"]
+            for w, c in proc["master_kill"]["launches"].items()},
         "launches_control_plane_pool": {
             w: c["by_trainer"]
             for w, c in control["pool"]["launches"].items()},
@@ -7951,6 +8819,12 @@ def main():
         "launches_collective_lm_step_per_rank": [
             n[0] for n in clm["ranks"]["launches_per_step"]],
         "launches_a18_step_per_rank": a18_launch_counts(sp, 0),
+        "launches_a12b_per_batch": {
+            "dense": lm["batched"]["b3_launches_per_batch"],
+            "moe": moe["batched"]["b3_launches_per_batch"]},
+        "launches_lora_cli_job": {
+            w: c["flash_fwd"]
+            for w, c in clm["lora_cli"]["launches"].items()},
         "d128": {key: flash_timed["bfloat16 d128"][key] for key in (
             "shape", "ms", "plain_ms", "bound_ms", "library_ms")},
     }]
@@ -7973,6 +8847,9 @@ def main():
             "launches_collective_lm_step_per_rank": [
                 n[1 + i] for n in clm["ranks"]["launches_per_step"]],
             "launches_a18_step_per_rank": a18_launch_counts(sp, 2 + i),
+            "launches_lora_cli_job": {
+                w: c["flash_bwd_" + part]
+                for w, c in clm["lora_cli"]["launches"].items()},
             "max_abs_err": flash_bwd_err["bfloat16"][0],
             "ms": row["ms"],
             "plain_ms": row["plain_ms"],
@@ -8004,14 +8881,17 @@ def main():
         "plain_ms": part[("bfloat16", True)]["plain_ms"],
         "bound_ms": part[("bfloat16", True)]["bound_ms"],
         "bound_by": part[("bfloat16", True)]["bound_by"],
-        "library_ms": None,
+        "library_ms": part[("bfloat16", True)]["library_ms"],
+        "library_is": "aten._scaled_dot_product_flash_attention at the "
+                      "same q, k, v: its normalised output and log-sum-exp "
+                      "carry (acc, l, m) with m = lse and l = 1",
         "times_are": "one call at the sp=2 ring's diagonal block, q, k, v "
                      "[8, 16, 1024, 64] bfloat16, causal (the launch "
                      "elasticdl_tpu/ops/flash_attention.py:225 with "
                      "normalize=False); launches in one training step of "
                      "the flagship LM at sp=2, summed over the two ranks",
         "noncausal": {key: part[("bfloat16", False)][key] for key in (
-            "ms", "plain_ms", "bound_ms", "bound_by")},
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")},
         "float32": {key: part[("float32", True)][key] for key in (
             "ms", "plain_ms", "bound_ms", "bound_by")},
     })

@@ -56,7 +56,10 @@ run one rank's part of the step on its shards of the parameters
 ``parallel/spmd_trainer.py`` sums each gradient over the axes its spec
 does not name.  The collective trainer trains the LM over a world with no
 mesh in the spec (its gradients are all-reduced,
-``worker/collective_trainer.py``).
+``worker/collective_trainer.py``); it runs each forward inside
+``parallel.mesh.batch_split`` of its world (``Mesh.flat``), and an MoE
+model's forward runs over that mesh of ``dp`` alone, so the router
+statistics are the global batch's there too.
 """
 
 import dataclasses
@@ -75,6 +78,7 @@ from torch.utils.checkpoint import (
 
 from elasticdl_tpu_torch.models.spec import ModelSpec
 from elasticdl_tpu_torch.parallel import transport
+from elasticdl_tpu_torch.parallel.mesh import batch_split_mesh
 from elasticdl_tpu_torch.parallel.pipeline import (
     merge_microbatches,
     pipeline_apply,
@@ -701,6 +705,49 @@ def decode_step(params, cfg, caches, pos, tokens_1):
     return _decode_step(_cast(params, cfg), cfg, caches, pos, tokens_1)
 
 
+_U64 = (1 << 64) - 1
+
+
+def _int64(value):
+    """A uint64 value as the int64 with the same bits."""
+    value &= _U64
+    return value - (1 << 64) if value >> 63 else value
+
+
+def _srl(z, k):
+    """Logical right shift of an int64 tensor read as uint64."""
+    return (z >> k) & ((1 << (64 - k)) - 1)
+
+
+def _splitmix64(z):
+    """splitmix64's mix of an int64 tensor read as uint64: multiply and
+    xor wrap as uint64's do, the shifts are logical."""
+    z = z + _int64(0x9E3779B97F4A7C15)
+    z = (z ^ _srl(z, 30)) * _int64(0xBF58476D1CE4E5B9)
+    z = (z ^ _srl(z, 27)) * _int64(0x94D049BB133111EB)
+    return z ^ _srl(z, 31)
+
+
+def _step_key(seed, step):
+    """The int64 key of one sampling step: (seed, step) mixed on the
+    host, splitmix64 of the 32-bit seed over the step."""
+    z = (((int(seed) & 0xFFFFFFFF) << 32) | (int(step) & 0xFFFFFFFF))
+    z = (z + 0x9E3779B97F4A7C15) & _U64
+    z = ((z ^ (z >> 30)) * 0xBF58476D1CE4E5B9) & _U64
+    z = ((z ^ (z >> 27)) * 0x94D049BB133111EB) & _U64
+    return _int64(z ^ (z >> 31))
+
+
+def _step_uniforms(index, seed, step):
+    """Uniforms in (0, 1), float32, one per element of ``index`` (int64
+    element indices): the top 24 bits of splitmix64 of the index plus
+    the step's key, at the centre of their bin.  Counter-based, so an
+    element's value depends on (seed, step, index) alone and is the same
+    on every device; no host work beyond the key."""
+    bits = _srl(_splitmix64(index + _step_key(seed, step)), 40)
+    return (bits.float() + 0.5) * 2.0 ** -24
+
+
 def generate(params, cfg, prompt, max_new_tokens, temperature=0.0, seed=0):
     """Autoregressive generation: batched prefill + KV-cache decode.
 
@@ -708,10 +755,15 @@ def generate(params, cfg, prompt, max_new_tokens, temperature=0.0, seed=0):
     BOS token).  Returns int32 [B, Tp + max_new_tokens] on the params'
     device; greedy when ``temperature`` == 0 (ties take the first
     index, as in JAX), else softmax sampling at the given temperature by
-    the Gumbel-max rule, as ``jax.random.categorical`` samples, from a
-    ``torch.Generator`` seeded with ``seed``.  Equal seeds reproduce
-    exactly on one device; the tokens cannot equal the JAX package's,
-    whose random stream differs.
+    the Gumbel-max rule, as ``jax.random.categorical`` samples.  The
+    uniforms are counter-based (``_step_uniforms``): element (i, j) of a
+    step's [B, V] noise hashes (seed, step) and its index i V + j, on the
+    logits' device.  Row i's noise then depends on its place and not on
+    the batch size: as in the JAX package, a row's tokens depend on the
+    seed and on its place in the batch, not on the rows after it (a
+    batcher's padding), and equal seeds reproduce exactly on any device.
+    The tokens cannot equal the JAX package's, whose random stream
+    differs.
     """
     device = params.embed.device
     prompt = torch.as_tensor(prompt, device=device).long()
@@ -724,15 +776,18 @@ def generate(params, cfg, prompt, max_new_tokens, temperature=0.0, seed=0):
     if max_new_tokens == 0:
         return prompt.int()
     total = tp + max_new_tokens
-    gen = None
-    if temperature:
-        gen = torch.Generator(device=device).manual_seed(int(seed))
 
-    def sample(logits):
+    index = []      # the [B, V] element indices, made at the first step
+
+    def sample(logits, step):
         if not temperature:
             return logits.argmax(dim=-1)
-        u = torch.rand(logits.shape, generator=gen, device=device)
-        gumbel = -torch.log(-torch.log(u.clamp(min=1e-20)))
+        if not index:
+            index.append(torch.arange(
+                logits.numel(), dtype=torch.long,
+                device=logits.device).view(logits.shape))
+        u = _step_uniforms(index[0], seed, step)
+        gumbel = -torch.log(-torch.log(u))
         return (logits / temperature + gumbel).argmax(dim=-1)
 
     with torch.no_grad():
@@ -741,10 +796,10 @@ def generate(params, cfg, prompt, max_new_tokens, temperature=0.0, seed=0):
         tokens = torch.cat(
             [prompt, torch.zeros((b, max_new_tokens), dtype=torch.long,
                                  device=device)], dim=1)
-        tokens[:, tp] = sample(logits)
+        tokens[:, tp] = sample(logits, tp)
         for t in range(tp, total - 1):
             logits, caches = _decode_step(w, cfg, caches, t, tokens[:, t])
-            tokens[:, t + 1] = sample(logits)
+            tokens[:, t + 1] = sample(logits, t + 1)
     return tokens.int()
 
 
@@ -937,6 +992,13 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
 
     def apply_fn(module, tokens, train):
         chunked = bool(xent_chunk and train)
+        # Under the collective trainer's world the batch is split over dp
+        # though the spec has no mesh: the MoE aux then takes the global
+        # batch's statistics, as the JAX GSPMD step does.  Resolved here,
+        # on the caller's thread, so a remat recompute sees the same mesh.
+        run_mesh = mesh
+        if mesh is None and cfg.moe_experts:
+            run_mesh = batch_split_mesh()
         if pipelined:
             out = forward_pipelined(
                 module, tokens, cfg, mesh, pipeline_microbatches,
@@ -948,9 +1010,9 @@ def model_spec(vocab_size=32000, dim=512, num_heads=8, num_layers=4,
             # The memory-lean loss path: hand the final hidden states (and
             # the module, for the head inside the chunked loss) to loss_fn
             # instead of materialising [B, T, V] logits.
-            hidden, aux = forward_hidden(module, tokens, cfg, mesh=mesh)
+            hidden, aux = forward_hidden(module, tokens, cfg, mesh=run_mesh)
             return ("hidden", hidden, aux, module)
-        return forward(module, tokens, cfg, mesh=mesh,
+        return forward(module, tokens, cfg, mesh=run_mesh,
                        return_aux=bool(cfg.moe_experts and train))
 
     def loss_fn(outputs, tokens):

@@ -37,8 +37,7 @@ a gloo group.  NCCL waits for a machine with a card per rank.
 
 Single-process worlds skip distributed init entirely, so the same code
 path runs in tests and single-worker jobs.  Not ported: the reference's
-bare ``host:port`` address (worker 0 hosting the service) and the
-``elastic_mesh_builder`` axes other than dp (ROADMAP A4c).
+bare ``host:port`` address (worker 0 hosting the service).
 """
 
 import datetime
@@ -51,7 +50,7 @@ import traceback
 
 import torch.distributed as dist
 
-from elasticdl_tpu_torch.parallel.mesh import data_mesh
+from elasticdl_tpu_torch.parallel.mesh import build_mesh, data_mesh
 from elasticdl_tpu_torch.utils.logging import get_logger
 
 logger = get_logger(__name__)
@@ -260,5 +259,30 @@ def data_mesh_builder(device=None, timeout_secs=None):
             return None
         return data_mesh(backend=BACKEND, device=device,
                          timeout=_timeout(timeout_secs))
+
+    return build
+
+
+def elastic_mesh_builder(pp=1, ep=1, tp=1, sp=1, device=None,
+                         timeout_secs=None):
+    """A ``mesh_builder(rank, world_size, coordinator_addr)`` for
+    ``ElasticCollectiveController`` over a dp x pp x ep x tp x sp mesh:
+    re-form the epoch's world, then build the mesh over it with dp taking
+    what the fixed axes leave (the JAX ``elastic_mesh_builder``).  A world
+    of one rank trains alone (None), as under ``data_mesh_builder``: one
+    process holds one device here, so it has no axis to split.  A larger
+    world that pp*ep*tp*sp does not divide raises ``ValueError`` before it
+    forms (every member raises alike)."""
+    fixed = pp * ep * tp * sp
+
+    def build(rank, world_size, coordinator_addr):
+        if world_size > 1 and world_size % fixed:
+            raise ValueError("%d ranks not divisible by pp*ep*tp*sp=%d"
+                             % (world_size, fixed))
+        if not initialize_from_rendezvous(rank, world_size,
+                                          coordinator_addr, timeout_secs):
+            return None
+        return build_mesh(pp=pp, ep=ep, tp=tp, sp=sp, backend=BACKEND,
+                          device=device, timeout=_timeout(timeout_secs))
 
     return build

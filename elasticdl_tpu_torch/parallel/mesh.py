@@ -21,7 +21,9 @@ stages CUDA tensors through the host on a gloo group.  A rank's device is
 
 """
 
+import contextlib
 import itertools
+import threading
 
 import numpy as np
 import torch
@@ -64,6 +66,45 @@ class Mesh:
             return self._groups[axis]
         live = self.live(axis)
         return self._groups.get(live) if live else None
+
+    def flat(self):
+        """The whole mesh as one data axis: ``dp`` spans every rank (its
+        group the world's), the other axes are 1.  Ranks keep their
+        order, the grid's."""
+        sizes = [self.shape[a] for a in AXES]
+        shape = dict.fromkeys(AXES, 1)
+        coords = dict.fromkeys(AXES, 0)
+        shape["dp"] = int(np.prod(sizes))
+        coords["dp"] = int(np.ravel_multi_index(
+            [self.coords[a] for a in AXES], sizes))
+        groups = ({"dp": self._world_group, ("dp",): self._world_group}
+                  if shape["dp"] > 1 else {})
+        return Mesh(shape, coords, groups, self._world_group, self.device)
+
+
+_split = threading.local()
+
+
+@contextlib.contextmanager
+def batch_split(mesh):
+    """Forwards run on this thread inside the block take their batch as
+    one rank's rows of a global batch split over ``mesh`` (a mesh of
+    ``dp`` alone, or None), where their spec has no mesh of its own:
+    the collective trainer's world, ``Mesh.flat()``.  A model whose
+    forward takes statistics over the batch (the MoE router's) sums them
+    over it."""
+    before = getattr(_split, "mesh", None)
+    _split.mesh = mesh
+    try:
+        yield
+    finally:
+        _split.mesh = before
+
+
+def batch_split_mesh():
+    """The mesh of the innermost ``batch_split`` on this thread, or
+    None."""
+    return getattr(_split, "mesh", None)
 
 
 def build_mesh(dp=None, pp=1, tp=1, sp=1, ep=1, *, backend, device=None,

@@ -3,8 +3,10 @@
 
 One process, one device; alone (no mesh, the trainer that the JAX
 package's ``bench.py`` and its trainer tests drive) or as one rank of a
-data-parallel world (a ``parallel/mesh.data_mesh``, the managed elastic
-collective path).  What it keeps of the JAX trainer:
+world: a data-parallel one (a ``parallel/mesh.data_mesh``, the managed
+elastic collective path) or a mesh with other axes too
+(``parallel/distributed.elastic_mesh_builder``).  What it keeps of the
+JAX trainer:
 
  - padding to a static batch with a loss mask (``_masked_mean``,
    ``_pad_batch``), so a partial minibatch trains on the same shapes as
@@ -74,10 +76,34 @@ stream's local batch, padded to ``batch_size`` rows, and the loss is the
 weighted mean over the global batch, the concatenation of the ranks'
 local batches, as the JAX trainer's ``_globalize`` gives it: each rank
 backpropagates its local weighted loss sum, then the gradients, the sum
-and the weight count go through one ``transport.all_reduce_grads_`` and
-are divided by the global count.  With accumulation each microbatch's
-mean is over the global microbatch (its count is summed first), as the
-JAX scan over global microbatches.  Padded rows weigh 0 on every rank.
+and the weight count go through one ``transport.all_reduce_grads_`` over
+the whole world and are divided by the global count.  The forward runs
+inside ``parallel.mesh.batch_split`` of the world (``Mesh.flat``), so a
+model's statistics over the batch (the MoE router's aux) are the global
+batch's, as in the JAX trainer's one GSPMD program.
+
+A mesh with axes other than dp (pp, ep, tp, sp) runs the JAX trainer's
+arithmetic with its ``data_axis`` "dp": the parameters are replicated
+over the whole mesh and rank 0's state is broadcast over all of it, and
+ZeRO-1 shards over ``dp`` and is replicated over the other axes.  The
+ranks that share a ``dp`` coordinate are replicas of one another and
+are to be fed the same rows: the JAX trainer assumes it
+(``make_array_from_process_local_data`` takes the fixed axes as lying
+inside one process, as they do on a TPU host), while the task stream of
+``worker/worker.py`` hands each rank tasks of its own and
+``api/controller.compute_accum_steps`` counts microbatches by rank over
+the world's size, not over ``dp``.  The loss, the weight count and the
+gradients are still summed over the whole world, not over ``dp`` alone:
+replicas fed the same rows count each row once per replica in the sum
+and in the count alike, so the mean is the JAX trainer's over ``dp``,
+and replicas fed rows of their own each add them to the step.  Every
+rank then steps on the same all-reduced gradients, so the replicas stay
+bit for bit one another, whatever their devices' algorithms compute
+apart (cuDNN's default ones do not reproduce across processes).  On one
+device a rank holds the whole model: the fixed axes only replicate the
+step.  With accumulation each microbatch's mean is over the global
+microbatch (its count is summed first), as the JAX scan over global
+microbatches.  Padded rows weigh 0 on every rank.
 At every epoch of more than one rank, ``rebuild`` hands rank 0's
 parameters, optimizer state and version to the world (the oldest
 survivor's, since ranks are in join order), so a replacement that
@@ -86,14 +112,15 @@ Evaluation and prediction run on the local copy and never enter a
 collective (the JAX ``_forward_local``).  A multi-process world trains
 one step per dispatch (``max_window`` 1), as the JAX trainer does.
 
-ZeRO-1 (``zero1=True``; ``worker/zero.py``): in a world of N > 1 ranks
-each rank holds a flat padded 1/N shard of every optimizer slot and of
-every parameter the optimizer updates, and a shard optimizer (the
-spec's, over the shard tensors under the parameters' names) steps it.
-A step reduces the gradients as the replicated path does (one
+ZeRO-1 (``zero1=True``; ``worker/zero.py``): in a world whose ``dp`` is
+N > 1 each rank holds a flat padded 1/N shard of every optimizer slot
+and of every parameter the optimizer updates, and a shard optimizer
+(the spec's, over the shard tensors under the parameters' names) steps
+it.  A step reduces the gradients as the replicated path does (one
 all-reduce, divided by the global count), slices each rank's shard out
-of them, steps the shard optimizer and all-gathers the fresh shards into
-the parameters (``transport.all_gather_flat_``), so the trajectory is
+of them, steps the shard optimizer and all-gathers the fresh shards
+over ``dp`` into the parameters (``transport.all_gather_flat_``), so the
+trajectory is
 bit-equal to ``zero1=False``.  Alone, the trainer runs the whole
 optimizer as without ZeRO-1.  Where the JAX trainer gathers the shards
 before a world re-forms (its ``snapshot_to_host``), the port's ranks
@@ -114,8 +141,6 @@ servable is written on the checkpoints' single background writer, as
 the JAX trainer does; ``serving_bundle`` is fixed by the first
 minibatch's features.  Worker 0 alone exports (``worker/main.py``).
 
-Left for later slices: meshes with axes other than dp (A4c), which raise
-``NotImplementedError`` naming the item.
 """
 
 import concurrent.futures
@@ -126,9 +151,9 @@ import torch
 
 from elasticdl_tpu_torch.models.spec import jax_name
 from elasticdl_tpu_torch.parallel import transport
+from elasticdl_tpu_torch.parallel.mesh import batch_split
 from elasticdl_tpu_torch.serving.export import ServingFunction
 from elasticdl_tpu_torch.utils import tracing
-from elasticdl_tpu_torch.utils.args import not_ported
 from elasticdl_tpu_torch.utils.device import resolve_device
 from elasticdl_tpu_torch.utils.logging import get_logger
 from elasticdl_tpu_torch.utils.pytree import tree_leaves, tree_map
@@ -357,7 +382,6 @@ class CollectiveTrainer(Trainer):
         self._drop_shards()
         self._layout = (1, 0, _nonce())
         self._shard_finished = True
-        self._rank = 0
         self.rebuild(mesh)
 
     # -- mesh / world management --------------------------------------------
@@ -375,8 +399,33 @@ class CollectiveTrainer(Trainer):
         of their collectives fails at once, not at the timeout.  ZeRO-1
         shards stay as they are: the next ``rebuild`` puts them back
         together if the new world holds them all."""
-        self._mesh = None
-        self._world_size = 1
+        self._set_mesh(None)
+
+    def _set_mesh(self, mesh):
+        """The world's sizes, this rank's places and its groups: the
+        whole mesh's (the state broadcast, the loss and gradient sums and
+        the ZeRO-1 exchange) and that of ``dp`` (the ZeRO-1 shards),
+        None where ``dp`` is 1.  Read once: a world the controller has
+        left is destroyed under the mesh, which rebuild() replaces before
+        the next step."""
+        self._mesh = mesh
+        alone = mesh is None
+        self._world_size = (1 if alone else
+                            torch.distributed.get_world_size(mesh.group()))
+        self._rank = 0 if alone else torch.distributed.get_rank(mesh.group())
+        self._batch_mesh = None if alone else mesh.flat()
+        self._dp_group = (None if alone or mesh.shape["dp"] == 1
+                          else mesh.group("dp"))
+
+    @property
+    def _dp_size(self):
+        """Ranks along ``dp``: the mesh's, or, with none, the world's."""
+        return (self._world_size if self._mesh is None
+                else self._mesh.shape["dp"])
+
+    @property
+    def _dp_rank(self):
+        return self._rank if self._mesh is None else self._mesh.coords["dp"]
 
     def rebuild(self, mesh):
         """Train over ``mesh`` from now on (None: alone).  Called at
@@ -385,38 +434,37 @@ class CollectiveTrainer(Trainer):
         more than one rank, rank 0's are broadcast to all (the
         epoch-start sync), and under ZeRO-1 the state is first put back
         together from the members' shards (``_exchange_shards``) and then
-        cut anew for this world.  The port keeps no per-world caches (pad
+        cut anew for this world's ``dp``.  A mesh may have any axes
+        (module docstring).  The port keeps no per-world caches (pad
         plans or compiled windows), so there is nothing else to drop."""
-        if mesh is not None:
-            others = {axis: n for axis, n in mesh.shape.items()
-                      if axis != "dp" and n > 1}
-            if others:
-                raise not_ported(
-                    "a CollectiveTrainer over mesh axes %s" % others, "A4c")
-        self._mesh = mesh
-        # Read once: a world the controller has left is destroyed under
-        # the mesh, which rebuild() replaces before the next step.
-        self._world_size = (1 if mesh is None else
-                            torch.distributed.get_world_size(mesh.group()))
-        self._rank = (0 if mesh is None else
-                      torch.distributed.get_rank(mesh.group()))
+        self._set_mesh(mesh)
         if self.process_count > 1:
             with self.timing.timeit("state_broadcast"):
                 layout_id = self._exchange_shards() if self._zero1 else None
                 self._adopt_rank0_state()
-                if self._zero1:
+                if self._sharded():
                     self._cut(layout_id)
+                elif self._zero1:
+                    # dp of 1: every rank holds rank 0's state whole.
+                    self._layout = (1, 0, layout_id)
             logger.info(
                 "world of %d ranks: adopted rank 0's parameters, optimizer "
                 "state and version %d", self.process_count, self._version)
-            if self._zero1:
+            if self._zero is not None:
                 self._log_zero1_placement()
         elif self._zero is not None:
             self._settle_alone()
 
     def _group(self):
-        """The world's process group, or None when training alone."""
-        return self._mesh.group() if self.process_count > 1 else None
+        """The group the ZeRO-1 shards are gathered over: the world's
+        ``dp``, or None when training alone or where ``dp`` is 1 (every
+        rank then holds the optimizer state whole)."""
+        return self._dp_group if self.process_count > 1 else None
+
+    def _sharded(self):
+        """Whether the optimizer state is cut into ZeRO-1 shards: on, in
+        a world whose ``dp`` is more than 1."""
+        return self._zero1 and self.process_count > 1 and self._dp_size > 1
 
     def _adopt_rank0_state(self):
         """Overwrite this rank's parameters, buffers, optimizer state and
@@ -469,12 +517,13 @@ class CollectiveTrainer(Trainer):
 
     def _cut(self, layout_id):
         """Cut the whole optimizer state (``_optimizer``'s) and the
-        parameters into this rank's shards of the world's layout; the
+        parameters into this rank's shards of the world's layout over
+        ``dp`` (replicas along the other axes hold the same shard); the
         whole state is dropped.  The shard optimizer is the spec's,
         called with the shard tensors under the parameters' names, so it
         has the same groups and hyper-parameters and picks the same torch
         implementation (foreach on the card, the for-loop on the CPU)."""
-        zero = self._partitioner(self.process_count, self._rank)
+        zero = self._partitioner(self._dp_size, self._dp_rank)
         whole = _opt_state_to_jax(self._optimizer, self._named_params(),
                                   _identity)
         params = self._opt_params()
@@ -486,7 +535,7 @@ class CollectiveTrainer(Trainer):
         self._zero, self._shards, self._shard_opt = zero, shards, shard_opt
         _opt_state_from_jax(shard_opt, self._named_shards(),
                             zero.cut_state(whole), _identity)
-        self._layout = (self.process_count, self._rank, layout_id)
+        self._layout = (self._dp_size, self._dp_rank, layout_id)
         self._shard_finished = True
 
     def _restart_moments(self, why):
@@ -612,7 +661,7 @@ class CollectiveTrainer(Trainer):
             self._settle_alone()
             return self._whole_state()
         return self._gather_layout(group, self._zero,
-                                   list(range(self.process_count)),
+                                   list(range(self._dp_size)),
                                    self._shard_state(),
                                    "zero1_checkpoint_gather_bytes")
 
@@ -688,7 +737,8 @@ class CollectiveTrainer(Trainer):
         with ``scale`` (a scalar tensor) the weighted sum times it."""
         self.timing.bump("train_passes")
         with torch.autocast(self._device.type, dtype=torch.bfloat16,
-                            enabled=self._use_bf16_compute):
+                            enabled=self._use_bf16_compute), \
+                batch_split(self._batch_mesh):
             out = self._spec.apply_fn(self._module, features, True)
         per_example = self._spec.loss_fn(out, labels).float()
         if scale is None:
@@ -702,8 +752,8 @@ class CollectiveTrainer(Trainer):
 
     def _world_step_grads(self, features, labels, weights, group):
         """The gradients of one step in a world of more than one rank,
-        summed over it into every replica's ``.grad``; returns the global
-        mean loss (the same scalar on every rank)."""
+        summed over its ``group`` into every rank's ``.grad``; returns
+        the global mean loss (the same scalar on every rank)."""
         accum = self._accum_steps
         params = list(self._module.parameters())
         if accum == 1:
@@ -737,8 +787,9 @@ class CollectiveTrainer(Trainer):
         group = self._group()
         if group is None and self._zero is not None:
             self._settle_alone()
-        if group is not None:
-            loss = self._world_step_grads(features, labels, weights, group)
+        if self.process_count > 1:
+            loss = self._world_step_grads(features, labels, weights,
+                                          self._mesh.group())
         elif accum == 1:
             loss = self._loss_and_grads(features, labels, weights)
         else:
@@ -978,7 +1029,7 @@ class CollectiveTrainer(Trainer):
                 "re-initializing optimizer", e,
             )
             self._optimizer = self._new_optimizer()
-        if self._zero1 and self.process_count > 1:
+        if self._sharded():
             self._cut(self._layout[2])
         else:
             self._layout = (1, 0, self._layout[2])
@@ -1072,15 +1123,16 @@ class CollectiveTrainer(Trainer):
 
     def zero1_report(self):
         """Per-device optimizer-state accounting (the JAX report's keys
-        and numbers for the same model, optimizer and world size): mode
-        ``zero1`` or ``replicated`` in a world of 2+ ranks, None alone."""
+        and numbers for the same model, optimizer and mesh): mode
+        ``zero1`` or ``replicated`` in a world of 2+ ranks, None alone;
+        ``num_shards`` is the size of ``dp``."""
         if self.process_count <= 1:
             return None
         if self._zero is None:
-            total = self._partitioner(self.process_count).state_bytes()[0]
+            total = self._partitioner(self._dp_size).state_bytes()[0]
             return {
                 "mode": "replicated",
-                "num_shards": self.process_count,
+                "num_shards": self._dp_size,
                 "per_device_bytes": int(total),
                 "replicated_equiv_bytes": int(total),
                 "reduction_factor": 1.0,

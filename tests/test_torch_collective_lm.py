@@ -46,6 +46,11 @@ CASES = {
     "attn": ("transformer", {"remat": "attn"}),
     "lora": ("lora", {"rank": 2, "train_norms": False}),
     "lora_norms": ("lora", {"rank": 2, "train_norms": True}),
+    # Flagship-MoE at test size: the router's load-balance aux is taken
+    # over the global batch, so each rank's statistics are summed over
+    # the world before the product.
+    "moe": ("transformer", {"moe_experts": 4, "moe_top_k": 2,
+                            "remat": False}),
 }
 # The cases that also run ZeRO-1, re-form and checkpoint.
 ZERO_CASES = ("dense_remat", "lora", "lora_norms")

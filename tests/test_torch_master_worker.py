@@ -349,15 +349,6 @@ def test_prepare_batch_touches_no_device(monkeypatch):
     assert staged.features.device.type == "meta"
 
 
-@pytest.mark.parametrize("kwargs,item", [
-    # A mesh of dp alone is ported; other axes under the trainer are A4c.
-    ({"mesh": SimpleNamespace(shape={"dp": 1, "sp": 2})}, "A4c")])
-def test_unported_trainer_options_name_their_item(kwargs, item):
-    with pytest.raises(NotImplementedError, match=item):
-        CollectiveTrainer(mnist.model_spec(), batch_size=8, device="cpu",
-                          **kwargs)
-
-
 @pytest.mark.parametrize("kwargs,steps", [
     # A cadence without an exporter exports nothing, as the JAX trainer.
     ({"export_steps": 4}, 0),
